@@ -13,11 +13,14 @@ exit code and no result line:
   2. build: compiles every kernel source under gpode_tpu_torch/csrc/ with
      nvcc (all in parallel) and prints build seconds and ptxas register and
      spill lines;
-  3. kernels: on the inputs of the official MoCap-09 train step (N=3000
-     segment rows, Din=D=5, M=100 inducing points, S=256 features) holds
-     each kernel against its plain PyTorch version — forward rtol 1e-4
-     (atol 1e-5 * max|ref|), cotangents atol 1e-3 * max|g| — and times the
-     kernel, the plain version and the least time the card could take;
+  3. kernels: on the inputs of the MoCap-09 train step (N=3000 segment rows,
+     Din=D=5, M=100 inducing points, S=256 features; the official and the
+     `fast` preset build the same params and draws) holds each kernel
+     against its plain PyTorch version — forward rtol 1e-4 (atol 1e-5 *
+     max|ref|), cotangents atol 1e-3 * max|g| — and times the kernel, the
+     plain version and the least time the card could take. The rk4 segment
+     is held at 1 substep (the fast step) and at 3, its backward also at
+     M=256 (the `m256_fast` shape) and for bit-identical reruns;
   4. train: the official-recipe shooting train step (dopri5, whole-span
      first step, 5 MC draws, no frozen mask as in bench.py): the step-0 loss
      against the same step through the plain path at rtol 1e-4, then 3
@@ -26,12 +29,20 @@ exit code and no result line:
   5. reject fallback: `flow_forward` of the bench draw over a span whose
      whole-span attempt is rejected, through the kernels and through the
      plain path, held equal (rtol 1e-4);
-  6. a `{"kernels": [...]}` line, a copy of all results in
+  6. fast train: the same for the `fast` preset (rk4, one step per
+     interval), which must launch each rk4 segment kernel once per step and
+     neither the dopri5 attempt nor the standalone rhs; prints its step-0
+     loss beside the official step's on the same params and noise;
+  7. eval: the projected scorer (128-draw posterior predictive, test LL and
+     MSE in the 50-D data space of the MoCap-09 test split) on the params
+     after phase 6, its device metric held against the host metric on the
+     same predictions (rtol 1e-4);
+  8. a `{"kernels": [...]}` line, a copy of all results in
      chiprun_out/chip_smoke.json, and as the last line
      `{"ok": true, "device": {...}}`.
 
 `--profile-steps N` adds a torch.profiler breakdown of N more train steps
-after phase 4 (device time by operator, device busy share).
+after phases 4 and 6 (device time by operator, device busy share).
 """
 
 from __future__ import annotations
@@ -52,19 +63,33 @@ PEAK_HBM_BYTES = 3.35e12
 
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 KERNEL_ITERS = 50
+EVAL_DRAWS, EVAL_REPEATS = 128, 3
 
 NAMES = ("x", "z", "lengthscales", "variance", "omega", "phase", "weights", "nu")
 SOURCES = {"fused_rhs_fwd": "gpode_tpu_torch/csrc/fused_rhs.cu",
            "fused_rhs_bwd": "gpode_tpu_torch/csrc/fused_rhs.cu",
            "fused_dopri5_attempt_fwd": "gpode_tpu_torch/csrc/fused_dopri5.cu",
-           "fused_dopri5_attempt_bwd": "gpode_tpu_torch/csrc/fused_dopri5.cu"}
+           "fused_dopri5_attempt_bwd": "gpode_tpu_torch/csrc/fused_dopri5.cu",
+           "fused_rk4_segment_fwd": "gpode_tpu_torch/csrc/fused_rk4.cu",
+           "fused_rk4_segment_bwd": "gpode_tpu_torch/csrc/fused_rk4.cu"}
 REPLACES = {
     "fused_rhs_fwd": "gpode_tpu/ops/pallas_kernels.py:252",
     "fused_rhs_bwd": "gpode_tpu/ops/pallas_kernels.py:467",
     "fused_dopri5_attempt_fwd": "gpode_tpu/ops/pallas_kernels.py:979",
     "fused_dopri5_attempt_bwd": "gpode_tpu/ops/pallas_kernels.py:1027",
+    "fused_rk4_segment_fwd": "gpode_tpu/ops/pallas_kernels.py:720",
+    "fused_rk4_segment_bwd": "gpode_tpu/ops/pallas_kernels.py:756",
 }
-MAIN_PATH_KERNELS = ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd")
+# the kernels each train path must launch, and those it must not
+MAIN_PATH_KERNELS = {
+    "official": ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd"),
+    "fast": ("fused_rk4_segment_fwd", "fused_rk4_segment_bwd"),
+}
+OFF_PATH_KERNELS = {
+    "official": (),
+    "fast": ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd",
+             "fused_rhs_fwd", "fused_rhs_bwd"),
+}
 
 
 def phase(name):
@@ -156,16 +181,18 @@ def cuda_ms(fn, iters=KERNEL_ITERS, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def main_path_inputs(dev):
-    """The official step's kernel inputs: the flattened shooting states and
-    one posterior draw of the bench problem."""
+def main_path_inputs(dev, preset="official"):
+    """A preset's step kernel inputs: the flattened shooting states and one
+    posterior draw of the bench problem."""
     import torch
     from gpode_tpu_torch.models import gp
     from gpode_tpu_torch.models.shooting import sample_step_noise, stack_segments
     from gpode_tpu_torch.models.states import sample_shooting_states
-    from gpode_tpu_torch.train.bench_setup import build_bench_problem
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
 
-    args, params, ys, ts = build_bench_problem(device=dev)
+    args, params, ys, ts = build_bench_problem(preset_model_args(preset),
+                                               device=dev)
     gen = torch.Generator(dev).manual_seed(123)
     with torch.no_grad():
         noise = sample_step_noise(params, args.num_features, args.num_samples, gen)
@@ -322,6 +349,75 @@ def long_span_error_check(x, params, rtol, atol):
     return float((x5_k - x5_p).abs().max()), err
 
 
+def rk4_kernel_phase(dev):
+    """The rk4 segment kernels at the fast step's inputs, at its 1 substep
+    and at 3 (the reverse sweep across steps); the backward also at M=256
+    (the m256_fast shape) and twice for bit-identical cotangents. Times are
+    at 1 substep. Returns the two kernel rows."""
+    phase("kernels: rk4 segment")
+    import torch
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+
+    inputs, dt, args, _, _ = main_path_inputs(dev, "fast")
+    x, params = inputs[0], inputs[1:]
+    n, din = x.shape
+    d, m = params[6].shape
+    s = params[5].shape[0]
+    substeps = args.solver_config().substeps
+    print(f"shapes: N={n} Din={din} D={d} M={m} S={s} substeps={substeps}")
+    check((n, din, d, m, s, substeps) == (3000, 5, 5, 100, 256, 1),
+          "fast-step shapes differ from the fast preset")
+    g = torch.randn(n, d, device=dev, generator=torch.Generator(dev).manual_seed(8))
+    e_fwd = e_bwd = 0.0
+    for sub in (1, 3):
+        x1_k = ck.fused_rk4_segment(x, dt, *params, sub)
+        x1_p, _ = ck.rk4_segment_plain(x, dt, *params, sub)
+        e_fwd = max(e_fwd, compare_fwd(
+            x1_k, x1_p, f"fused_rk4_segment_fwd x1 ({sub} substeps)"))
+        e_bwd = max(e_bwd, compare_grads(
+            torch.autograd.grad(x1_k, inputs, g),
+            torch.autograd.grad(x1_p, inputs, g),
+            f"fused_rk4_segment_bwd ({sub} substeps)"))
+
+    dims = (din, d, m, s)
+    ops = ck._kernel_operands(*[p.detach() for p in params])
+    xd, pd = x.detach(), [p.detach() for p in params]
+    with torch.no_grad():
+        _, xs = ck._launch_rk4_fwd(xd, dt, 1, ops, *dims)
+        ms_f = cuda_ms(lambda: ck._launch_rk4_fwd(xd, dt, 1, ops, *dims))
+        ms_fp = cuda_ms(lambda: ck.rk4_segment_plain(xd, dt, *pd, 1))
+    ms_b = cuda_ms(lambda: ck._launch_rk4_bwd(xs, g, dt, 1, ops, *dims))
+    x1_p, _ = ck.rk4_segment_plain(x, dt, *params, 1)
+    ms_bp = cuda_ms(lambda: torch.autograd.grad(x1_p, inputs, g, retain_graph=True))
+    first = ck._launch_rk4_bwd(xs, g, dt, 1, ops, *dims)
+    second = ck._launch_rk4_bwd(xs, g, dt, 1, ops, *dims)
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          "two fused_rk4_segment backward runs differ")
+    print("  fused_rk4_segment_bwd: two runs bit-identical")
+
+    inputs256, dt256, args256, _, _ = main_path_inputs(dev, "m256_fast")
+    check(inputs256[1].shape[0] == 256, "the m256_fast preset has not M=256")
+    sub256 = args256.solver_config().substeps
+    x1_k = ck.fused_rk4_segment(inputs256[0], dt256, *inputs256[1:], sub256)
+    x1_p, _ = ck.rk4_segment_plain(inputs256[0], dt256, *inputs256[1:], sub256)
+    e_fwd = max(e_fwd, compare_fwd(x1_k, x1_p, "fused_rk4_segment_fwd x1 (M=256)"))
+    e_bwd = max(e_bwd, compare_grads(
+        torch.autograd.grad(x1_k, inputs256, g),
+        torch.autograd.grad(x1_p, inputs256, g), "fused_rk4_segment_bwd (M=256)"))
+
+    pf = param_floats(din, d, m, s)
+    out = {
+        "fused_rk4_segment_fwd": (e_fwd, ms_f, ms_fp, *bound(
+            4 * rhs_ops(n, din, d, m, s), 4 * (n * din + pf + n * d + 4 * n * din))),
+        "fused_rk4_segment_bwd": (e_bwd, ms_b, ms_bp, *bound(
+            4 * vjp_ops(n, din, d, m, s), 4 * (4 * n * din + n * d + pf + n * din + pf))),
+    }
+    for name, (err, ms, pms, bms, by) in out.items():
+        print(f"{name}: {ms:.4f} ms kernel, {pms:.4f} ms plain, bound "
+              f"{bms:.4f} ms ({by}), max_abs_err {err:.3e}")
+    return out
+
+
 def reject_phase(dev):
     """A forced reject on the card: `flow_forward` of the bench draw over the
     shortest span (0.01 * 1.25^k) whose whole-span attempt the plain version
@@ -366,16 +462,21 @@ def reject_phase(dev):
     return compare_fwd(x_k, x_p, "reject fallback x(T)")
 
 
-def train_phase(dev, profile_steps=0):
-    phase("train")
+def train_phase(dev, preset, profile_steps=0):
+    """A preset's shooting train step: step-0 loss through the kernels
+    against the plain path, then the timed steps with every launch counter
+    set to 0 just before them. Returns (results, launches, args, params)."""
+    phase(f"train ({preset})")
     import torch
     from gpode_tpu_torch.models.shooting import sample_step_noise
     from gpode_tpu_torch.ops import cuda_kernels as ck
-    from gpode_tpu_torch.train.bench_setup import build_bench_problem
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
     from gpode_tpu_torch.train.builders import shooting_loss_fn
     from gpode_tpu_torch.train.trainer import default_optimizer, make_train_step
 
-    args, params, ys, ts = build_bench_problem(device=dev)
+    args, params, ys, ts = build_bench_problem(preset_model_args(preset),
+                                               device=dev)
     gen = torch.Generator(dev).manual_seed(0)
     loss_fn = shooting_loss_fn(args)  # auto rule: 3000 rows take the kernels
     noise0 = sample_step_noise(params, args.num_features, args.num_samples, gen)
@@ -387,6 +488,16 @@ def train_phase(dev, profile_steps=0):
           f"(nfe {terms_p.nfe})")
     check(math.isfinite(lk) and abs(lk - lp) <= 1e-4 * abs(lp),
           "step-0 loss through the kernels differs from the plain path")
+    extra = {}
+    if preset == "fast":
+        # the JAX package calls rk4 and dopri5 equal on this dt=0.01 grid
+        # (gpode_tpu/train/bench_setup.py:40-42): printed, not checked
+        with torch.no_grad():
+            lo = float(shooting_loss_fn(preset_model_args("official"))(
+                params, noise0, ys, ts)[0])
+        print(f"step-0 loss on the same params and noise: fast {lk:.8f}, "
+              f"official {lo:.8f} (rel diff {abs(lk - lo) / abs(lo):.3e})")
+        extra["step0_official_same_noise"] = lo
 
     opt = default_optimizer(params, 5e-3)
     step = make_train_step(loss_fn, params, opt)
@@ -414,24 +525,31 @@ def train_phase(dev, profile_steps=0):
           f"accepted {accepted} rejected {rejected}; nfe {nfe}; peak memory "
           f"{peak / 2**20:.1f} MiB; launches {launches}")
     check(all(math.isfinite(v) for v in losses), "non-finite training loss")
-    for name in MAIN_PATH_KERNELS:
-        check(launches[name] > 0, f"{name} never launched on the main path")
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    for name in MAIN_PATH_KERNELS[preset]:
+        check(launches[name] > 0, f"{name} never launched on the {preset} path")
+        if preset == "fast":  # no reject fallback: exactly once per step
+            check(launches[name] == n_steps,
+                  f"{name} launched {launches[name]} times in {n_steps} steps")
+    for name in OFF_PATH_KERNELS[preset]:
+        check(launches[name] == 0, f"{name} launched on the {preset} path")
     if profile_steps:
         profile_train_steps(step, lambda: sample_step_noise(
             params, args.num_features, args.num_samples, gen), ys, ts,
-            profile_steps)
+            profile_steps, preset)
     return dict(loss_first=losses[0], loss_last=losses[-1], step0_kernels=lk,
                 step0_plain=lp, steps_per_sec=sps, accepted=accepted,
-                rejected=rejected, nfe=nfe, peak_bytes=peak), launches
+                rejected=rejected, nfe=nfe, peak_bytes=peak, **extra), \
+        launches, args, params
 
 
-def profile_train_steps(step, make_noise, ys, ts, n_steps):
+def profile_train_steps(step, make_noise, ys, ts, n_steps, preset):
     """Device time per step by operator (torch.profiler), the device's busy
     share of the wall time, and the full table in
-    chiprun_out/chip_smoke_profile.txt."""
+    chiprun_out/chip_smoke_profile_<preset>.txt."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    phase(f"profile ({n_steps} steps)")
+    phase(f"profile ({preset}, {n_steps} steps)")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -457,8 +575,82 @@ def profile_train_steps(step, make_noise, ys, ts, n_steps):
         print(f"  {dev_self_us(e) / 1e3 / n_steps:8.4f} ms/step "
               f"{e.count / n_steps:6.1f}x/step  {e.key[:80]}")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_profile.txt"), "w") as f:
+    with open(os.path.join(ROOT, "chiprun_out",
+                           f"chip_smoke_profile_{preset}.txt"), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
+
+
+def eval_phase(dev, args, params):
+    """The projected scorer of `scripts/bench_time_to_nll.py` on the port:
+    EVAL_DRAWS posterior draws from the MoCap-09 test split's start states,
+    the preset's solver with max_steps >= 512 and the step-size heuristic,
+    LL and MSE in the 50-D data space. Held: finite, and the device metric
+    equal to the host metric on the same predictions (rtol 1e-4)."""
+    phase("eval")
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from gpode_tpu_torch.data.mocap import latent_to_data_projector
+    from gpode_tpu_torch.models.gpode import (GPODEParams, predict,
+                                              sample_predict_noise)
+    from gpode_tpu_torch.models.likelihoods import project
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.train.bench_setup import load_bench_data
+    from gpode_tpu_torch.train.builders import make_projector
+    from gpode_tpu_torch.train.evaluation import make_projected_scorer
+    from gpode_tpu_torch.train.metrics import (compute_summary,
+                                               mixture_summary_device)
+
+    data_pca, data_full = load_bench_data()
+    cfg = args.solver_config()
+    eval_cfg = dataclasses.replace(cfg, max_steps=max(512, cfg.max_steps),
+                                   first_step=None)
+    projector = latent_to_data_projector(data_pca)
+    ys_true = np.asarray(data_full.tst.ys, np.float32)
+    ts, x0 = data_pca.tst.ts, data_pca.tst.ys[:, 0]
+    scorer = make_projected_scorer(eval_cfg, projector, ys_true, ts, x0,
+                                   device=dev)
+    view = GPODEParams(params.gp, params.states.x0, params.likelihood)
+    noise = sample_predict_noise(view, args.num_features, EVAL_DRAWS,
+                                 torch.Generator(dev).manual_seed(1),
+                                 sample_x0=False)
+    ck.reset_launch_counts()
+    ll, mse = (float(v) for v in scorer(view, noise))  # first call, untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EVAL_REPEATS):
+        float(scorer(view, noise)[0])
+    seconds = (time.perf_counter() - t0) / EVAL_REPEATS
+    launches = dict(ck.LAUNCHES)
+    print(f"test split: {ys_true.shape[0]} sequences x {ys_true.shape[1]} "
+          f"steps, {EVAL_DRAWS} draws, solver {eval_cfg.solver}; LL {ll:.6f} "
+          f"MSE {mse:.6f}; {seconds:.4f} s per eval; launches {launches}")
+    check(math.isfinite(ll) and math.isfinite(mse), "non-finite test LL or MSE")
+    # below 256 rows per draw the rhs is the batched plain evaluation, as
+    # under the JAX package's vmap
+    check(launches["fused_rhs_fwd"] == 0, "the eval rhs took the kernel at "
+          f"{ys_true.shape[0]} rows per draw")
+
+    with torch.no_grad():
+        zs = predict(view, noise, torch.as_tensor(ts, device=dev), eval_cfg,
+                     x0=torch.as_tensor(x0, device=dev))
+        ys_pred = project(make_projector(projector, dev), zs)
+        var = view.likelihood.variance
+        d_ll, d_mse = (float(v) for v in mixture_summary_device(
+            torch.as_tensor(ys_true, device=dev), ys_pred, var))
+    h_ll, h_mse = compute_summary(ys_true, ys_pred.cpu().numpy(),
+                                  var.cpu().numpy())
+    print(f"  predictions {tuple(ys_pred.shape)}: device LL {d_ll:.6f} MSE "
+          f"{d_mse:.6f}, host LL {h_ll:.6f} MSE {h_mse:.6f}")
+    for name, dv, hv in (("LL", d_ll, h_ll), ("MSE", d_mse, h_mse)):
+        check(abs(dv - hv) <= 1e-4 * abs(hv),
+              f"device {name} differs from the host metric")
+    check(abs(ll - d_ll) <= 1e-4 * abs(d_ll) and abs(mse - d_mse) <= 1e-4 * abs(d_mse),
+          "the scorer differs from predict -> project -> metric")
+    return dict(ll=ll, mse=mse, host_ll=h_ll, host_mse=h_mse,
+                seconds_per_eval=seconds, draws=EVAL_DRAWS,
+                solver=eval_cfg.solver)
 
 
 def main(argv=None) -> int:
@@ -474,21 +666,28 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     build_seconds = build_phase()
     kernels, err_scaled_long_span = kernel_phase(dev)
-    train, launches = train_phase(dev, opts.profile_steps)
+    kernels.update(rk4_kernel_phase(dev))
+    train, launches, _, _ = train_phase(dev, "official", opts.profile_steps)
     train["reject_fallback_max_abs_err"] = reject_phase(dev)
+    fast, fast_launches, fast_args, fast_params = train_phase(
+        dev, "fast", opts.profile_steps)
+    evaluation = eval_phase(dev, fast_args, fast_params)
 
     phase("result")
     rows = []
     for name, (err, ms, pms, bms, by) in kernels.items():
+        # launches from the train path that runs the kernel
+        path = fast_launches if name in MAIN_PATH_KERNELS["fast"] else launches
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                     "replaces": REPLACES[name], "launches": launches[name],
+                     "replaces": REPLACES[name], "launches": path[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,
                      "bound_ms": bms, "bound_by": by, "library_ms": None})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_seconds": build_seconds,
                    "err_scaled_long_span_max_abs_err": err_scaled_long_span,
-                   "kernels": rows, "train": train}, f, indent=1)
+                   "kernels": rows, "train": train, "train_fast": fast,
+                   "eval_fast": evaluation}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """Parameters to and from plain arrays keyed by dotted path.
 
-The keys are the JAX package's `ShootingParams` leaf paths
+The keys are the JAX package's leaf paths — of `ShootingParams`
 (`gp.kernel.raw_lengthscales`, `states.x0.tril_packed`,
-`likelihood.projector.components`, `constraint.raw_scale`, ...), which are
-also the port's parameter names, so both packages can compute the same step
-from the same weights. The port itself never sees JAX: callers flatten the
-JAX pytree to this dict.
+`likelihood.projector.components`, `constraint.raw_scale`, ...) and of
+`GPODEParams` (`gp.z`, `x0.mean`, `likelihood.base.raw_variance`, ...) —
+which are also the port's parameter names, so both packages can compute the
+same step from the same weights. The port itself never sees JAX: callers
+flatten the JAX pytree to this dict.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from gpode_tpu_torch import resolve_device
-from gpode_tpu_torch.models import gp, shooting
+from gpode_tpu_torch.models import gp, gpode, shooting
 from gpode_tpu_torch.models.constraints import (GaussianConstraint,
                                                 LaplaceConstraint)
 from gpode_tpu_torch.models.likelihoods import (GaussianLikelihood,
@@ -25,40 +26,67 @@ from gpode_tpu_torch.models.states import (InitialStatePosterior,
 from gpode_tpu_torch.ops.kernels import RBFParams
 
 
+class _Arrays:
+    """Tensors from {dotted path: array} on `device`; `done()` raises on
+    arrays no parameter took."""
+
+    def __init__(self, flat: dict[str, np.ndarray], device):
+        self.flat, self.device, self.unused = flat, device, set(flat)
+
+    def __call__(self, name):
+        if name not in self.flat:
+            return None
+        self.unused.discard(name)
+        return torch.tensor(np.asarray(self.flat[name], dtype=np.float32),
+                            device=self.device)
+
+    def gp(self) -> gp.SVGPParams:
+        return gp.SVGPParams(
+            RBFParams(self("gp.kernel.raw_lengthscales"),
+                      self("gp.kernel.raw_variance")),
+            self("gp.z"), self("gp.u_mean"), u_tril=self("gp.u_tril"),
+            u_diag_raw=self("gp.u_diag_raw"))
+
+    def likelihood(self):
+        if "likelihood.base.raw_variance" in self.flat:
+            return ProjectedGaussianLikelihood(
+                GaussianLikelihood(self("likelihood.base.raw_variance")),
+                Projector(self("likelihood.projector.components"),
+                          self("likelihood.projector.norm_mean"),
+                          self("likelihood.projector.norm_std")))
+        return GaussianLikelihood(self("likelihood.raw_variance"))
+
+    def done(self, what):
+        if self.unused:
+            raise KeyError(f"arrays not used by {what}: {sorted(self.unused)}")
+
+
 def params_from_numpy(flat: dict[str, np.ndarray], args,
                       device=None) -> shooting.ShootingParams:
     """Build `ShootingParams` from {dotted path: array}; `args.constraint_type`
     picks the constraint family. `device` defaults to CUDA."""
-    device = resolve_device(device)
-    unused = set(flat)
-
-    def t(name):
-        if name not in flat:
-            return None
-        unused.discard(name)
-        return torch.tensor(np.asarray(flat[name], dtype=np.float32),
-                            device=device)
-
-    gp_params = gp.SVGPParams(
-        RBFParams(t("gp.kernel.raw_lengthscales"), t("gp.kernel.raw_variance")),
-        t("gp.z"), t("gp.u_mean"), u_tril=t("gp.u_tril"),
-        u_diag_raw=t("gp.u_diag_raw"))
+    t = _Arrays(flat, resolve_device(device))
     states = ShootingStatePosterior(
         InitialStatePosterior(t("states.x0.mean"), t("states.x0.tril_packed")),
         t("states.mean"), t("states.tril_packed"))
-    if "likelihood.base.raw_variance" in flat:
-        likelihood = ProjectedGaussianLikelihood(
-            GaussianLikelihood(t("likelihood.base.raw_variance")),
-            Projector(t("likelihood.projector.components"),
-                      t("likelihood.projector.norm_mean"),
-                      t("likelihood.projector.norm_std")))
-    else:
-        likelihood = GaussianLikelihood(t("likelihood.raw_variance"))
     kind = {"gauss": GaussianConstraint, "laplace": LaplaceConstraint}
-    constraint = kind[args.constraint_type](t("constraint.raw_scale"))
-    if unused:
-        raise KeyError(f"arrays not used by ShootingParams: {sorted(unused)}")
-    return shooting.ShootingParams(gp_params, states, likelihood, constraint)
+    params = shooting.ShootingParams(
+        t.gp(), states, t.likelihood(),
+        kind[args.constraint_type](t("constraint.raw_scale")))
+    t.done("ShootingParams")
+    return params
+
+
+def gpode_params_from_numpy(flat: dict[str, np.ndarray],
+                            device=None) -> gpode.GPODEParams:
+    """Build `GPODEParams` from {dotted path: array} (the JAX
+    `GPODEParams` leaf paths). `device` defaults to CUDA."""
+    t = _Arrays(flat, resolve_device(device))
+    params = gpode.GPODEParams(
+        t.gp(), InitialStatePosterior(t("x0.mean"), t("x0.tril_packed")),
+        t.likelihood())
+    t.done("GPODEParams")
+    return params
 
 
 def params_to_numpy(params: torch.nn.Module) -> dict[str, np.ndarray]:

@@ -1,6 +1,7 @@
 // Shared device code for the GPODE Hopper kernels (fused_rhs.cu,
-// fused_dopri5.cu): the sampled-vector-field rhs for one (row, output dim),
-// its VJP, and the fixed-order reduction of per-block parameter cotangents.
+// fused_dopri5.cu, fused_rk4.cu): the sampled-vector-field rhs for one
+// (row, output dim), its VJP, and the fixed-order reduction of per-block
+// parameter cotangents.
 //
 // Replaces the tile functions of gpode_tpu/ops/pallas_kernels.py:
 // `_rhs_tile` (:200) and `_rhs_vjp_tile` (:274, the VPU loop form).

@@ -1,9 +1,10 @@
 """Flow: numerical integration of a sampled GP vector field.
 
-Counterpart of `gpode_tpu/models/flow.py` (`flow_forward`): `odeint` applied
-to `eval_draw` of a fixed :class:`~gpode_tpu_torch.models.gp.PosteriorDraw`,
-with the whole-span dopri5 attempt kernel for one-interval shooting
-segments.
+Counterpart of `gpode_tpu/models/flow.py` (`flow_forward`,
+`flow_forward_batched`): `odeint` applied to `eval_draw` of a fixed
+:class:`~gpode_tpu_torch.models.gp.PosteriorDraw`, with the segment kernels
+for one-interval shooting segments (the rk4 segment and the whole-span dopri5
+attempt), and the batched-draw solve of posterior prediction.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ import numpy as np
 import torch
 
 from gpode_tpu_torch.models import gp
-from gpode_tpu_torch.ops.cuda_kernels import fused_dopri5_attempt
+from gpode_tpu_torch.ops.cuda_kernels import (fused_dopri5_attempt,
+                                              fused_rk4_segment)
 from gpode_tpu_torch.ops.ode import (FIRST_STEP_SPAN, ODEStats,
-                                     dopri5_controller, odeint)
+                                     dopri5_controller, max_rms_over_axis0,
+                                     odeint)
 from gpode_tpu_torch.utils.time_grids import substeps_from_dense_scale
 
 
@@ -61,6 +64,18 @@ def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
         del t  # time-invariant ODE
         return gp.eval_draw(gp_params, draw, x, use_kernel)
 
+    # rk4 one-interval shooting segments: one kernel runs all 4 * substeps
+    # stage evaluations and combines for every row, and one kernel the
+    # reverse sweep of the stage chain.
+    if cfg.solver == "rk4" and ts.shape[0] == 2 and use_kernel:
+        dt = (ts[1] - ts[0]).detach().reshape(1)
+        x1 = fused_rk4_segment(
+            x0, dt, gp_params.z, gp_params.kernel.lengthscales,
+            gp_params.kernel.variance, draw.omega, draw.phase,
+            gp.kernel_rff_weights(draw.weights), draw.nu, cfg.substeps)
+        n = cfg.substeps
+        return torch.stack([x0, x1], dim=1), ODEStats(4 * n, n, n, 2)
+
     # dopri5 whole-span shooting segments: one attempt kernel computes f0,
     # the six stages and the scaled embedded error for every row. The accept
     # test is ONE global RMS over the batch, decided on the host (one sync
@@ -97,3 +112,28 @@ def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
                        atol=cfg.atol, substeps=cfg.substeps,
                        max_steps=cfg.max_steps, first_step=cfg.first_step)
     return torch.movedim(xs, 0, 1), stats
+
+
+def flow_forward_batched(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
+                         x0: torch.Tensor, ts: torch.Tensor,
+                         cfg: SolverConfig) -> tuple[torch.Tensor, ODEStats]:
+    """Integrate S independent draws as ONE batched solve: draws carry a
+    leading draw axis S, x0 is (S, N, D). Returns ((S, N, T, D), stats).
+
+    The rhs evaluates every draw at once (`gp.eval_draws`: one batched plain
+    evaluation below the kernel gate, which is decided per draw's N rows).
+    Step-size control is shared across draws with the max-of-per-draw-RMS
+    error norm, so each draw's accuracy is at least what its own controller
+    would enforce.
+    """
+    use_kernel = _kernels_active(cfg, gp_params, x0.shape[1])
+
+    def rhs(t, x):
+        del t  # time-invariant ODE
+        return gp.eval_draws(gp_params, draws, x, use_kernel)
+
+    xs, stats = odeint(rhs, x0, ts, solver=cfg.solver, rtol=cfg.rtol,
+                       atol=cfg.atol, substeps=cfg.substeps,
+                       max_steps=cfg.max_steps, first_step=cfg.first_step,
+                       norm=max_rms_over_axis0)
+    return torch.movedim(xs, 0, 2), stats

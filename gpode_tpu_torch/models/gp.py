@@ -10,6 +10,11 @@ sample of the whitened inducing posterior q(v) = N(u_mean, S).
 Random numbers are inputs: :func:`draw_posterior` takes the standard-normal
 and uniform draws as tensors, so the training loop fills them from a
 `torch.Generator` and the tests from the JAX package's own keys.
+
+Several draws stack on a leading axis (what the JAX package gets from
+`vmap`): with noise of shape (S, ...) :func:`draw_posterior` returns a
+:class:`PosteriorDraw` whose leaves carry the draw axis, and
+:func:`eval_draws` evaluates all S fields at once.
 """
 
 from __future__ import annotations
@@ -110,11 +115,11 @@ def precompute_chol(params: SVGPParams,
 
 
 def sample_inducing(params: SVGPParams, normals: torch.Tensor) -> torch.Tensor:
-    """Reparameterized v ~ q(v) in whitened space from normals (M, D)."""
+    """Reparameterized v ~ q(v) in whitened space from normals (..., M, D)."""
     if params.q_diag:
         zs = params.u_scale_diag() * normals
     else:
-        zs = torch.einsum("dnm,md->nd", params.u_scale_tril(), normals)
+        zs = torch.einsum("dnm,...md->...nd", params.u_scale_tril(), normals)
     return zs + params.u_mean
 
 
@@ -124,14 +129,15 @@ _RFF_SCALE_FACTOR = 2.0
 
 
 def rff_eval(params: SVGPParams, omega, phase, weights, x) -> torch.Tensor:
-    """RFF prior sample at x: (N, Din) -> (N, D);
-    phi(x) = cos(x omega + phase) * sqrt(2 var / S), f = phi @ weights."""
+    """RFF prior sample at x: (..., N, Din) -> (..., N, D);
+    phi(x) = cos(x omega + phase) * sqrt(2 var / S), f = phi @ weights.
+    A leading draw axis of the draw's leaves and of x broadcasts."""
     var = params.kernel.variance
-    scale = torch.sqrt(_RFF_SCALE_FACTOR * var / weights.shape[0])
+    scale = torch.sqrt(_RFF_SCALE_FACTOR * var / weights.shape[-2])
     if params.dimwise:
-        xo = torch.einsum("nd,dfk->nfk", x, omega)
+        xo = torch.einsum("...nd,...dfk->...nfk", x, omega)
         phi = torch.cos(xo + phase) * scale
-        return torch.einsum("nfk,fk->nk", phi, weights)
+        return torch.einsum("...nfk,...fk->...nk", phi, weights)
     phi = torch.cos(x @ omega + phase) * scale
     return phi @ weights
 
@@ -140,23 +146,24 @@ def draw_posterior(params: SVGPParams, weight_normals: torch.Tensor,
                    freq_normals: torch.Tensor, phase_uniforms: torch.Tensor,
                    inducing_normals: torch.Tensor,
                    chol_zz: Optional[torch.Tensor] = None) -> PosteriorDraw:
-    """Build one posterior function draw from its noise:
-    weight_normals (S, D), freq_normals (Din, S, D) [dimwise] or (Din, S),
-    phase_uniforms in [0, 1) of shape (1, S, D) [dimwise] or (1, S),
-    inducing_normals (M, D)."""
+    """Build posterior function draws from their noise:
+    weight_normals (..., S, D), freq_normals (..., Din, S, D) [dimwise] or
+    (..., Din, S), phase_uniforms in [0, 1) of shape (..., 1, S, D)
+    [dimwise] or (..., 1, S), inducing_normals (..., M, D). A leading draw
+    axis gives that many draws sharing one Cholesky of K(Z, Z)."""
     weights = weight_normals
     omega = rbf_sample_freq(params.kernel, freq_normals)
     phase = 2.0 * math.pi * phase_uniforms
-    v = sample_inducing(params, inducing_normals)             # (M, D)
+    v = sample_inducing(params, inducing_normals)             # (..., M, D)
     if chol_zz is None:
         chol_zz = precompute_chol(params)
-    u_prior = rff_eval(params, omega, phase, weights, params.z)  # (M, D)
+    u_prior = rff_eval(params, omega, phase, weights, params.z)  # (..., M, D)
     if params.dimwise:
-        a = om.solve_lower(chol_zz, u_prior.T[:, :, None])      # (D, M, 1)
-        nu = om.solve_upper_from_lower(chol_zz, v.T[:, :, None] - a)[..., 0]
+        a = om.solve_lower(chol_zz, u_prior.mT[..., None])      # (..., D, M, 1)
+        nu = om.solve_upper_from_lower(chol_zz, v.mT[..., None] - a)[..., 0]
     else:
         a = om.solve_lower(chol_zz, u_prior)
-        nu = om.solve_upper_from_lower(chol_zz, v - a).T
+        nu = om.solve_upper_from_lower(chol_zz, v - a).mT
     return PosteriorDraw(omega=omega, phase=phase, weights=weights, nu=nu)
 
 
@@ -192,11 +199,37 @@ def eval_draw(params: SVGPParams, draw: PosteriorDraw, x: torch.Tensor,
         return fused_rhs(x, params.z, params.kernel.lengthscales,
                          params.kernel.variance, draw.omega, draw.phase,
                          kernel_rff_weights(draw.weights), draw.nu)
+    return _eval_plain(params, draw, x)
+
+
+def _eval_plain(params: SVGPParams, draw: PosteriorDraw,
+                x: torch.Tensor) -> torch.Tensor:
+    """The rhs as tensor ops; a leading draw axis of `draw` and x (S, N, Din)
+    evaluates every draw in the same few batched operations."""
     f_prior = rff_eval(params, draw.omega, draw.phase, draw.weights, x)
-    kuf = rbf_K(params.kernel, params.z, x)                  # (M,N) / (D,M,N)
+    kuf = rbf_K(params.kernel, params.z, x)      # (..., M, N) / (..., D, M, N)
     if params.dimwise:
-        return f_prior + torch.einsum("dm,dmn->nd", draw.nu, kuf)
-    return f_prior + torch.einsum("dm,mn->nd", draw.nu, kuf)
+        return f_prior + torch.einsum("...dm,...dmn->...nd", draw.nu, kuf)
+    return f_prior + torch.einsum("...dm,...mn->...nd", draw.nu, kuf)
+
+
+def eval_draws(params: SVGPParams, draws: PosteriorDraw, x: torch.Tensor,
+               use_kernel: bool | None = None) -> torch.Tensor:
+    """S sampled fields at once: draws with a leading axis S, x (S, N, Din)
+    -> (S, N, D).
+
+    The kernel gate is decided per draw's row count N, as under the JAX
+    package's `vmap` (`use_kernel` overrides it). Below the gate all draws
+    go through one batched plain evaluation; at or above it, through the
+    fused kernel once per draw.
+    """
+    if use_kernel is None:
+        use_kernel = kernel_rhs_active(params, x.shape[-2])
+    if use_kernel and params.dimwise:
+        return torch.stack([
+            eval_draw(params, PosteriorDraw(*(leaf[i] for leaf in draws)),
+                      x[i], True) for i in range(x.shape[0])])
+    return _eval_plain(params, draws, x)
 
 
 def kl(params: SVGPParams) -> torch.Tensor:

@@ -1,0 +1,108 @@
+"""Vanilla GPODE parameters and posterior-predictive sampling.
+
+Counterpart of `GPODEParams` and `predict` in `gpode_tpu/models/gpode.py`
+(the whole-trajectory ELBO is not ported yet). Prediction over S posterior
+draws is ONE batched solve (`flow.flow_forward_batched`): each draw has its
+own function draw and, when x0 is not given, its own q(x0) sample.
+
+Random numbers are inputs: a :class:`PredictNoise` carries every normal and
+uniform one prediction consumes, filled by :func:`sample_predict_noise` from
+a `torch.Generator` or, in the tests, from the JAX package's own keys.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from gpode_tpu_torch.models import gp
+from gpode_tpu_torch.models.flow import SolverConfig, flow_forward_batched
+from gpode_tpu_torch.models.states import (InitialStatePosterior,
+                                           sample_initial_state)
+from gpode_tpu_torch.utils.time_grids import insert_zero_t0
+
+
+class GPODEParams(nn.Module):
+    """Trainable state of the vanilla GPODE model: the SVGP vector field,
+    q(x0) and the likelihood. Parameter names follow the JAX package's leaf
+    paths (`gp.z`, `x0.mean`, `likelihood.base.raw_variance`, ...).
+
+    A shooting model is scored through the view
+    `GPODEParams(p.gp, p.states.x0, p.likelihood)`, which shares (does not
+    copy) those submodules of `ShootingParams` `p`."""
+
+    def __init__(self, gp_params: gp.SVGPParams, x0: InitialStatePosterior,
+                 likelihood: nn.Module):
+        super().__init__()
+        self.gp = gp_params
+        self.x0 = x0
+        self.likelihood = likelihood
+
+
+@dataclasses.dataclass
+class PredictNoise:
+    """Every random number one `predict` of S draws consumes.
+
+    rff_weights (S, S_rff, D) and rff_freq (S, Din, S_rff, D) standard
+    normals ((S, Din, S_rff) when not dimwise); rff_phase (S, 1, S_rff, D)
+    uniforms in [0, 1) ((S, 1, S_rff) when not dimwise); inducing (S, M, D)
+    standard normals; x0 (S, N, D) standard normals for the q(x0) samples,
+    or None when the caller gives x0.
+    """
+
+    rff_weights: torch.Tensor
+    rff_freq: torch.Tensor
+    rff_phase: torch.Tensor
+    inducing: torch.Tensor
+    x0: Optional[torch.Tensor] = None
+
+
+def sample_predict_noise(params: GPODEParams, num_features: int,
+                         num_draws: int, generator: torch.Generator,
+                         sample_x0: bool = True) -> PredictNoise:
+    """Fill a :class:`PredictNoise` for `num_draws` draws from `generator`
+    (on the params' device). `sample_x0=False` leaves out the x0 normals,
+    for predictions from given start states."""
+    dev = params.gp.z.device
+    m, din = params.gp.z.shape
+    d = params.gp.u_mean.shape[1]
+    kw = dict(generator=generator, device=dev)
+    s, f = num_draws, num_features
+    dimwise = params.gp.dimwise
+    return PredictNoise(
+        rff_weights=torch.randn(s, f, d, **kw),
+        rff_freq=torch.randn(*((s, din, f, d) if dimwise else (s, din, f)), **kw),
+        rff_phase=torch.rand(*((s, 1, f, d) if dimwise else (s, 1, f)), **kw),
+        inducing=torch.randn(s, m, d, **kw),
+        x0=(torch.randn(s, *params.x0.mean.shape, **kw) if sample_x0
+            else None))
+
+
+def predict(params: GPODEParams, noise: PredictNoise, ts: torch.Tensor,
+            cfg: SolverConfig, x0: Optional[torch.Tensor] = None,
+            t0_shift: Optional[float] = None) -> torch.Tensor:
+    """Posterior-predictive latent trajectories: (S, N, T, D), S the draws
+    of `noise`.
+
+    With x0=None each draw starts from its own q(x0) sample and ts is
+    augmented with the t=0 point, which is then dropped; `t0_shift` pins the
+    augmentation shift to the training grid's first interval. With a given
+    x0 (N, D), ts is used as it is. All draws share one Cholesky of K(Z, Z).
+    """
+    chol = gp.precompute_chol(params.gp)
+    draws = gp.draw_posterior(params.gp, noise.rff_weights, noise.rff_freq,
+                              noise.rff_phase, noise.inducing, chol)
+    if x0 is None:
+        if noise.x0 is None:
+            raise ValueError("predict without x0 samples q(x0): the noise "
+                             "needs its x0 normals (sample_x0=True)")
+        starts = sample_initial_state(params.x0, noise.x0)
+        xs, _ = flow_forward_batched(params.gp, draws, starts,
+                                     insert_zero_t0(ts, t0_shift), cfg)
+        return xs[:, :, 1:]
+    starts = x0.expand(noise.inducing.shape[0], *x0.shape)
+    xs, _ = flow_forward_batched(params.gp, draws, starts, ts, cfg)
+    return xs

@@ -26,8 +26,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-# One library per source; the header is shared by both.
-SOURCES = {"fused_rhs": "fused_rhs.cu", "fused_dopri5": "fused_dopri5.cu"}
+# One library per source; the header is shared by all of them.
+SOURCES = {"fused_rhs": "fused_rhs.cu", "fused_dopri5": "fused_dopri5.cu",
+           "fused_rk4": "fused_rk4.cu"}
 HEADERS = ("rhs_tile.cuh",)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,15 +1,18 @@
 """Hand-written Hopper kernels for the hot GPODE ops, with their plain
 PyTorch versions and autograd rules.
 
-Counterpart of `gpode_tpu/ops/pallas_kernels.py` for the two kernels on the
-official shooting train step:
+Counterpart of `gpode_tpu/ops/pallas_kernels.py` for the kernels on the
+shooting train step:
 
   * :func:`fused_rhs` — the decoupled-sampling ODE right-hand side
     f(x) = cos(x Omega + phase) * sqrt(2 var / S) @ w + nu^T K(Z, x), forward
     and VJP (`csrc/fused_rhs.cu`);
   * :func:`fused_dopri5_attempt` — one whole-span Dormand-Prince step for a
     batch of rows, forward and the reverse sweep of its 5th-order chain
-    (`csrc/fused_dopri5.cu`).
+    (`csrc/fused_dopri5.cu`; the official recipe);
+  * :func:`fused_rk4_segment` — `substeps` rk4 steps over one shooting
+    interval for a batch of rows, forward and the reverse sweep of the stage
+    chain (`csrc/fused_rk4.cu`; the `fast` recipe).
 
 Each public function takes the plain version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises. `LAUNCHES` counts kernel launches
@@ -33,7 +36,8 @@ from gpode_tpu_torch.ops import cuda_build
 from gpode_tpu_torch.ops.ode import _DP_A, _DP_B4, _DP_B5
 
 LAUNCHES = {"fused_rhs_fwd": 0, "fused_rhs_bwd": 0,
-            "fused_dopri5_attempt_fwd": 0, "fused_dopri5_attempt_bwd": 0}
+            "fused_dopri5_attempt_fwd": 0, "fused_dopri5_attempt_bwd": 0,
+            "fused_rk4_segment_fwd": 0, "fused_rk4_segment_bwd": 0}
 
 # Kernel limits (csrc/rhs_tile.cuh): Din unrolled up to 16 in registers;
 # 32 * D threads per backward block; 227 KB of shared memory per block.
@@ -92,6 +96,33 @@ def dopri5_attempt_plain(x0, dt, z, lengthscales, variance, omega, phase,
     return x5, (err / scale).detach(), torch.stack(xs)
 
 
+def rk4_segment_plain(x0, dt, z, lengthscales, variance, omega, phase,
+                      weights, nu, substeps=1):
+    """`substeps` rk4 steps of size h = dt / substeps (float32, from the
+    full-span dt) as plain tensor ops (`_rk4_stages` / `_fused_rk4_kernel`).
+
+    Returns (x1, xs): the state after the interval and the 4 * substeps
+    stage inputs (4 * substeps, N, Din), step by step (x, x2, x3, x4).
+    """
+    def f(xx):
+        return fused_rhs_plain(xx, z, lengthscales, variance, omega, phase,
+                               weights, nu)
+
+    h = dt / substeps
+    x, xs = x0, []
+    for _ in range(substeps):
+        k1 = f(x)
+        x2 = x + 0.5 * h * k1
+        k2 = f(x2)
+        x3 = x + 0.5 * h * k2
+        k3 = f(x3)
+        x4 = x + h * k3
+        k4 = f(x4)
+        xs += [x, x2, x3, x4]
+        x = x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    return x, torch.stack(xs)
+
+
 # ---------------------------------------------------------------------------
 # Operand checks and layout
 # ---------------------------------------------------------------------------
@@ -142,6 +173,8 @@ _SIGNATURES = {
     "fused_dopri5": {
         "gpode_dp_attempt_fwd": [_P] * 3 + [_F] * 2 + [_P] * 10 + [_I] * 7 + [_P],
         "gpode_dp_attempt_bwd": [_P] * 16 + [_I] * 6 + [_P]},
+    "fused_rk4": {"gpode_rk4_fwd": [_P] * 11 + [_I] * 8 + [_P],
+                  "gpode_rk4_bwd": [_P] * 15 + [_I] * 7 + [_P]},
 }
 _TYPED: set = set()
 
@@ -317,6 +350,17 @@ def _check_dt(dt, dev):
     return dt.reshape(1).contiguous()
 
 
+def _check_segment(x0, dt, z, lengthscales, variance, omega, phase, weights,
+                   nu, what):
+    """Operand checks of the ODE-step kernels, which add k (N, D) to x
+    (N, Din): the rhs checks, Din == D, and a one-element dt."""
+    dims = _check(x0, z, lengthscales, variance, omega, phase, weights, nu,
+                  x_name="x0")
+    if dims[0] != dims[1]:
+        raise ValueError(f"{what} needs Din == D, got {dims[0]} and {dims[1]}")
+    return dims, _check_dt(dt, x0.device)
+
+
 def _launch_dp_fwd(x0, dt, rtol, atol, ops, din, d, m, s):
     dev = x0.device
     n = x0.shape[0]
@@ -362,12 +406,8 @@ class _FusedDopri5AttemptFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x0, dt, z, lengthscales, variance, omega, phase, weights,
                 nu, rtol, atol):
-        dims = _check(x0, z, lengthscales, variance, omega, phase, weights,
-                      nu, x_name="x0")
-        if dims[0] != dims[1]:
-            raise ValueError(f"the dopri5 attempt needs Din == D, got "
-                             f"{dims[0]} and {dims[1]}")
-        dt = _check_dt(dt, x0.device)
+        dims, dt = _check_segment(x0, dt, z, lengthscales, variance, omega,
+                                  phase, weights, nu, "the dopri5 attempt")
         ops = _kernel_operands(z, lengthscales, variance, omega, phase,
                                weights, nu)
         x5, err, xs = _launch_dp_fwd(x0, dt, float(rtol), float(atol), ops,
@@ -400,3 +440,84 @@ def fused_dopri5_attempt(x0, dt, z, lengthscales, variance, omega, phase,
         return x5, err
     return _FusedDopri5AttemptFn.apply(x0, dt, z, lengthscales, variance,
                                        omega, phase, weights, nu, rtol, atol)
+
+
+# ---------------------------------------------------------------------------
+# fused_rk4_segment
+# ---------------------------------------------------------------------------
+
+def _launch_rk4_fwd(x0, dt, substeps, ops, din, d, m, s):
+    dev = x0.device
+    n = x0.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    x1, xs = torch.empty(n, d, **f32), torch.empty(4 * substeps, n, din, **f32)
+    if n == 0:
+        return x1, xs
+    rows, groups = _fwd_tiling(d)
+    lib = _lib("fused_rk4")
+    LAUNCHES["fused_rk4_segment_fwd"] += 1
+    rc = lib.gpode_rk4_fwd(
+        _ptr(x0), _ptr(dt), *map(_ptr, ops), _ptr(x1), _ptr(xs), n, din, d,
+        m, s, substeps, rows, groups, _stream(dev))
+    _raise_on(rc, "fused_rk4_segment forward")
+    return x1, xs
+
+
+def _launch_rk4_bwd(xs, g, dt, substeps, ops, din, d, m, s):
+    dev = xs.device
+    n = xs.shape[1]
+    rows = _bwd_rows_per_block(n, dev)
+    _check_smem(4 * (d * _acc_floats(din, m, s) + rows * (9 * din + d * din)),
+                "fused_rk4_segment backward")
+    n_blocks = math.ceil(n / rows)
+    dx = torch.empty(n, din, dtype=torch.float32, device=dev)
+    part_main, part_dz, out_main, out_dz = _bwd_scratch(n_blocks, din, d, m,
+                                                        s, dev)
+    lib = _lib("fused_rk4")
+    LAUNCHES["fused_rk4_segment_bwd"] += 1
+    rc = lib.gpode_rk4_bwd(
+        _ptr(xs), _ptr(g), _ptr(dt), *map(_ptr, ops), _ptr(dx),
+        _ptr(part_main), _ptr(part_dz), _ptr(out_main), _ptr(out_dz), n, din,
+        d, m, s, substeps, rows, _stream(dev))
+    _raise_on(rc, "fused_rk4_segment backward")
+    return (dx,) + _unpack_param_cotangents(out_main, out_dz, din, d, m, s)
+
+
+class _FusedRk4SegmentFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x0, dt, z, lengthscales, variance, omega, phase, weights,
+                nu, substeps):
+        dims, dt = _check_segment(x0, dt, z, lengthscales, variance, omega,
+                                  phase, weights, nu, "the rk4 segment")
+        ops = _kernel_operands(z, lengthscales, variance, omega, phase,
+                               weights, nu)
+        x1, xs = _launch_rk4_fwd(x0, dt, substeps, ops, *dims)
+        ctx.save_for_backward(xs, dt, *ops)
+        ctx.dims, ctx.substeps = dims, substeps
+        return x1
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, dt, *ops = ctx.saved_tensors
+        if xs.shape[1] == 0:
+            return (None,) * 10
+        grads = _launch_rk4_bwd(xs, g.contiguous(), dt, ctx.substeps, ops,
+                                *ctx.dims)
+        return (grads[0], None) + grads[1:] + (None,)
+
+
+def fused_rk4_segment(x0, dt, z, lengthscales, variance, omega, phase,
+                      weights, nu, substeps: int = 1):
+    """Integrate one shooting interval with `substeps` rk4 steps:
+    x0 (N, Din) -> x(t0 + dt) (N, D), Din == D. dt (a one-element tensor) is
+    non-differentiable (observation grids are data); every other operand
+    gets its cotangent from the reverse sweep of the stage chain. On CUDA the
+    forward and the backward are each one kernel (plus the backward's
+    fixed-order reduction)."""
+    if not isinstance(substeps, int) or substeps < 1:
+        raise ValueError(f"substeps must be a positive int, got {substeps!r}")
+    if x0.device.type == "cpu":
+        return rk4_segment_plain(x0, dt.detach(), z, lengthscales, variance,
+                                 omega, phase, weights, nu, substeps)[0]
+    return _FusedRk4SegmentFn.apply(x0, dt, z, lengthscales, variance, omega,
+                                    phase, weights, nu, substeps)

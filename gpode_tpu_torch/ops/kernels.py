@@ -60,13 +60,16 @@ def _sqdist(x: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 
 def rbf_K(params: RBFParams, x: torch.Tensor,
           x2: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Gram matrix K(x, x2): (N, M) non-dimwise or (D, N, M) dimwise."""
+    """Gram matrix K(x, x2): (N, M) non-dimwise or (D, N, M) dimwise.
+    Leading batch dims of x and x2 broadcast in front: (..., N, M) or
+    (..., D, N, M)."""
     if x2 is None:
         x2 = x
     ls = params.lengthscales
     var = params.variance
     if params.dimwise:
-        sq = _sqdist(x[None] / ls[:, None, :], x2[None] / ls[:, None, :])
+        sq = _sqdist(x[..., None, :, :] / ls[:, None, :],
+                     x2[..., None, :, :] / ls[:, None, :])
         return var[:, None, None] * torch.exp(-0.5 * sq)
     return var * torch.exp(-0.5 * _sqdist(x / ls, x2 / ls))
 

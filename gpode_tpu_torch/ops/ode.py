@@ -69,6 +69,15 @@ def _rms(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.mean(torch.square(x)))
 
 
+def max_rms_over_axis0(r: torch.Tensor) -> torch.Tensor:
+    """Error norm for a batch of independent solves stacked on axis 0: the
+    RMS of each member, reduced by max, so shared step control is at least
+    as strict as each member's own controller would be (the batched-draw
+    eval path, `models/gpode.predict`)."""
+    return torch.max(torch.sqrt(torch.mean(
+        torch.square(r.reshape(r.shape[0], -1)), dim=1)))
+
+
 # ---------------------------------------------------------------------------
 # Fixed-step solvers
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
 """The canonical bench problem: MoCap subject 09 shooting GPODE at the
-official recipe. Counterpart of `gpode_tpu/train/bench_setup.py`, built with
-the port alone."""
+official recipe and its named presets. Counterpart of
+`gpode_tpu/train/bench_setup.py`, built with the port alone (the `scale`
+preset, which needs rematerialization, is not ported yet)."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -19,13 +21,33 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))))
 
 
-def bench_model_args() -> ModelArgs:
+def bench_model_args(fast: bool = False) -> ModelArgs:
     """The official bench recipe: 100 inducing points, 256 RFF features,
     dimwise RBF, dopri5 with a whole-span first step and an 8-attempt
-    budget, 5 MC draws."""
+    budget, 5 MC draws. `fast`: the same model with rk4 and one step per
+    interval (`ts_dense_scale=2`), the JAX package's recommended
+    production config."""
+    if fast:
+        return ModelArgs(num_inducing=100, num_features=256, dimwise=True,
+                         solver="rk4", ts_dense_scale=2, max_steps=8,
+                         num_samples=5)
     return ModelArgs(num_inducing=100, num_features=256, dimwise=True,
                      solver="dopri5", ts_dense_scale=2, max_steps=8,
                      first_step=-1.0, num_samples=5)
+
+
+PRESETS = ("official", "fast", "m256", "m256_fast")
+
+
+def preset_model_args(name: str) -> ModelArgs:
+    """Named bench presets: `official`, `fast`, and their 256-inducing-point
+    versions `m256` and `m256_fast`."""
+    if name not in PRESETS:
+        raise ValueError(f"unknown preset {name!r}; the port has {PRESETS}")
+    args = bench_model_args(fast=name.endswith("fast"))
+    if name.startswith("m256"):
+        args = dataclasses.replace(args, num_inducing=256)
+    return args
 
 
 def load_bench_data(data_dir: str | None = None):
@@ -47,8 +69,9 @@ def build_bench_problem(args: ModelArgs | None = None, initialize: bool = True,
                         device=None):
     """Build the bench model and data: returns (args, params, ys, ts).
 
-    The likelihood is scored in the 50-D data space through the projector.
-    Parameters are drawn from a `torch.Generator` seeded with `seed` (they
+    `args` is any preset's `ModelArgs` (`preset_model_args`); None means
+    the official recipe. The likelihood is scored in the 50-D data space
+    through the projector. Parameters are drawn from a `torch.Generator` seeded with `seed` (they
     cannot equal the JAX package's, whose draws come from its own PRNG);
     `initialize` runs the kernel and inducing initialization.
     `device` defaults to CUDA and raises without a card.

@@ -1,0 +1,291 @@
+"""The port's posterior evaluation against the JAX package's, on the CPU:
+the batched-draw solve, `predict` in both x0 modes, the mixture metrics and
+the projected scorer, on a reduced MoCap-09 problem built by the JAX
+package; plus the presets and the small helpers of the eval path.
+
+The noise `gpode.predict` draws from its key is rebuilt with the same splits
+(`split(key, S)`, then `split(k)[0]` for the function draw and `[1]` for
+the x0 sample, then `draw_posterior`'s own four-way split) and fed to the
+port as a `PredictNoise`. Tolerances: predictions, LL and MSE rtol 1e-4;
+predictions and function draws also atol 1e-4 * max|ref|, since at the
+k-means inducing init cond(K(Z,Z) + jitter) is about 3.6e3, so the two
+frameworks' float32 triangular solves differ by up to ~1e-4 of max|nu| (an
+entry near zero gets no relative slack); metrics on shared predictions
+rtol 1e-5 (the device version sums in float32).
+"""
+
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpode_tpu.data.mocap import MocapDataset as JMocapDataset
+from gpode_tpu.data.mocap import latent_to_data_projector as j_projector
+from gpode_tpu.models import gp as jgp
+from gpode_tpu.models import gpode as jgpode
+from gpode_tpu.models.flow import SolverConfig as JSolverConfig
+from gpode_tpu.models.flow import flow_forward_batched as jflow_batched
+from gpode_tpu.models.init import (initialize_inducing,
+                                   initialize_kernel_parameters)
+from gpode_tpu.ops.ode import max_rms_over_axis0 as j_max_rms
+from gpode_tpu.train import bench_setup as jbench
+from gpode_tpu.train import builders as jb
+from gpode_tpu.train import metrics as jmetrics
+from gpode_tpu.train.evaluation import \
+    make_projected_scorer as j_make_projected_scorer
+from gpode_tpu.utils.time_grids import insert_zero_t0 as j_insert_zero_t0
+
+from gpode_tpu_torch.convert import gpode_params_from_numpy, params_from_numpy
+from gpode_tpu_torch.data.mocap import ProjectorArrays
+from gpode_tpu_torch.models import gpode
+from gpode_tpu_torch.models.flow import SolverConfig, flow_forward_batched
+from gpode_tpu_torch.models import gp as tgp
+from gpode_tpu_torch.ops import cuda_kernels as ck
+from gpode_tpu_torch.ops.ode import max_rms_over_axis0
+from gpode_tpu_torch.train import bench_setup as tbench
+from gpode_tpu_torch.train import builders as tb
+from gpode_tpu_torch.train import metrics as tmetrics
+from gpode_tpu_torch.train.evaluation import make_projected_scorer
+from gpode_tpu_torch.utils.time_grids import insert_zero_t0
+
+torch.set_num_threads(1)
+
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data", "mocap")
+N_SEQ, SEQLEN, T_EVAL = 2, 12, 10
+NUM_FEATURES, NUM_DRAWS = 32, 4
+J_ARGS = jb.ModelArgs(num_inducing=8, num_features=NUM_FEATURES,
+                      dimwise=True, solver="rk4", ts_dense_scale=2,
+                      max_steps=8, num_samples=3)
+T_ARGS = tb.ModelArgs(num_inducing=8, num_features=NUM_FEATURES,
+                      dimwise=True, solver="rk4", ts_dense_scale=2,
+                      max_steps=8, num_samples=3)
+# the eval configs of scripts/bench_time_to_nll.py: the preset's solver with
+# max_steps >= 512 and the step-size heuristic
+SOLVERS = {"rk4": dict(solver="rk4", ts_dense_scale=2, max_steps=512),
+           "dopri5": dict(solver="dopri5", ts_dense_scale=2, max_steps=512)}
+
+
+def _flat(tree) -> dict:
+    leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {".".join(k.name for k in path): np.asarray(leaf)
+            for path, leaf in leaves}
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+@pytest.fixture(scope="module")
+def problem():
+    """A reduced MoCap-09 shooting model (2 sequences x 12 steps, 5 PCA
+    latents, likelihood in the 50-D data space) and its test split, cut to
+    T_EVAL steps: (JAX GPODEParams view, port GPODEParams, projector, test
+    latents, test data, test ts)."""
+    data_pca = JMocapDataset(data_path=DATA_DIR, subject="09", pca_components=5,
+                             data_normalize=False, pca_normalize=True,
+                             seqlen=SEQLEN)
+    data_full = JMocapDataset(data_path=DATA_DIR, subject="09",
+                              pca_components=-1, data_normalize=False,
+                              pca_normalize=False, seqlen=SEQLEN)
+    ys_pca = data_pca.trn.ys[:N_SEQ]
+    params = jb.build_shooting(jax.random.PRNGKey(0), J_ARGS, ys_pca,
+                               projector=j_projector(data_pca), full_dim=50)
+    params = params._replace(gp=initialize_kernel_parameters(params.gp))
+    params = params._replace(gp=initialize_inducing(
+        params.gp, ys_pca, float(data_pca.trn.ts.max()), 1e0,
+        rng=np.random.RandomState(0)))
+    jview = jgpode.GPODEParams(gp=params.gp, x0=params.states.x0,
+                               likelihood=params.likelihood)
+    tparams = params_from_numpy(_flat(params), T_ARGS, device="cpu")
+    tview = gpode.GPODEParams(tparams.gp, tparams.states.x0, tparams.likelihood)
+    return (jview, tview, j_projector(data_pca), data_pca.tst.ys[:, :T_EVAL],
+            data_full.tst.ys[:, :T_EVAL], data_pca.tst.ts[:T_EVAL])
+
+
+def _predict_noise(key, jparams, num_draws, sample_x0):
+    """The noise `gpode_tpu.models.gpode.predict(key, ...)` draws."""
+    m, d = jparams.gp.u_mean.shape
+    din = jparams.gp.z.shape[1]
+    keys = jax.random.split(key, num_draws)
+    draw_keys = jax.vmap(lambda k: jax.random.split(k)[0])(keys)
+    x0_keys = jax.vmap(lambda k: jax.random.split(k)[1])(keys)
+
+    def draw_noise(k):
+        k_w, k_omega, k_phase, k_u = jax.random.split(k, 4)
+        return (jax.random.normal(k_w, (NUM_FEATURES, d)),
+                jax.random.normal(k_omega, (din, NUM_FEATURES, d)),
+                jax.random.uniform(k_phase, (1, NUM_FEATURES, d)),
+                jax.random.normal(k_u, (m, d)))
+
+    w, om, ph, u = map(_t, jax.vmap(draw_noise)(draw_keys))
+    x0 = None
+    if sample_x0:
+        n = jparams.x0.mean.shape[0]
+        x0 = _t(jax.vmap(lambda k: jax.random.normal(k, (1, n, d))[0])(x0_keys))
+    return gpode.PredictNoise(w, om, ph, u, x0)
+
+
+def _close_pred(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-4,
+                               atol=1e-4 * float(np.max(np.abs(want))))
+
+
+# ---------------------------------------------------------------------------
+# helpers and presets
+# ---------------------------------------------------------------------------
+
+def test_time_grid_shift_and_batched_error_norm_match_jax():
+    ts = np.array([0.0, 0.25, 0.5, 0.9], np.float32)
+    np.testing.assert_array_equal(insert_zero_t0(_t(ts)).numpy(),
+                                  np.asarray(j_insert_zero_t0(jnp.asarray(ts))))
+    np.testing.assert_array_equal(
+        insert_zero_t0(_t(ts), 0.1).numpy(),
+        np.asarray(j_insert_zero_t0(jnp.asarray(ts), 0.1)))
+    r = np.random.default_rng(0).normal(size=(4, 3, 5)).astype(np.float32)
+    r[2] *= 3.0
+    np.testing.assert_allclose(float(max_rms_over_axis0(_t(r))),
+                               float(j_max_rms(jnp.asarray(r))), rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", tbench.PRESETS)
+def test_presets_match_jax(name):
+    want = dataclasses.asdict(jbench.preset_model_args(name))
+    got = dataclasses.asdict(tbench.preset_model_args(name))
+    assert got == {k: want[k] for k in got}
+    assert want["remat"] is False and want["use_adjoint"] is False
+    with pytest.raises(ValueError, match="preset"):
+        tbench.preset_model_args("scale")
+
+
+# ---------------------------------------------------------------------------
+# flow_forward_batched and predict
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernels", [None, True], ids=["batched_plain", "per_draw_kernel"])
+def test_flow_forward_batched_matches_jax(problem, kernels):
+    """Four draws in one solve (dopri5 with the max-over-draws error norm).
+    kernels=True takes the per-draw fused rhs (its plain version here)."""
+    jview, tview, *_ = problem
+    noise = _predict_noise(jax.random.PRNGKey(5), jview, NUM_DRAWS, False)
+    keys = jax.random.split(jax.random.PRNGKey(5), NUM_DRAWS)
+    chol = jgp.precompute_chol(jview.gp)
+    jdraws = jax.vmap(lambda k: jgp.draw_posterior(
+        jax.random.split(k)[0], jview.gp, NUM_FEATURES, chol))(keys)
+    tdraws = tgp.draw_posterior(tview.gp, noise.rff_weights, noise.rff_freq,
+                                noise.rff_phase, noise.inducing)
+    for name in jdraws._fields:
+        want = np.asarray(getattr(jdraws, name))
+        np.testing.assert_allclose(getattr(tdraws, name).detach().numpy(), want,
+                                   rtol=1e-4, atol=1e-4 * float(np.max(np.abs(want))),
+                                   err_msg=name)
+    x0 = np.random.default_rng(6).normal(size=(NUM_DRAWS, 3, 5)).astype(np.float32)
+    ts = np.linspace(0.0, 0.3, 4).astype(np.float32)
+    kw = dict(solver="dopri5", max_steps=64, rtol=1e-5, atol=1e-5)
+    want, jst = jflow_batched(jview.gp, jdraws, jnp.asarray(x0), jnp.asarray(ts),
+                              JSolverConfig(**kw))
+    before = dict(ck.LAUNCHES)
+    with torch.no_grad():
+        got, st = flow_forward_batched(tview.gp, tdraws, _t(x0), _t(ts),
+                                       SolverConfig(kernels=kernels, **kw))
+    assert ck.LAUNCHES == before
+    assert got.shape == (NUM_DRAWS, 3, 4, 5)
+    _close_pred(got, want)
+    assert (st.num_accepted, st.num_attempted, st.num_covered) == (
+        int(jst.num_accepted), int(jst.num_attempted), int(jst.num_covered))
+
+
+@pytest.mark.parametrize("solver", list(SOLVERS))
+@pytest.mark.parametrize("mode", ["x0_given", "x0_sampled"])
+def test_predict_matches_jax(problem, solver, mode):
+    jview, tview, _, tst_latent, _, tst_ts = problem
+    key = jax.random.PRNGKey(7)
+    given = mode == "x0_given"
+    x0 = tst_latent[:, 0] if given else None
+    want = jgpode.predict(key, jview, jnp.asarray(tst_ts),
+                          JSolverConfig(**SOLVERS[solver]), NUM_FEATURES,
+                          num_draws=NUM_DRAWS,
+                          x0=None if x0 is None else jnp.asarray(x0))
+    noise = _predict_noise(key, jview, NUM_DRAWS, not given)
+    with torch.no_grad():
+        got = gpode.predict(tview, noise, _t(tst_ts),
+                            SolverConfig(**SOLVERS[solver]),
+                            x0=None if x0 is None else _t(x0))
+    assert got.shape == (NUM_DRAWS, N_SEQ, T_EVAL, 5) == want.shape
+    _close_pred(got, want)
+
+
+def test_predict_noise_shapes_and_the_x0_rule(problem):
+    _, tview, *_ = problem
+    gen = torch.Generator().manual_seed(0)
+    noise = gpode.sample_predict_noise(tview, NUM_FEATURES, NUM_DRAWS, gen)
+    assert noise.rff_freq.shape == (NUM_DRAWS, 5, NUM_FEATURES, 5)
+    assert noise.inducing.shape == (NUM_DRAWS, 8, 5)
+    assert noise.x0.shape == (NUM_DRAWS, N_SEQ, 5)
+    bare = gpode.sample_predict_noise(tview, NUM_FEATURES, NUM_DRAWS, gen,
+                                      sample_x0=False)
+    assert bare.x0 is None
+    with pytest.raises(ValueError, match="x0"):
+        gpode.predict(tview, bare, torch.linspace(0, 0.1, 3),
+                      SolverConfig(solver="rk4"))
+
+
+def test_gpode_params_from_numpy_match_the_shooting_view(problem):
+    jview, tview, *_ = problem
+    flat = _flat(jview)
+    got = dict(tview.named_parameters())
+    assert set(got) == set(flat)
+    built = dict(gpode_params_from_numpy(flat, device="cpu").named_parameters())
+    for name, a in flat.items():
+        np.testing.assert_array_equal(got[name].detach().numpy(), a, err_msg=name)
+        np.testing.assert_array_equal(built[name].detach().numpy(), a, err_msg=name)
+    with pytest.raises(KeyError):
+        gpode_params_from_numpy({**flat, "x0.extra": flat["x0.mean"]},
+                                device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# metrics and the projected scorer
+# ---------------------------------------------------------------------------
+
+def test_mixture_summary_device_matches_host_and_jax():
+    rng = np.random.default_rng(8)
+    actual = rng.normal(size=(3, 7, 6)).astype(np.float32)
+    predicted = (actual[None] + 0.4 * rng.normal(size=(16, 3, 7, 6))).astype(np.float32)
+    noise_var = rng.uniform(0.05, 0.5, size=(6,)).astype(np.float32)
+    host = tmetrics.compute_summary(actual, predicted, noise_var)
+    np.testing.assert_allclose(host, jmetrics.compute_summary(actual, predicted,
+                                                              noise_var), rtol=1e-12)
+    dev = tmetrics.mixture_summary_device(_t(actual), _t(predicted), _t(noise_var))
+    jdev = jmetrics.mixture_summary_device(jnp.asarray(actual),
+                                           jnp.asarray(predicted),
+                                           jnp.asarray(noise_var))
+    assert all(v.dtype == torch.float32 and v.ndim == 0 for v in dev)
+    np.testing.assert_allclose([float(v) for v in dev], host, rtol=1e-5)
+    np.testing.assert_allclose([float(v) for v in dev],
+                               [float(v) for v in jdev], rtol=1e-5)
+
+
+@pytest.mark.parametrize("solver", list(SOLVERS))
+def test_projected_scorer_matches_jax(problem, solver):
+    """LL and MSE in the 50-D data space of the test split from given start
+    states, as `scripts/bench_time_to_nll.py` scores a preset."""
+    jview, tview, proj, tst_latent, tst_full, tst_ts = problem
+    key = jax.random.PRNGKey(9)
+    x0 = tst_latent[:, 0]
+    jscorer = j_make_projected_scorer(JSolverConfig(**SOLVERS[solver]),
+                                      NUM_FEATURES, proj, tst_full, tst_ts, x0,
+                                      num_draws=NUM_DRAWS)
+    want = [float(v) for v in jscorer(jview, key)]
+    scorer = make_projected_scorer(SolverConfig(**SOLVERS[solver]),
+                                   ProjectorArrays(*map(np.asarray, proj)),
+                                   tst_full, tst_ts, x0, device="cpu")
+    got = scorer(tview, _predict_noise(key, jview, NUM_DRAWS, False))
+    assert all(v.ndim == 0 for v in got)
+    np.testing.assert_allclose([float(v) for v in got], want, rtol=1e-4)
+    assert all(np.isfinite(want))

@@ -110,3 +110,73 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ck.fused_rhs(args[0][:, :3].contiguous(), *args[1:])
     with pytest.raises(ValueError):
         ck.fused_rhs(args[0].detach().t().contiguous().t(), *args[1:])
+    dt = torch.full((1,), 0.01, device=cuda)
+    before = dict(ck.LAUNCHES)
+    with pytest.raises(ValueError):  # Din != D
+        ck.fused_rk4_segment(args[0][:, :3].contiguous(), dt, *args[1:])
+    with pytest.raises(ValueError):  # dt on the host
+        ck.fused_rk4_segment(args[0], dt.cpu(), *args[1:])
+    with pytest.raises(TypeError):   # float64 operands
+        ck.fused_rk4_segment(args[0].double(), dt, *args[1:])
+    assert ck.LAUNCHES == before
+
+
+@pytest.mark.parametrize("substeps", [1, 3])
+def test_fused_rk4_segment_forward_and_backward_match_plain(cuda, substeps):
+    args = _inputs(cuda, seed=6)
+    dt = torch.full((1,), 0.01, device=cuda)
+    g = torch.randn(N, DIM, device=cuda, generator=torch.Generator(cuda).manual_seed(7))
+    before = dict(ck.LAUNCHES)
+    x1 = ck.fused_rk4_segment(args[0], dt, *args[1:], substeps)
+    rx1, rxs = ck.rk4_segment_plain(args[0], dt, *args[1:], substeps)
+    _assert_close(x1, rx1, "x1")
+    for name, a, b in zip(NAMES, _grads(x1, args, g), _grads(rx1, args, g)):
+        _assert_close(a, b, name, fwd=False)
+    assert ck.LAUNCHES["fused_rk4_segment_fwd"] == before["fused_rk4_segment_fwd"] + 1
+    assert ck.LAUNCHES["fused_rk4_segment_bwd"] == before["fused_rk4_segment_bwd"] + 1
+    # the stage inputs the forward kernel saves for the backward
+    with torch.no_grad():
+        ops = ck._kernel_operands(*[a.detach() for a in args[1:]])
+        _, xs = ck._launch_rk4_fwd(args[0].detach(), dt, substeps, ops, DIM,
+                                   DIM, M, S)
+    _assert_close(xs, rxs, "stage inputs")
+
+
+def test_batched_draws_take_the_kernel_once_per_draw_at_the_gate(cuda):
+    """`gp.eval_draws` at 256 rows per draw (the gate) launches the fused
+    rhs once per draw and equals the batched plain evaluation."""
+    from gpode_tpu_torch.models import gp
+
+    params = gp.init_svgp(torch.Generator().manual_seed(0), DIM, DIM, M,
+                          device=cuda)
+    n_draws, rows = 3, 256
+    gen = torch.Generator(cuda).manual_seed(9)
+    with torch.no_grad():
+        draws = gp.draw_posterior(
+            params, torch.randn(n_draws, S, DIM, device=cuda, generator=gen),
+            torch.randn(n_draws, DIM, S, DIM, device=cuda, generator=gen),
+            torch.rand(n_draws, 1, S, DIM, device=cuda, generator=gen),
+            torch.randn(n_draws, M, DIM, device=cuda, generator=gen))
+        x = torch.randn(n_draws, rows, DIM, device=cuda, generator=gen)
+        before = ck.LAUNCHES["fused_rhs_fwd"]
+        got = gp.eval_draws(params, draws, x)
+        assert ck.LAUNCHES["fused_rhs_fwd"] == before + n_draws
+        _assert_close(got, gp.eval_draws(params, draws, x, use_kernel=False),
+                      "per-draw kernel")
+        assert ck.LAUNCHES["fused_rhs_fwd"] == before + n_draws
+
+
+def test_fused_rk4_segment_ragged_block_and_bit_reproducible_cotangents(cuda):
+    args = _inputs(cuda, seed=8)
+    x = args[0][:37].detach().clone().requires_grad_()
+    dt = torch.full((1,), 0.05, device=cuda)
+    g = torch.randn(37, DIM, device=cuda)
+    out = ck.fused_rk4_segment(x, dt, *args[1:], 2)
+    ref, _ = ck.rk4_segment_plain(x, dt, *args[1:], 2)
+    _assert_close(out, ref, "ragged forward")
+    first = _grads(out, [x] + args[1:], g)
+    for name, a, b in zip(NAMES, first, _grads(ref, [x] + args[1:], g)):
+        _assert_close(a, b, name, fwd=False)
+    second = _grads(ck.fused_rk4_segment(x, dt, *args[1:], 2), [x] + args[1:], g)
+    for name, a, b in zip(NAMES, first, second):
+        assert torch.equal(a, b), name  # fixed-order reduction, no atomics

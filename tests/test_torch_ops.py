@@ -317,6 +317,94 @@ def test_odeint_fixed_matches_jax(solver):
     assert st.num_rhs_evals == int(jst.num_rhs_evals)
 
 
+# ---------------------------------------------------------------------------
+# fused_rk4_segment: plain version vs the JAX rk4 solver
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("substeps", [1, 3])
+def test_rk4_segment_plain_matches_jax_odeint_fixed(substeps):
+    """Forward rtol/atol 2e-5, all eight cotangents rtol 2e-4 / atol 2e-5
+    (the tolerances of tests/test_pallas.py's rk4 megakernel checks)."""
+    args = _rhs_inputs(seed=17)
+    dt = np.float32(0.3)
+    ts = jnp.asarray([0.0, dt], jnp.float32)
+
+    def jseg(x, *p):
+        xs, _ = jodeint_fixed(lambda t, xx: _rhs_reference_jnp(xx, *p), x, ts,
+                              solver="rk4", substeps=substeps)
+        return xs[-1]
+
+    g = np.random.default_rng(18).normal(size=(args[0].shape[0], 3)).astype(np.float32)
+    want, pullback = jax.vjp(jseg, *map(jnp.asarray, args))
+    want_g = pullback(jnp.asarray(g))
+
+    targs = [_t(a, grad=True) for a in args]
+    tdt = _t(np.array([dt]), grad=True)
+    x1 = ck.fused_rk4_segment(targs[0], tdt, *targs[1:], substeps)
+    _close(x1.detach(), want, rtol=2e-5, atol=2e-5)
+    torch.autograd.backward(x1, _t(g))
+    for name, a, b in zip(NAMES, targs, want_g):
+        _close(a.grad, b, rtol=2e-4, atol=2e-5, msg=name)
+    assert tdt.grad is None  # dt is non-differentiable, as in the JAX kernel
+
+    # the stage inputs the backward kernel reads: x, x2, x3, x4 per step
+    plain = [a.detach() for a in targs]
+    x1_p, xs = ck.rk4_segment_plain(plain[0], tdt.detach(), *plain[1:], substeps)
+    assert xs.shape == (4 * substeps,) + args[0].shape
+    np.testing.assert_array_equal(xs[0].numpy(), args[0])
+    np.testing.assert_array_equal(x1_p.numpy(), x1.detach().numpy())
+
+
+def test_fused_rk4_segment_rejects_what_the_kernel_does_not_take():
+    args = [_t(a) for a in _rhs_inputs(din=3, d=3)]
+    dt = _t(np.array([0.1], np.float32))
+    with pytest.raises(ValueError, match="substeps"):
+        ck.fused_rk4_segment(args[0], dt, *args[1:], 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ck._check_segment(args[0], dt, *args[1:], "the rk4 segment")
+    square = [_t(a) for a in _rhs_inputs(din=2, d=3)]
+    with pytest.raises(ValueError):
+        ck._check_segment(square[0], dt, *square[1:], "the rk4 segment")
+
+
+def test_flow_forward_rk4_segment_branch_matches_jax():
+    """The port's rk4 segment branch (kernels=True; the plain version on the
+    CPU) against the JAX flow on the CPU, which runs `odeint_fixed`: state,
+    stats and the gradients of every input, at two substeps."""
+    jp, tp = _gp_pair(m=8, d=3, seed=19)
+    key = jax.random.PRNGKey(20)
+    jdraw = jgp.draw_posterior(key, jp, 32)
+    tdraw = tgp.PosteriorDraw(*(a.detach().requires_grad_() for a in
+                                tgp.draw_posterior(tp, *map(_t, _draw_noise(key, jp, 32)))))
+    x0 = np.random.default_rng(21).normal(size=(30, 3)).astype(np.float32)
+    ts = np.array([0.0, 0.2], np.float32)
+    kw = dict(solver="rk4", ts_dense_scale=3)
+
+    def jloss(p, dr, x):
+        xs, _ = jflow_forward(p, dr, x, jnp.asarray(ts), JSolverConfig(**kw))
+        return jnp.sum(jnp.sin(xs[:, -1]))
+
+    want_x, jst = jflow_forward(jp, jdraw, jnp.asarray(x0), jnp.asarray(ts),
+                                JSolverConfig(**kw))
+    jg_p, jg_dr, jg_x = jax.grad(jloss, argnums=(0, 1, 2))(jp, jdraw, jnp.asarray(x0))
+
+    tx0 = _t(x0, grad=True)
+    before = dict(ck.LAUNCHES)
+    got_x, st = flow_forward(tp, tdraw, tx0, _t(ts), SolverConfig(kernels=True, **kw))
+    assert ck.LAUNCHES == before  # CPU tensors take the plain version
+    _close(got_x.detach(), want_x, rtol=2e-5, atol=2e-5)
+    assert tuple(st) == (8, 2, 2, 2) == tuple(int(v) for v in jst)
+    torch.sum(torch.sin(got_x[:, -1])).backward()
+    _close_grad(tx0.grad, jg_x, msg="x0")
+    _close_grad(tp.z.grad, jg_p.z, msg="z")
+    _close_grad(tp.kernel.raw_lengthscales.grad, jg_p.kernel.raw_lengthscales,
+                msg="raw_lengthscales")
+    _close_grad(tp.kernel.raw_variance.grad, jg_p.kernel.raw_variance,
+                msg="raw_variance")
+    for name in tdraw._fields:
+        _close_grad(getattr(tdraw, name).grad, getattr(jg_dr, name), msg=name)
+
+
 @pytest.mark.parametrize("case", ["accepted", "rejected"])
 def test_flow_forward_attempt_path_matches_jax(case):
     """The port's attempt branch (kernels=True; plain versions on the CPU)

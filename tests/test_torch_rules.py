@@ -5,13 +5,17 @@ import ast
 import os
 
 import jax  # noqa: F401  (the tests of the port import both packages)
+import numpy as np
 import pytest
 import torch
 
 from gpode_tpu_torch import resolve_device
-from gpode_tpu_torch.convert import params_from_numpy
+from gpode_tpu_torch.convert import gpode_params_from_numpy, params_from_numpy
+from gpode_tpu_torch.models.gpode import GPODEParams, sample_predict_noise
 from gpode_tpu_torch.train import builders as tb
-from gpode_tpu_torch.train.bench_setup import build_bench_problem
+from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                               preset_model_args)
+from gpode_tpu_torch.train.evaluation import make_projected_scorer
 
 torch.set_num_threads(1)
 
@@ -54,12 +58,22 @@ def _no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def _gpode_view(args, **kw):
+    """Vanilla-GPODE params (the view of a shooting model) on `device`."""
+    p = tb.build_shooting(torch.Generator().manual_seed(0), args,
+                          np.zeros((2, 4, 3), np.float32), **kw)
+    return GPODEParams(p.gp, p.states.x0, p.likelihood)
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "build_bench_problem",
-                                   "build_shooting", "params_from_numpy"])
+                                   "build_shooting", "params_from_numpy",
+                                   "preset_build_bench_problem",
+                                   "gpode_params_from_numpy",
+                                   "sample_predict_noise",
+                                   "make_projected_scorer"])
 def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(
         monkeypatch, entry):
     _no_card(monkeypatch)
-    import numpy as np
     args = tb.ModelArgs(num_inducing=4, num_features=8)
     calls = {
         "resolve_device": lambda **kw: resolve_device(**kw),
@@ -69,10 +83,21 @@ def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(
             torch.Generator().manual_seed(0), args,
             np.zeros((2, 4, 3), np.float32), **kw),
         "params_from_numpy": lambda **kw: params_from_numpy({}, args, **kw),
+        "preset_build_bench_problem": lambda **kw: build_bench_problem(
+            preset_model_args("fast"), initialize=False, **kw),
+        "gpode_params_from_numpy": lambda **kw: gpode_params_from_numpy(
+            {}, **kw),
+        # the generator lives on the device the params were built for
+        "sample_predict_noise": lambda **kw: sample_predict_noise(
+            _gpode_view(args, **kw), 8, 2, torch.Generator().manual_seed(0)),
+        "make_projected_scorer": lambda **kw: make_projected_scorer(
+            args.solver_config(), None, np.zeros((2, 4, 3), np.float32),
+            np.linspace(0, 0.3, 4), None, **kw),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry](device="cuda")
-    if entry in ("resolve_device", "build_shooting"):
+    if entry in ("resolve_device", "build_shooting", "sample_predict_noise",
+                 "make_projected_scorer"):
         assert calls[entry](device="cpu") is not None

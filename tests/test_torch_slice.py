@@ -45,6 +45,13 @@ J_ARGS = jb.ModelArgs(num_inducing=8, num_features=32, dimwise=True,
 T_ARGS = tb.ModelArgs(num_inducing=8, num_features=32, dimwise=True,
                       solver="dopri5", ts_dense_scale=2, max_steps=8,
                       first_step=-1.0, num_samples=3)
+# the `fast` preset's solver (rk4, one step per interval) at the same size
+J_FAST = jb.ModelArgs(num_inducing=8, num_features=32, dimwise=True,
+                      solver="rk4", ts_dense_scale=2, max_steps=8,
+                      num_samples=3)
+T_FAST = tb.ModelArgs(num_inducing=8, num_features=32, dimwise=True,
+                      solver="rk4", ts_dense_scale=2, max_steps=8,
+                      num_samples=3)
 TERMS = ("loss", "observ_nll", "state_kl", "x0_kl", "inducing_kl")
 
 
@@ -94,25 +101,25 @@ def _step_noise(sub, params) -> StepNoise:
                      states=t(jax.random.normal(ks, (s, n, t1, d))))
 
 
-@pytest.mark.parametrize("kernels", [True, False],
-                         ids=["attempt_path", "plain_path"])
-def test_step0_loss_terms_and_gradients_match_jax(problem, kernels):
+def _check_step0(problem, j_args, t_args, kernels, nfe):
+    """Step-0 loss, the five ELBO terms, the solver counts and every
+    gradient leaf of the port's step against the JAX package's."""
     params, ys, ts = problem
     sub = jax.random.PRNGKey(3)
-    loss_fn = jb.shooting_loss_fn(J_ARGS)
+    loss_fn = jb.shooting_loss_fn(j_args)
     (_, jterms), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
         params, sub, jnp.asarray(ys), jnp.asarray(ts))
 
-    tparams = params_from_numpy(_flat(params), T_ARGS, device="cpu")
-    loss, terms = tb.shooting_loss_fn(T_ARGS, kernels=kernels)(
+    tparams = params_from_numpy(_flat(params), t_args, device="cpu")
+    loss, terms = tb.shooting_loss_fn(t_args, kernels=kernels)(
         tparams, _step_noise(sub, params), torch.tensor(ys), torch.tensor(ts))
     loss.backward()
     for name in TERMS:
-        np.testing.assert_allclose(float(getattr(terms, name)),
+        np.testing.assert_allclose(float(getattr(terms, name).detach()),
                                    float(getattr(jterms, name)), rtol=1e-4,
                                    err_msg=name)
-    assert (terms.nfe, terms.natt) == (7, 1) == (int(jterms.nfe),
-                                                  int(jterms.natt))
+    assert (terms.nfe, terms.natt) == nfe == (int(jterms.nfe),
+                                              int(jterms.natt))
     want = _flat(jgrads)
     got = dict(tparams.named_parameters())
     assert set(got) == set(want)
@@ -120,6 +127,22 @@ def test_step0_loss_terms_and_gradients_match_jax(problem, kernels):
         np.testing.assert_allclose(got[name].grad.numpy(), g, rtol=1e-3,
                                    atol=1e-3 * float(np.max(np.abs(g))),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("kernels", [True, False],
+                         ids=["attempt_path", "plain_path"])
+def test_step0_loss_terms_and_gradients_match_jax(problem, kernels):
+    _check_step0(problem, J_ARGS, T_ARGS, kernels, (7, 1))
+
+
+@pytest.mark.parametrize("kernels", [None, True],
+                         ids=["auto_rule", "rk4_segment_path"])
+def test_fast_step0_loss_terms_and_gradients_match_jax(problem, kernels):
+    """The `fast` preset's step (rk4, one step per interval): with the auto
+    rule the 72-row reduced batch stays on the plain `odeint_fixed` path;
+    kernels=True takes the rk4 segment branch (its plain version on the
+    CPU). The JAX side runs its XLA rk4 path."""
+    _check_step0(problem, J_FAST, T_FAST, kernels, (4, 1))
 
 
 @pytest.mark.parametrize("frozen", [False, True],
