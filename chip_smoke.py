@@ -20,7 +20,12 @@ exit code and no result line:
      max|ref|), cotangents atol 1e-3 * max|g| — and times the kernel, the
      plain version and the least time the card could take. The rk4 segment
      is held at 1 substep (the fast step) and at 3, its backward also at
-     M=256 (the `m256_fast` shape) and for bit-identical reruns;
+     M=256 (the `m256_fast` shape) and for bit-identical reruns. `rbf_gram`
+     is held at the same N=3000, M=100, at M=256 and at N=77 (a ragged last
+     tile); the three wide-layout rhs functions against their plain versions
+     at N=2995 and 3000, M=100 and 256, the wide backward also for
+     bit-identical reruns. Bounds read the function,
+     not the formulation: the wide kernels take the per-dim rhs's counts;
   4. train: the official-recipe shooting train step (dopri5, whole-span
      first step, 5 MC draws, no frozen mask as in bench.py): the step-0 loss
      against the same step through the plain path at rtol 1e-4, then 3
@@ -37,12 +42,28 @@ exit code and no result line:
      MSE in the 50-D data space of the MoCap-09 test split) on the params
      after phase 6, its device metric held against the host metric on the
      same predictions (rtol 1e-4);
-  8. a `{"kernels": [...]}` line, a copy of all results in
+  8. vdp: vanilla GPODE on Van der Pol at the train script's defaults (25
+     observations over T=7, noise variance 0.05, M=16, S=256, dimwise,
+     dopri5): the step-0 loss on the card against the same step on the CPU
+     with the same noise (rtol 1e-4), then 3 warm-up and 20 timed steps, the
+     loss finite and lower at the end; then the same with the golden-run
+     config (rk4, `ts_dense_scale=2`, reference RFF scale);
+  9. field: the vector-field posterior `gp.conditional` under
+     `torch.no_grad()` of the trained VDP GP on the 30x30 phase-plane grid
+     and of the MoCap GP after phase 6 at 3000 sampled shooting states: mean
+     and variance against the same call with grad mode on, which takes
+     `rbf_K` (rtol 1e-4, atol 1e-4 * max|ref|), exactly one `rbf_gram`
+     launch per call, variances > 0; then `rbf_gram` against its plain
+     version at both shapes (the grid's N=900, Din=D=2, M=16 too);
+ 10. wide A/B: `gpode_tpu_torch.scripts.proto_wide_rhs.main(["--rows",
+     "2995"])` in-process (errors of the wide kernels against the per-dim
+     reference, then chained timings of all variants); it must return 0;
+ 11. a `{"kernels": [...]}` line, a copy of all results in
      chiprun_out/chip_smoke.json, and as the last line
      `{"ok": true, "device": {...}}`.
 
 `--profile-steps N` adds a torch.profiler breakdown of N more train steps
-after phases 4 and 6 (device time by operator, device busy share).
+after phases 4, 6 and 8 (device time by operator, device busy share).
 """
 
 from __future__ import annotations
@@ -71,7 +92,11 @@ SOURCES = {"fused_rhs_fwd": "gpode_tpu_torch/csrc/fused_rhs.cu",
            "fused_dopri5_attempt_fwd": "gpode_tpu_torch/csrc/fused_dopri5.cu",
            "fused_dopri5_attempt_bwd": "gpode_tpu_torch/csrc/fused_dopri5.cu",
            "fused_rk4_segment_fwd": "gpode_tpu_torch/csrc/fused_rk4.cu",
-           "fused_rk4_segment_bwd": "gpode_tpu_torch/csrc/fused_rk4.cu"}
+           "fused_rk4_segment_bwd": "gpode_tpu_torch/csrc/fused_rk4.cu",
+           "rbf_gram": "gpode_tpu_torch/csrc/rbf_gram.cu",
+           "fused_rhs_wide_fwd": "gpode_tpu_torch/csrc/fused_rhs_wide.cu",
+           "fused_rhs_wide2_fwd": "gpode_tpu_torch/csrc/fused_rhs_wide.cu",
+           "fused_rhs_wide_bwd": "gpode_tpu_torch/csrc/fused_rhs_wide.cu"}
 REPLACES = {
     "fused_rhs_fwd": "gpode_tpu/ops/pallas_kernels.py:252",
     "fused_rhs_bwd": "gpode_tpu/ops/pallas_kernels.py:467",
@@ -79,11 +104,18 @@ REPLACES = {
     "fused_dopri5_attempt_bwd": "gpode_tpu/ops/pallas_kernels.py:1027",
     "fused_rk4_segment_fwd": "gpode_tpu/ops/pallas_kernels.py:720",
     "fused_rk4_segment_bwd": "gpode_tpu/ops/pallas_kernels.py:756",
+    "rbf_gram": "gpode_tpu/ops/pallas_kernels.py:178",
+    "fused_rhs_wide_fwd": "scripts/proto_wide_rhs.py:112",
+    "fused_rhs_wide2_fwd": "scripts/proto_wide_rhs.py:168",
+    "fused_rhs_wide_bwd": "scripts/proto_wide_rhs.py:305",
 }
-# the kernels each train path must launch, and those it must not
+# the kernels each path must launch, and those a train path must not
 MAIN_PATH_KERNELS = {
     "official": ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd"),
     "fast": ("fused_rk4_segment_fwd", "fused_rk4_segment_bwd"),
+    "field": ("rbf_gram",),
+    "wide_ab": ("fused_rhs_fwd", "fused_rhs_bwd", "fused_rhs_wide_fwd",
+                "fused_rhs_wide2_fwd", "fused_rhs_wide_bwd"),
 }
 OFF_PATH_KERNELS = {
     "official": (),
@@ -118,6 +150,11 @@ def vjp_ops(n, din, d, m, s):
     """One rhs VJP (csrc/rhs_tile.cuh rhs_vjp_row_dim): per feature 6*Din+13
     flops and sin+cos, per inducing point 14*Din+9 flops and one exp."""
     return n * d * (s * (6 * din + 13) + m * (14 * din + 9)) + n * d * (2 * s + m)
+
+
+def gram_ops(n, din, d, m):
+    """One dimwise Gram: 3*Din+3 flops and one exp per output element."""
+    return n * d * m * (3 * din + 3) + n * d * m
 
 
 def param_floats(din, d, m, s):
@@ -167,18 +204,22 @@ def build_phase():
 
 
 def cuda_ms(fn, iters=KERNEL_ITERS, warmup=5):
+    """Device milliseconds per call of `fn`, free of the host's launch
+    overhead (a launch from Python costs about as much as the shortest
+    kernels here run): see `gpode_tpu_torch.utils.timing.device_ms`."""
     import torch
+    from gpode_tpu_torch.utils.timing import device_ms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    host_s = (time.perf_counter() - t0) / warmup   # enqueue time per call
+
+    def enqueue(count):
+        for _ in range(count):
+            fn()
+
+    return device_ms(enqueue, iters, host_s)
 
 
 def main_path_inputs(dev, preset="official"):
@@ -208,12 +249,12 @@ def main_path_inputs(dev, preset="official"):
             args, params.gp, draw)
 
 
-def compare_fwd(got, ref, what):
+def compare_fwd(got, ref, what, atol_scale=1e-5):
     import torch
     got, ref = got.detach(), ref.detach()
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
-    ok = bool(torch.all((got - ref).abs() <= 1e-4 * ref.abs() + 1e-5 * scale))
+    ok = bool(torch.all((got - ref).abs() <= 1e-4 * ref.abs() + atol_scale * scale))
     print(f"  {what}: max_abs_err {err:.3e} (max|ref| {scale:.3e})")
     check(ok and math.isfinite(err), f"{what} disagrees with the plain version")
     return err
@@ -262,7 +303,7 @@ def kernel_phase(dev):
     with torch.no_grad():
         ms_f = cuda_ms(lambda: ck._launch_rhs_fwd(xd, ops, *dims))
         ms_fp = cuda_ms(lambda: ck.fused_rhs_plain(xd, *[p.detach() for p in params]))
-    ms_b = cuda_ms(lambda: ck._launch_rhs_bwd(xd, g, ops, *dims))
+    ms_b = cuda_ms(lambda: ck._launch_rhs_bwd_packed(xd, g, ops, *dims))
     ms_bp = cuda_ms(lambda: torch.autograd.grad(f_p, inputs, g, retain_graph=True))
     out["fused_rhs_fwd"] = (e_fwd, ms_f, ms_fp, *bound(
         rhs_ops(n, din, d, m, s), 4 * (n * din + pf + n * d)))
@@ -301,9 +342,7 @@ def kernel_phase(dev):
     out["fused_dopri5_attempt_bwd"] = (e_dbwd, ms_db, ms_dbp, *bound(
         6 * vjp_ops(n, din, d, m, s), 4 * (6 * n * din + n * d + pf + n * din + pf)))
 
-    for name, (err, ms, pms, bms, by) in out.items():
-        print(f"{name}: {ms:.4f} ms kernel, {pms:.4f} ms plain, bound "
-              f"{bms:.4f} ms ({by}), max_abs_err {err:.3e}")
+    print_kernel_rows(out)
     return out, e_err_long
 
 
@@ -412,10 +451,302 @@ def rk4_kernel_phase(dev):
         "fused_rk4_segment_bwd": (e_bwd, ms_b, ms_bp, *bound(
             4 * vjp_ops(n, din, d, m, s), 4 * (4 * n * din + n * d + pf + n * din + pf))),
     }
+    print_kernel_rows(out)
+    return out
+
+
+def print_kernel_rows(out):
     for name, (err, ms, pms, bms, by) in out.items():
         print(f"{name}: {ms:.4f} ms kernel, {pms:.4f} ms plain, bound "
               f"{bms:.4f} ms ({by}), max_abs_err {err:.3e}")
+
+
+def gram_wide_kernel_phase(dev):
+    """`rbf_gram` and the three wide-layout rhs kernels at the MoCap-09 step's
+    inputs (and the M=256 preset's), each against its plain version on the
+    same operands. Times are at N=3000, M=100. Returns the four kernel rows."""
+    phase("kernels: rbf_gram and the wide layout")
+    import torch
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.ops import wide_rhs as wr
+
+    shapes = {}
+    for preset in ("official", "m256"):
+        inputs, _, _, _, _ = main_path_inputs(dev, preset)
+        shapes[preset] = [t.detach() for t in inputs]
+    x, params = shapes["official"][0], shapes["official"][1:]
+    n, din = x.shape
+    d, m = params[6].shape
+    s = params[5].shape[0]
+    check((n, din, d, m, s) == (3000, 5, 5, 100, 256)
+          and shapes["m256"][1].shape[0] == 256,
+          "main-path shapes differ from the official and m256 presets")
+    pf = param_floats(din, d, m, s)
+    out = {}
+
+    # -- rbf_gram: K(x, Z) of the step's states against the inducing points
+    e_gram = 0.0
+    with torch.no_grad():
+        for what, (xx, pp) in {
+                "N=3000 M=100": (x, params), "N=77 M=100": (x[:77].contiguous(), params),
+                "N=3000 M=256": (shapes["m256"][0], shapes["m256"][1:])}.items():
+            z, ls, var = pp[0], pp[1], pp[2]
+            e_gram = max(e_gram, compare_fwd(
+                ck.rbf_gram(xx, z, ls, var), ck.rbf_gram_plain(xx, z, ls, var),
+                f"rbf_gram K ({what})"))
+        z, ls, var = params[0], params[1], params[2]
+        inv_ls = (1.0 / ls).contiguous()
+        ms_g = cuda_ms(lambda: ck._launch_rbf_gram(x, z, inv_ls, var))
+        ms_gp = cuda_ms(lambda: ck.rbf_gram_plain(x, z, ls, var))
+    out["rbf_gram"] = (e_gram, ms_g, ms_gp, *bound(
+        gram_ops(n, din, d, m),
+        4 * (n * din + m * din + d * din + d + d * n * m)))
+
+    # -- the wide layout: kernels against plain versions on packed operands
+    errs = {"fused_rhs_wide_fwd": 0.0, "fused_rhs_wide2_fwd": 0.0,
+            "fused_rhs_wide_bwd": 0.0}
+    timed = None
+    with torch.no_grad():
+        for preset, rows in (("official", 2995), ("official", 3000),
+                             ("m256", 2995), ("m256", 3000)):
+            xx = shapes[preset][0][:rows].contiguous()
+            pp = shapes[preset][1:]
+            mm = pp[0].shape[0]
+            what = f"N={rows} M={mm}"
+            g = torch.randn(rows, d, device=dev,
+                            generator=torch.Generator(dev).manual_seed(9))
+            b, phase_w, zn_w, invls2_t, wblk, sp, mp = wr.kernel_pack(*pp)
+            flat = wr.wide_flat_weights(wblk, d, sp, mp)
+            packed = (b, phase_w, zn_w, invls2_t)
+            f_wide = wr.fused_rhs_wide(xx, *pp)
+            errs["fused_rhs_wide_fwd"] = max(errs["fused_rhs_wide_fwd"], compare_fwd(
+                f_wide, wr.fused_rhs_wide_plain(xx, *pp),
+                f"fused_rhs_wide_fwd f ({what})"))
+            errs["fused_rhs_wide2_fwd"] = max(errs["fused_rhs_wide2_fwd"], compare_fwd(
+                wr.fused_rhs_wide2(xx, *pp), wr.fused_rhs_wide2_plain(xx, *pp),
+                f"fused_rhs_wide2_fwd f ({what})"))
+            compare_fwd(f_wide, ck.fused_rhs_plain(xx, *pp),
+                        f"fused_rhs_wide f vs the per-dim plain rhs ({what})")
+            got = wr.fused_rhs_wide_bwd(xx, *pp, g)
+            errs["fused_rhs_wide_bwd"] = max(errs["fused_rhs_wide_bwd"], compare_grads(
+                got, wr.fused_rhs_wide_bwd_plain(xx, *pp, g),
+                f"fused_rhs_wide_bwd ({what})"))
+            again = wr.fused_rhs_wide_bwd(xx, *pp, g)
+            check(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)),
+                  f"two fused_rhs_wide backward runs differ ({what})")
+            if (preset, rows) == ("official", 3000):
+                timed = (xx, g, packed, wblk, flat, sp, mp)
+        print("  fused_rhs_wide_bwd: two runs bit-identical at every shape")
+        xx, g, packed, wblk, flat, sp, mp = timed
+        ms = {
+            "fused_rhs_wide_fwd": (
+                cuda_ms(lambda: wr.launch_wide_fwd(xx, *packed, wblk, d, sp, mp, dense=True)),
+                cuda_ms(lambda: wr.wide_fwd_packed_plain(xx, *packed, wblk, d, sp, mp))),
+            "fused_rhs_wide2_fwd": (
+                cuda_ms(lambda: wr.launch_wide_fwd(xx, *packed, flat, d, sp, mp, dense=False)),
+                cuda_ms(lambda: wr.wide2_fwd_packed_plain(xx, *packed, flat, d, sp, mp))),
+            "fused_rhs_wide_bwd": (
+                cuda_ms(lambda: wr.launch_wide_bwd(xx, g, *packed, wblk, d, sp, mp)),
+                cuda_ms(lambda: wr.wide_bwd_packed_plain(xx, g, *packed, wblk, d, sp, mp))),
+        }
+    # the function's work, whatever the layout: the per-dim rhs's counts
+    fwd_bound = bound(rhs_ops(n, din, d, m, s), 4 * (n * din + pf + n * d))
+    bwd_bound = bound(vjp_ops(n, din, d, m, s),
+                      4 * (n * din + n * d + pf + n * din + pf))
+    for name in errs:
+        out[name] = (errs[name], *ms[name],
+                     *(bwd_bound if name.endswith("bwd") else fwd_bound))
+    print_kernel_rows(out)
     return out
+
+
+VDP_DATA = dict(s_train=25, t_train=7.0, noise_var=0.05, mu=0.5)
+VDP_CONFIGS = {
+    # the train script's defaults (scripts/_cli.py, train/experiments.py)
+    "default": dict(solver="dopri5", ts_dense_scale=4, max_steps=64),
+    # the golden-trajectory config of tests/test_golden.py
+    "golden": dict(solver="rk4", ts_dense_scale=2),
+}
+
+
+def vdp_phase(dev, config, profile_steps=0):
+    """Vanilla GPODE on Van der Pol: the step-0 loss on the card against the
+    same step on the CPU with the same noise, then the timed train steps
+    (and `profile_steps` profiled ones). Returns (results, trained params,
+    data)."""
+    phase(f"vdp ({config})")
+    import numpy as np
+    import torch
+    from gpode_tpu_torch.convert import gpode_params_from_numpy, params_to_numpy
+    from gpode_tpu_torch.data.vanderpol import VanderPol
+    from gpode_tpu_torch.models import gp
+    from gpode_tpu_torch.models.gpode import (GPODEStepNoise,
+                                              sample_gpode_step_noise)
+    from gpode_tpu_torch.models.init import (initialize_inducing,
+                                             initialize_kernel_parameters)
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.train.builders import (ModelArgs, build_gpode,
+                                                gpode_loss_fn)
+    from gpode_tpu_torch.train.trainer import default_optimizer, make_train_step
+
+    n_obs = VDP_DATA["s_train"]
+    data = VanderPol(s_test=2 * n_obs,
+                     t_test=VDP_DATA["t_train"] * (2 * n_obs - 1) / (n_obs - 1),
+                     x0=np.array([[-1.5, 2.5]]), **VDP_DATA)
+    args = ModelArgs(num_inducing=16, num_features=256, dimwise=True,
+                     **VDP_CONFIGS[config])
+    gp.set_rff_reference_scale(config == "golden")
+    try:
+        params = build_gpode(torch.Generator().manual_seed(121), args,
+                             data.trn.ys, device=dev)
+        initialize_kernel_parameters(params.gp)
+        initialize_inducing(params.gp, data.trn.ys, float(data.trn.ts.max()),
+                            1e0, rng=np.random.RandomState(121))
+        ys = torch.as_tensor(data.trn.ys, device=dev)
+        ts = torch.as_tensor(data.trn.ts, device=dev)
+        loss_fn = gpode_loss_fn(args)
+        gen = torch.Generator(dev).manual_seed(121)
+        noise0 = sample_gpode_step_noise(params, args.num_features, gen)
+        cpu_params = gpode_params_from_numpy(params_to_numpy(params), device="cpu")
+        cpu_noise = GPODEStepNoise(**{k: v.cpu() for k, v in vars(noise0).items()})
+        with torch.no_grad():
+            loss_d, terms_d = loss_fn(params, noise0, ys, ts)
+            loss_c, terms_c = loss_fn(cpu_params, cpu_noise, ys.cpu(), ts.cpu())
+        ld, lc = float(loss_d), float(loss_c)
+        print(f"step-0 loss: card {ld:.8f} (nfe {terms_d.nfe} natt {terms_d.natt} "
+              f"ncov {terms_d.ncov}), CPU {lc:.8f} (nfe {terms_c.nfe} natt "
+              f"{terms_c.natt} ncov {terms_c.ncov})")
+        check(math.isfinite(ld) and abs(ld - lc) <= 1e-4 * abs(lc),
+              "the VDP step-0 loss on the card differs from the CPU's")
+        check(terms_d.ncov == n_obs + 1, "the solver did not cover the grid")
+
+        step = make_train_step(loss_fn, params, default_optimizer(params, 5e-3))
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        losses, nfe, natt = [], 0, 0
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            if i == TRAIN_WARMUP:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+            terms = step(sample_gpode_step_noise(params, args.num_features, gen),
+                         ys, ts)
+            losses.append(float(terms.loss.detach()))
+            nfe, natt = nfe + terms.nfe, natt + terms.natt
+            check(terms.ncov == n_obs + 1, f"step {i} did not cover the grid")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        sps = TRAIN_STEPS / seconds
+        print(f"loss first {losses[0]:.6f} last {losses[-1]:.6f}; {sps:.2f} "
+              f"steps/s ({1e3 / sps:.3f} ms/step) over {TRAIN_STEPS} steps; nfe "
+              f"{nfe} natt {natt} in all, ncov {terms.ncov} per step; peak "
+              f"memory {peak / 2**20:.1f} MiB; kernel launches "
+              f"{sum(launches.values())}")
+        if profile_steps:
+            profile_train_steps(step, lambda: sample_gpode_step_noise(
+                params, args.num_features, gen), ys, ts, profile_steps,
+                f"vdp_{config}")
+    finally:
+        gp.set_rff_reference_scale(False)
+    check(all(math.isfinite(v) for v in losses), "non-finite VDP training loss")
+    check(losses[-1] < losses[0], "the VDP loss did not fall")
+    # one row, far below the 256-row gate: the rhs is the plain path
+    check(sum(launches.values()) == 0, "a kernel launched on the 1-row VDP path")
+    return dict(step0_card=ld, step0_cpu=lc, loss_first=losses[0],
+                loss_last=losses[-1], steps_per_sec=sps, nfe=nfe, natt=natt,
+                ncov=terms.ncov, peak_bytes=peak), params, data
+
+
+def field_phase(dev, vdp_params, vdp_data, mocap_args, mocap_params):
+    """The vector-field posterior through `rbf_gram`: `gp.conditional` of the
+    trained VDP GP on the 30x30 phase-plane grid and of the trained MoCap GP
+    at 3000 sampled shooting states, against the same call with grad mode on
+    (the `rbf_K` route), then `rbf_gram` against its plain version at both
+    shapes. Returns (results, launches, the worst `rbf_gram` error)."""
+    phase("field")
+    import numpy as np
+    import torch
+    from gpode_tpu_torch.models import gp
+    from gpode_tpu_torch.models.shooting import sample_step_noise, stack_segments
+    from gpode_tpu_torch.models.states import sample_shooting_states
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+
+    xx, yy = np.meshgrid(np.linspace(*vdp_data.xlim, 30),
+                         np.linspace(*vdp_data.ylim, 30))
+    grid = torch.as_tensor(np.stack([xx.reshape(-1), yy.reshape(-1)], axis=1),
+                           dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        noise = sample_step_noise(mocap_params, mocap_args.num_features,
+                                  mocap_args.num_samples,
+                                  torch.Generator(dev).manual_seed(5))
+        states = stack_segments(sample_shooting_states(
+            mocap_params.states, noise.x0, noise.states)).contiguous()
+    results = {}
+    ck.reset_launch_counts()                     # main path starts here
+    for name, gp_params, x in (("vdp_grid", vdp_params.gp, grid),
+                               ("mocap_states", mocap_params.gp, states)):
+        before = ck.LAUNCHES["rbf_gram"]
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, var = gp.conditional(gp_params, x)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        check(ck.LAUNCHES["rbf_gram"] == before + 1,
+              f"conditional ({name}) did not launch rbf_gram exactly once")
+        # grad mode on and the trained parameters require grad: the dispatch
+        # rule takes rbf_K
+        mean_k, var_k = gp.conditional(gp_params, x)
+        check(ck.LAUNCHES["rbf_gram"] == before + 1 and mean_k.requires_grad,
+              "the differentiable route did not take rbf_K")
+        d = gp_params.u_mean.shape[1]
+        check(mean.shape == (x.shape[0], d) and var.shape == (x.shape[0], d),
+              f"conditional ({name}) returned the wrong shapes")
+        # the two routes form the Gram differently (outer differences against
+        # rbf_K's norm expansion, ~1e-6 apart) and the whitening solve with
+        # chol(K(Z,Z) + 1e-5 I) amplifies that: atol 1e-4 * max|ref|
+        e_mean = compare_fwd(mean, mean_k, f"conditional mean ({name}, "
+                             f"N={x.shape[0]} D={d} M={gp_params.num_inducing})",
+                             atol_scale=1e-4)
+        e_var = compare_fwd(var, var_k, f"conditional var ({name})",
+                            atol_scale=1e-4)
+        vmin = float(var.min())
+        print(f"  {name}: var min {vmin:.3e} max {float(var.max()):.3e}; "
+              f"{1e3 * seconds:.3f} ms per call (host clock, first call)")
+        check(math.isfinite(vmin) and vmin > 0.0,
+              f"conditional ({name}) has a variance <= 0")
+        results[name] = dict(rows=x.shape[0], mean_max_abs_err=e_mean,
+                             var_max_abs_err=e_var, var_min=vmin,
+                             seconds=seconds)
+    launches = dict(ck.LAUNCHES)                 # main path ends here
+    check(launches["rbf_gram"] == 2, "rbf_gram launches on the field path")
+    # the wrapper against its plain version at both shapes the path gave it
+    e_gram = 0.0
+    with torch.no_grad():
+        for name, gp_params, x in (("vdp_grid", vdp_params.gp, grid),
+                                   ("mocap_states", mocap_params.gp, states)):
+            ops = (x, gp_params.z, gp_params.kernel.lengthscales,
+                   gp_params.kernel.variance)
+            e_gram = max(e_gram, compare_fwd(
+                ck.rbf_gram(*ops), ck.rbf_gram_plain(*ops),
+                f"rbf_gram K ({name}, N={x.shape[0]} Din={x.shape[1]} "
+                f"M={gp_params.num_inducing})"))
+    return results, launches, e_gram
+
+
+def wide_ab_phase():
+    """The wide-layout A/B entry point, in-process, at its default shapes."""
+    phase("wide A/B")
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.scripts import proto_wide_rhs
+    ck.reset_launch_counts()                     # main path starts here
+    rc = proto_wide_rhs.main(["--rows", "2995"])
+    launches = dict(ck.LAUNCHES)                 # main path ends here
+    print(f"proto_wide_rhs returned {rc}; launches {launches}", flush=True)
+    check(rc == 0, "the wide A/B entry point reported a mismatch")
+    return launches
 
 
 def reject_phase(dev):
@@ -667,17 +998,28 @@ def main(argv=None) -> int:
     build_seconds = build_phase()
     kernels, err_scaled_long_span = kernel_phase(dev)
     kernels.update(rk4_kernel_phase(dev))
+    kernels.update(gram_wide_kernel_phase(dev))
     train, launches, _, _ = train_phase(dev, "official", opts.profile_steps)
     train["reject_fallback_max_abs_err"] = reject_phase(dev)
     fast, fast_launches, fast_args, fast_params = train_phase(
         dev, "fast", opts.profile_steps)
     evaluation = eval_phase(dev, fast_args, fast_params)
+    vdp, vdp_params, vdp_data = vdp_phase(dev, "default", opts.profile_steps)
+    vdp_golden, _, _ = vdp_phase(dev, "golden", opts.profile_steps)
+    field, field_launches, e_gram = field_phase(dev, vdp_params, vdp_data,
+                                                fast_args, fast_params)
+    kernels["rbf_gram"] = (max(kernels["rbf_gram"][0], e_gram),
+                           *kernels["rbf_gram"][1:])
+    path_launches = {"official": launches, "fast": fast_launches,
+                     "field": field_launches, "wide_ab": wide_ab_phase()}
 
     phase("result")
     rows = []
     for name, (err, ms, pms, bms, by) in kernels.items():
-        # launches from the train path that runs the kernel
-        path = fast_launches if name in MAIN_PATH_KERNELS["fast"] else launches
+        # launches from the path that runs the kernel, counted from 0
+        path = next(path_launches[p] for p, names in MAIN_PATH_KERNELS.items()
+                    if name in names)
+        check(path[name] > 0, f"{name} never launched on its main path")
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "launches": path[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,
@@ -687,7 +1029,8 @@ def main(argv=None) -> int:
         json.dump({"card": card, "build_seconds": build_seconds,
                    "err_scaled_long_span_max_abs_err": err_scaled_long_span,
                    "kernels": rows, "train": train, "train_fast": fast,
-                   "eval_fast": evaluation}, f, indent=1)
+                   "eval_fast": evaluation, "vdp": vdp,
+                   "vdp_golden": vdp_golden, "field": field}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,8 +26,9 @@ import torch
 from torch import nn
 
 from gpode_tpu_torch.ops import math as om
-from gpode_tpu_torch.ops.cuda_kernels import fused_rhs
-from gpode_tpu_torch.ops.kernels import RBFParams, init_rbf, rbf_K, rbf_sample_freq
+from gpode_tpu_torch.ops.cuda_kernels import fused_rhs, rbf_gram
+from gpode_tpu_torch.ops.kernels import (RBFParams, init_rbf, rbf_K, rbf_K_diag,
+                                         rbf_sample_freq)
 
 
 class SVGPParams(nn.Module):
@@ -126,6 +127,14 @@ def sample_inducing(params: SVGPParams, normals: torch.Tensor) -> torch.Tensor:
 # RFF scale: the canonical sqrt(2 var / S) (Rahimi & Recht 2007). The
 # reference's sqrt(var / S) would give prior samples of variance var/2.
 _RFF_SCALE_FACTOR = 2.0
+
+
+def set_rff_reference_scale(enabled: bool):
+    """True -> reproduce the reference's sqrt(var / S) RFF scaling (its prior
+    samples carry variance var / 2); False (default) -> the canonical
+    sqrt(2 var / S). Read at every call: nothing is cached."""
+    global _RFF_SCALE_FACTOR
+    _RFF_SCALE_FACTOR = 1.0 if enabled else 2.0
 
 
 def rff_eval(params: SVGPParams, omega, phase, weights, x) -> torch.Tensor:
@@ -230,6 +239,67 @@ def eval_draws(params: SVGPParams, draws: PosteriorDraw, x: torch.Tensor,
             eval_draw(params, PosteriorDraw(*(leaf[i] for leaf in draws)),
                       x[i], True) for i in range(x.shape[0])])
     return _eval_plain(params, draws, x)
+
+
+def _needs_grad(params: SVGPParams, x: torch.Tensor) -> bool:
+    """Would autograd record K(Z, x)? (grad mode on and x, Z or a kernel
+    hyperparameter requires grad)."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, params.z, params.kernel.raw_lengthscales,
+                                  params.kernel.raw_variance))
+
+
+def cross_gram(params: SVGPParams, x: torch.Tensor) -> torch.Tensor:
+    """K(Z, x): (M, N) or dimwise (D, M, N).
+
+    Dispatch rule: a dimwise GP whose Gram needs no gradient (grad mode off,
+    or neither x, Z nor a kernel hyperparameter requires grad) takes the
+    forward-only `rbf_gram` kernel, transposed to (D, M, N); every other
+    case takes `rbf_K`, which autograd can differentiate. Nothing catches a
+    failed launch."""
+    if params.dimwise and not _needs_grad(params, x):
+        return rbf_gram(x, params.z, params.kernel.lengthscales,
+                        params.kernel.variance).mT
+    return rbf_K(params.kernel, params.z, x)
+
+
+def conditional(params: SVGPParams, x: torch.Tensor, *, full_cov: bool = False,
+                jitter: float = om.DEFAULT_JITTER):
+    """Exact conditional q(f(x)) = N(mean, var) of the vector field at x
+    (N, Din): (mean (N, D), var (N, D)), or with `full_cov`
+    (mean, var (D, N, N)).
+
+    K(Z, x) comes from :func:`cross_gram`: the `rbf_gram` kernel when the GP
+    is dimwise and no input needs a gradient, else `rbf_K`. In `q_diag` mode
+    S = diag(s^2), so the conditional moments match the decoupled-sampling
+    moments (the reference builds the rank-1 s s^T there)."""
+    chol_zz = precompute_chol(params, jitter)               # (M,M) / (D,M,M)
+    a = om.solve_lower(chol_zz, cross_gram(params, x))
+
+    m = params.num_inducing
+    eye = torch.eye(m, dtype=x.dtype, device=x.device)
+    if params.q_diag:
+        sk = torch.diag_embed(torch.square(params.u_scale_diag().T)) - eye
+    else:
+        us = params.u_scale_tril()                          # (D, M, M)
+        sk = torch.einsum("dmk,dek->dme", us, us) - eye
+    a_d = (a if params.dimwise else a[None]).expand(sk.shape[0], -1, -1)
+    b = torch.einsum("dme,den->dmn", sk, a_d)               # (D, M, N)
+
+    if full_cov:
+        kff = rbf_K(params.kernel, x)
+        var = (kff if params.dimwise else kff[None]) + torch.einsum(
+            "dme,dmn->den", a_d, b)                         # (D, N, N)
+    else:
+        kff = rbf_K_diag(params.kernel, x)                  # (D, N) / (N,)
+        var = ((kff if params.dimwise else kff[None])
+               + torch.sum(a_d * b, dim=1)).T               # (N, D)
+
+    if params.dimwise:
+        mean = torch.einsum("dmn,md->nd", a, params.u_mean)
+    else:
+        mean = torch.einsum("mn,md->nd", a, params.u_mean)
+    return mean, var
 
 
 def kl(params: SVGPParams) -> torch.Tensor:

@@ -1,26 +1,33 @@
-"""Vanilla GPODE parameters and posterior-predictive sampling.
+"""Vanilla GPODE: whole-trajectory ELBO and posterior-predictive sampling.
 
-Counterpart of `GPODEParams` and `predict` in `gpode_tpu/models/gpode.py`
-(the whole-trajectory ELBO is not ported yet). Prediction over S posterior
+Counterpart of `gpode_tpu/models/gpode.py`. The ELBO of one step is
+
+    loss = -( mean loglik - KL(q(x0)) / num_obs - KL(q(u)) / num_obs )
+
+with one x0 sample and one GP function draw. Prediction over S posterior
 draws is ONE batched solve (`flow.flow_forward_batched`): each draw has its
 own function draw and, when x0 is not given, its own q(x0) sample.
 
-Random numbers are inputs: a :class:`PredictNoise` carries every normal and
-uniform one prediction consumes, filled by :func:`sample_predict_noise` from
-a `torch.Generator` or, in the tests, from the JAX package's own keys.
+Random numbers are inputs: a :class:`GPODEStepNoise` (one train step) or a
+:class:`PredictNoise` (one prediction) carries every normal and uniform
+consumed, filled from a `torch.Generator` or, in the tests, from the JAX
+package's own keys.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from gpode_tpu_torch.models import gp
-from gpode_tpu_torch.models.flow import SolverConfig, flow_forward_batched
+from gpode_tpu_torch.models.flow import (SolverConfig, flow_forward,
+                                         flow_forward_batched)
+from gpode_tpu_torch.models.likelihoods import likelihood_log_prob
 from gpode_tpu_torch.models.states import (InitialStatePosterior,
+                                           initial_state_kl,
                                            sample_initial_state)
 from gpode_tpu_torch.utils.time_grids import insert_zero_t0
 
@@ -40,6 +47,88 @@ class GPODEParams(nn.Module):
         self.gp = gp_params
         self.x0 = x0
         self.likelihood = likelihood
+
+
+@dataclasses.dataclass
+class GPODEStepNoise:
+    """Every random number one vanilla train step consumes.
+
+    rff_weights (S_rff, D) and rff_freq (Din, S_rff, D) standard normals
+    ((Din, S_rff) when not dimwise); rff_phase (1, S_rff, D) uniforms in
+    [0, 1) ((1, S_rff) when not dimwise); inducing (M, D) and x0 (N, D)
+    standard normals.
+    """
+
+    rff_weights: torch.Tensor
+    rff_freq: torch.Tensor
+    rff_phase: torch.Tensor
+    inducing: torch.Tensor
+    x0: torch.Tensor
+
+
+def sample_gpode_step_noise(params: GPODEParams, num_features: int,
+                            generator: torch.Generator) -> GPODEStepNoise:
+    """Fill a :class:`GPODEStepNoise` from `generator` (on the params'
+    device)."""
+    dev = params.gp.z.device
+    m, din = params.gp.z.shape
+    d = params.gp.u_mean.shape[1]
+    kw = dict(generator=generator, device=dev)
+    f, dimwise = num_features, params.gp.dimwise
+    return GPODEStepNoise(
+        rff_weights=torch.randn(f, d, **kw),
+        rff_freq=torch.randn(*((din, f, d) if dimwise else (din, f)), **kw),
+        rff_phase=torch.rand(*((1, f, d) if dimwise else (1, f)), **kw),
+        inducing=torch.randn(m, d, **kw),
+        x0=torch.randn(*params.x0.mean.shape, **kw))
+
+
+class ELBOTerms(NamedTuple):
+    """Per-step scalars: loss and its terms (tensors), solver stats (ints).
+    ncov below T + 1 means the adaptive solver ran out of budget before the
+    last observation time."""
+
+    loss: torch.Tensor
+    observ_nll: torch.Tensor
+    x0_kl: torch.Tensor
+    inducing_kl: torch.Tensor
+    nfe: int
+    natt: int
+    ncov: int
+
+
+def elbo_loss(params: GPODEParams, noise: GPODEStepNoise, ys: torch.Tensor,
+              ts: torch.Tensor, cfg: SolverConfig,
+              obs_mask: Optional[torch.Tensor] = None
+              ) -> tuple[torch.Tensor, ELBOTerms]:
+    """Negative ELBO of one step; ys (N, T, D_obs), ts (T,). One x0 sample
+    and one GP function draw; the trajectory starts one interval before the
+    first observation (`insert_zero_t0`).
+
+    obs_mask (optional, (N, T) of {0, 1}) marks the observed time points:
+    the others drop out of the likelihood and of the num_obs KL scaling.
+    """
+    x0 = sample_initial_state(params.x0, noise.x0[None])[0]      # (N, D)
+    draw = gp.draw_posterior(params.gp, noise.rff_weights, noise.rff_freq,
+                             noise.rff_phase, noise.inducing)
+    xs, stats = flow_forward(params.gp, draw, x0, insert_zero_t0(ts), cfg)
+    xs = xs[:, 1:]                                               # drop t=0
+
+    lp = likelihood_log_prob(params.likelihood, xs, ys)
+    if obs_mask is None:
+        loglik = torch.mean(lp)
+        num_obs = ys.numel()
+    else:
+        m = obs_mask[:, :, None].to(lp.dtype)
+        num_obs = torch.sum(m) * lp.shape[-1]
+        loglik = torch.sum(lp * m) / num_obs
+    x0_kl = initial_state_kl(params.x0) / num_obs
+    ind_kl = gp.kl(params.gp) / num_obs
+
+    loss = -(loglik - x0_kl - ind_kl)
+    return loss, ELBOTerms(loss=loss, observ_nll=-loglik, x0_kl=x0_kl,
+                           inducing_kl=ind_kl, nfe=stats.num_rhs_evals,
+                           natt=stats.num_attempted, ncov=stats.num_covered)
 
 
 @dataclasses.dataclass

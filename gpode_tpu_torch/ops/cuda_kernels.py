@@ -1,8 +1,7 @@
 """Hand-written Hopper kernels for the hot GPODE ops, with their plain
 PyTorch versions and autograd rules.
 
-Counterpart of `gpode_tpu/ops/pallas_kernels.py` for the kernels on the
-shooting train step:
+Counterpart of `gpode_tpu/ops/pallas_kernels.py`:
 
   * :func:`fused_rhs` — the decoupled-sampling ODE right-hand side
     f(x) = cos(x Omega + phase) * sqrt(2 var / S) @ w + nu^T K(Z, x), forward
@@ -12,7 +11,12 @@ shooting train step:
     (`csrc/fused_dopri5.cu`; the official recipe);
   * :func:`fused_rk4_segment` — `substeps` rk4 steps over one shooting
     interval for a batch of rows, forward and the reverse sweep of the stage
-    chain (`csrc/fused_rk4.cu`; the `fast` recipe).
+    chain (`csrc/fused_rk4.cu`; the `fast` recipe);
+  * :func:`rbf_gram` — the dimwise RBF cross-Gram K(x, Z) (D, N, M), forward
+    only (`csrc/rbf_gram.cu`; the vector-field posterior `gp.conditional`).
+
+The wide-layout rhs kernels (`csrc/fused_rhs_wide.cu`) are bound in
+`ops/wide_rhs.py` and share this module's counters and helpers.
 
 Each public function takes the plain version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises. `LAUNCHES` counts kernel launches
@@ -37,7 +41,9 @@ from gpode_tpu_torch.ops.ode import _DP_A, _DP_B4, _DP_B5
 
 LAUNCHES = {"fused_rhs_fwd": 0, "fused_rhs_bwd": 0,
             "fused_dopri5_attempt_fwd": 0, "fused_dopri5_attempt_bwd": 0,
-            "fused_rk4_segment_fwd": 0, "fused_rk4_segment_bwd": 0}
+            "fused_rk4_segment_fwd": 0, "fused_rk4_segment_bwd": 0,
+            "rbf_gram": 0, "fused_rhs_wide_fwd": 0, "fused_rhs_wide2_fwd": 0,
+            "fused_rhs_wide_bwd": 0}
 
 # Kernel limits (csrc/rhs_tile.cuh): Din unrolled up to 16 in registers;
 # 32 * D threads per backward block; 227 KB of shared memory per block.
@@ -94,6 +100,20 @@ def dopri5_attempt_plain(x0, dt, z, lengthscales, variance, omega, phase,
     err = dt * sum((b5 - b4) * k for b5, b4, k in zip(_DP_B5, _DP_B4, ks))
     scale = atol + rtol * torch.maximum(torch.abs(x0), torch.abs(x5))
     return x5, (err / scale).detach(), torch.stack(xs)
+
+
+def rbf_gram_plain(x, z, lengthscales, variance):
+    """The dimwise Gram K (D, N, M) as plain tensor ops: the Din outer
+    differences of the pre-scaled inputs, summed in k order
+    (`_sqdist_tile` / `_rbf_gram_kernel`)."""
+    inv_ls = 1.0 / lengthscales                                  # (D, Din)
+    acc = x.new_zeros(lengthscales.shape[0], x.shape[0], z.shape[0])
+    for k in range(x.shape[1]):
+        xk = x[None, :, k, None] * inv_ls[:, k, None, None]      # (D, N, 1)
+        zk = z[None, None, :, k] * inv_ls[:, k, None, None]      # (D, 1, M)
+        diff = xk - zk
+        acc = acc + diff * diff
+    return variance[:, None, None] * torch.exp(-0.5 * acc)
 
 
 def rk4_segment_plain(x0, dt, z, lengthscales, variance, omega, phase,
@@ -175,6 +195,9 @@ _SIGNATURES = {
         "gpode_dp_attempt_bwd": [_P] * 16 + [_I] * 6 + [_P]},
     "fused_rk4": {"gpode_rk4_fwd": [_P] * 11 + [_I] * 8 + [_P],
                   "gpode_rk4_bwd": [_P] * 15 + [_I] * 7 + [_P]},
+    "rbf_gram": {"gpode_rbf_gram": [_P] * 5 + [_I] * 6 + [_P]},
+    "fused_rhs_wide": {"gpode_wide_fwd": [_P] * 7 + [_I] * 8 + [_P],
+                       "gpode_wide_bwd": [_P] * 10 + [_I] * 7 + [_P]},
 }
 _TYPED: set = set()
 
@@ -252,6 +275,15 @@ def _raise_on(rc, what):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
+def require_no_grad(what, *tensors):
+    """The forward-only kernels have no autograd rule: refuse operands that
+    would need one (grad mode on and a tensor that requires grad)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} is forward only (no gradient is defined): call it under "
+            f"torch.no_grad() or with detached operands")
+
+
 # ---------------------------------------------------------------------------
 # fused_rhs
 # ---------------------------------------------------------------------------
@@ -272,7 +304,9 @@ def _launch_rhs_fwd(x, ops, din, d, m, s):
     return out
 
 
-def _launch_rhs_bwd(x, g, ops, din, d, m, s):
+def _launch_rhs_bwd_packed(x, g, ops, din, d, m, s):
+    """The backward kernel and its fixed-order reduction: (dx, out_main
+    (D, main_slab), out_dz (M*Din)), the parameter cotangents still packed."""
     dev = x.device
     n = x.shape[0]
     rows = _bwd_rows_per_block(n, dev)
@@ -289,6 +323,11 @@ def _launch_rhs_bwd(x, g, ops, din, d, m, s):
         _ptr(part_dz), _ptr(out_main), _ptr(out_dz), n, din, d, m, s, rows,
         _stream(dev))
     _raise_on(rc, "fused_rhs backward")
+    return dx, out_main, out_dz
+
+
+def _launch_rhs_bwd(x, g, ops, din, d, m, s):
+    dx, out_main, out_dz = _launch_rhs_bwd_packed(x, g, ops, din, d, m, s)
     return (dx,) + _unpack_param_cotangents(out_main, out_dz, din, d, m, s)
 
 
@@ -521,3 +560,62 @@ def fused_rk4_segment(x0, dt, z, lengthscales, variance, omega, phase,
                                  omega, phase, weights, nu, substeps)[0]
     return _FusedRk4SegmentFn.apply(x0, dt, z, lengthscales, variance, omega,
                                     phase, weights, nu, substeps)
+
+
+# ---------------------------------------------------------------------------
+# rbf_gram
+# ---------------------------------------------------------------------------
+
+_GRAM_ROWS, _GRAM_THREADS = 32, 256
+
+
+def _launch_rbf_gram(x, z, inv_ls, variance):
+    """One launch on contiguous CUDA operands; inv_ls (D, Din) = 1 / ls."""
+    dev = x.device
+    (n, din), m, d = x.shape, z.shape[0], inv_ls.shape[0]
+    out = torch.empty(d, n, m, dtype=torch.float32, device=dev)
+    if n == 0 or m == 0:
+        return out
+    lib = _lib("rbf_gram")
+    LAUNCHES["rbf_gram"] += 1
+    rc = lib.gpode_rbf_gram(_ptr(x), _ptr(z), _ptr(inv_ls), _ptr(variance),
+                            _ptr(out), n, din, d, m, _GRAM_ROWS,
+                            _GRAM_THREADS, _stream(dev))
+    _raise_on(rc, "rbf_gram")
+    return out
+
+
+def rbf_gram(x, z, lengthscales, variance):
+    """Dimwise RBF cross-Gram K(x, z): x (N, Din), z (M, Din), lengthscales
+    (D, Din) and variance (D,) constrained -> (D, N, M) float32.
+
+    Forward only, as the TPU kernel it replaces: with grad mode on and an
+    operand that requires grad it raises. A CUDA tensor launches the kernel
+    or raises; a CPU tensor takes :func:`rbf_gram_plain`."""
+    require_no_grad("rbf_gram", x, z, lengthscales, variance)
+    if x.device.type == "cpu":
+        return rbf_gram_plain(x, z, lengthscales, variance)
+    dev = x.device
+    tensors = dict(x=x, z=z, lengthscales=lengthscales, variance=variance)
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if x.ndim != 2 or z.ndim != 2 or lengthscales.ndim != 2:
+        raise ValueError("rbf_gram takes x (N, Din), z (M, Din) and dimwise "
+                         "lengthscales (D, Din)")
+    din, d = x.shape[1], lengthscales.shape[0]
+    if (z.shape[1] != din or lengthscales.shape[1] != din
+            or tuple(variance.shape) != (d,)):
+        raise ValueError(
+            f"shapes disagree: x {tuple(x.shape)}, z {tuple(z.shape)}, "
+            f"lengthscales {tuple(lengthscales.shape)}, variance "
+            f"{tuple(variance.shape)}")
+    if not 1 <= d <= 65535:
+        raise ValueError(f"rbf_gram supports 1 <= D <= 65535, got {d}")
+    _check_smem(4 * (z.shape[0] + _GRAM_ROWS) * din, "rbf_gram")
+    with torch.no_grad():
+        return _launch_rbf_gram(x.contiguous(), z.contiguous(),
+                                (1.0 / lengthscales).contiguous(),
+                                variance.contiguous())

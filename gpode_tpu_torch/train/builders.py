@@ -1,4 +1,4 @@
-"""Model wiring for the shooting GPODE. Counterpart of the shooting part of
+"""Model wiring for the vanilla and the shooting GPODE. Counterpart of
 `gpode_tpu/train/builders.py` (constraint annealing is not ported yet)."""
 
 from __future__ import annotations
@@ -10,13 +10,14 @@ import numpy as np
 import torch
 
 from gpode_tpu_torch import resolve_device
-from gpode_tpu_torch.models import gp, shooting
+from gpode_tpu_torch.models import gp, gpode, shooting
 from gpode_tpu_torch.models.constraints import init_constraint
 from gpode_tpu_torch.models.flow import SolverConfig
 from gpode_tpu_torch.models.likelihoods import (ProjectedGaussianLikelihood,
                                                 Projector,
                                                 init_gaussian_likelihood)
-from gpode_tpu_torch.models.states import init_shooting_states
+from gpode_tpu_torch.models.states import (init_initial_state,
+                                           init_shooting_states)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +56,32 @@ def make_projector(arrays, device) -> Projector:
                      t(arrays.norm_std))
 
 
+def _init_likelihood(d, projector, full_dim, device):
+    if projector is None:
+        return init_gaussian_likelihood(d, device=device)
+    return ProjectedGaussianLikelihood(
+        init_gaussian_likelihood(full_dim, device=device),
+        make_projector(projector, device))
+
+
+def build_gpode(generator: torch.Generator, args: ModelArgs,
+                data_ys: np.ndarray, projector=None,
+                full_dim: Optional[int] = None,
+                device=None) -> gpode.GPODEParams:
+    """Vanilla GPODE params for observed sequences (N, T, D_latent). With a
+    projector (a `ProjectorArrays`) the likelihood is scored in the
+    `full_dim`-D data space. `device` defaults to CUDA (see
+    `resolve_device`)."""
+    device = resolve_device(device)
+    n, _, d = data_ys.shape
+    gp_params = gp.init_svgp(generator, d, d, args.num_inducing,
+                             dimwise=args.dimwise, q_diag=args.q_diag,
+                             device=device)
+    x0 = init_initial_state(generator, n, d, device)
+    return gpode.GPODEParams(gp_params, x0,
+                             _init_likelihood(d, projector, full_dim, device))
+
+
 def build_shooting(generator: torch.Generator, args: ModelArgs,
                    data_ys: np.ndarray, projector=None,
                    full_dim: Optional[int] = None,
@@ -68,16 +95,22 @@ def build_shooting(generator: torch.Generator, args: ModelArgs,
                              dimwise=args.dimwise, q_diag=args.q_diag,
                              device=device)
     states = init_shooting_states(generator, n, t - 1, d, device)
-    if projector is None:
-        likelihood = init_gaussian_likelihood(d, device=device)
-    else:
-        likelihood = ProjectedGaussianLikelihood(
-            init_gaussian_likelihood(full_dim, device=device),
-            make_projector(projector, device))
+    likelihood = _init_likelihood(d, projector, full_dim, device)
     constraint = init_constraint(args.constraint_type, d=1,
                                  scale=args.constraint_initial_scale,
                                  device=device)
     return shooting.ShootingParams(gp_params, states, likelihood, constraint)
+
+
+def gpode_loss_fn(args: ModelArgs, kernels: Optional[bool] = None):
+    """loss(params, noise, ys, ts) -> (loss, ELBOTerms) for the vanilla
+    model."""
+    cfg = args.solver_config(kernels)
+
+    def loss(params, noise, ys, ts):
+        return gpode.elbo_loss(params, noise, ys, ts, cfg)
+
+    return loss
 
 
 def shooting_loss_fn(args: ModelArgs, kernels: Optional[bool] = None):

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from gpode_tpu_torch.ops import cuda_kernels as ck
+from gpode_tpu_torch.ops import wide_rhs as wr
 
 pytestmark = pytest.mark.gpu
 
@@ -180,3 +181,78 @@ def test_fused_rk4_segment_ragged_block_and_bit_reproducible_cotangents(cuda):
     second = _grads(ck.fused_rk4_segment(x, dt, *args[1:], 2), [x] + args[1:], g)
     for name, a, b in zip(NAMES, first, second):
         assert torch.equal(a, b), name  # fixed-order reduction, no atomics
+
+
+@pytest.mark.parametrize("n,m", [(N, M), (77, M), (N, 256)],
+                         ids=["bench", "ragged_n77", "m256"])
+def test_rbf_gram_matches_plain(cuda, n, m):
+    rng = np.random.default_rng(10)
+    f32 = np.float32
+    x, z, ls, var = (torch.tensor(np.asarray(a, f32), device=cuda) for a in (
+        rng.normal(size=(n, DIM)), rng.normal(size=(m, DIM)),
+        rng.uniform(0.8, 1.6, size=(DIM, DIM)), rng.uniform(0.3, 0.8, size=(DIM,))))
+    before = ck.LAUNCHES["rbf_gram"]
+    got = ck.rbf_gram(x, z, ls, var)
+    assert ck.LAUNCHES["rbf_gram"] == before + 1
+    assert got.shape == (DIM, n, m)
+    _assert_close(got, ck.rbf_gram_plain(x, z, ls, var), "gram")
+    with pytest.raises(RuntimeError, match="forward only"):
+        ck.rbf_gram(x.clone().requires_grad_(), z, ls, var)
+    with pytest.raises(TypeError):
+        ck.rbf_gram(x.double(), z, ls, var)
+    with pytest.raises(ValueError):
+        ck.rbf_gram(x, z.cpu(), ls, var)
+    assert ck.LAUNCHES["rbf_gram"] == before + 1
+
+
+def _wide_inputs(dev, n, m, seed, din=DIM, d=DIM, s=S):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    arrays = (rng.normal(size=(n, din)), rng.normal(size=(m, din)),
+              1.0 + rng.uniform(size=(d, din)), 0.5 + rng.uniform(size=(d,)),
+              rng.normal(size=(din, s, d)), 6.28 * rng.uniform(size=(1, s, d)),
+              rng.normal(size=(s, d)), rng.normal(size=(d, m)))
+    return [torch.tensor(np.asarray(a, f32), device=dev) for a in arrays]
+
+
+@pytest.mark.parametrize("n,m,din,d,s", [
+    (2995, M, DIM, DIM, S), (N, 256, DIM, DIM, S), (37, 27, DIM, DIM, S),
+    (203, 40, 10, 12, 100), (203, 40, 3, 2, S)],
+    ids=["rows2995", "m256", "ragged_padded", "din10_d12_s100", "din3_d2"])
+def test_wide_kernels_match_plain(cuda, n, m, din, d, s):
+    """The three wide kernels against their plain versions; 2995 rows and
+    (37, M=27) leave a ragged last pass, M=27 and S=100 pad their blocks;
+    Din=10, D=12 takes the kernels' wider register layout (its backward's
+    accumulators fill 212 KB of shared memory), Din != D both ways."""
+    args = _wide_inputs(cuda, n, m, seed=11, din=din, d=d, s=s)
+    g = torch.randn(n, d, device=cuda, generator=torch.Generator(cuda).manual_seed(12))
+    before = dict(ck.LAUNCHES)
+    _assert_close(wr.fused_rhs_wide(*args), wr.fused_rhs_wide_plain(*args), "wide")
+    _assert_close(wr.fused_rhs_wide2(*args), wr.fused_rhs_wide2_plain(*args), "wide2")
+    _assert_close(wr.fused_rhs_wide(*args), ck.fused_rhs_plain(*args), "per-dim plain")
+    got = wr.fused_rhs_wide_bwd(*args, g)
+    for name, a, b in zip(NAMES, got, wr.fused_rhs_wide_bwd_plain(*args, g)):
+        _assert_close(a, b, name, fwd=False)
+    again = wr.fused_rhs_wide_bwd(*args, g)
+    for name, a, b in zip(NAMES, got, again):
+        assert torch.equal(a, b), name  # fixed-order reduction, no atomics
+    assert ck.LAUNCHES["fused_rhs_wide_fwd"] == before["fused_rhs_wide_fwd"] + 2
+    assert ck.LAUNCHES["fused_rhs_wide2_fwd"] == before["fused_rhs_wide2_fwd"] + 1
+    assert ck.LAUNCHES["fused_rhs_wide_bwd"] == before["fused_rhs_wide_bwd"] + 2
+
+
+def test_wide_wrappers_raise_instead_of_falling_back(cuda):
+    args = _wide_inputs(cuda, 64, M, seed=13)
+    before = dict(ck.LAUNCHES)
+    with pytest.raises(RuntimeError, match="forward only"):
+        wr.fused_rhs_wide(args[0].clone().requires_grad_(), *args[1:])
+    with pytest.raises(TypeError):
+        wr.fused_rhs_wide2(args[0].double(), *args[1:])
+    with pytest.raises(ValueError):
+        wr.fused_rhs_wide_bwd(*args, torch.ones(64, DIM + 1, device=cuda))
+    big = _wide_inputs(cuda, 64, 40, seed=14, din=10, d=12)  # W = 3840
+    with pytest.raises(ValueError, match="shared memory"):
+        wr.fused_rhs_wide_bwd(*big, torch.ones(64, 12, device=cuda))
+    with pytest.raises(ValueError, match="Din, D <= 16"):
+        wr.fused_rhs_wide(*_wide_inputs(cuda, 8, 8, seed=15, din=3, d=17, s=32))
+    assert ck.LAUNCHES == before

@@ -25,7 +25,7 @@ from gpode_tpu.ops.ode import _dopri5_step as j_dopri5_step
 from gpode_tpu.ops.ode import _initial_step as j_initial_step
 from gpode_tpu.ops.ode import odeint_dopri5 as jodeint_dopri5
 from gpode_tpu.ops.ode import odeint_fixed as jodeint_fixed
-from gpode_tpu.ops.pallas_kernels import _rhs_reference_jnp
+from gpode_tpu.ops.pallas_kernels import _rhs_reference_jnp, rbf_gram_pallas
 
 from gpode_tpu_torch.models import gp as tgp
 from gpode_tpu_torch.models.flow import SolverConfig, flow_forward
@@ -448,3 +448,46 @@ def test_flow_forward_attempt_path_matches_jax(case):
                 msg="raw_lengthscales")
     for name in tdraw._fields:
         _close_grad(getattr(tdraw, name).grad, getattr(jg_dr, name), msg=name)
+
+
+# ---------------------------------------------------------------------------
+# rbf_gram: plain version vs the Pallas kernel in interpret mode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(77, 3, 2, 10), (5, 2, 4, 33)],
+                         ids=["n77_din3_d2_m10", "n5_din2_d4_m33"])
+def test_rbf_gram_plain_matches_pallas_interpret_and_rbf_K(shape):
+    """As tests/test_pallas.py holds the Pallas kernel to `rbf_K` (rtol 2e-4,
+    atol 2e-5); N is no multiple of any tile."""
+    n, din, d, m = shape
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(n, din)).astype(np.float32)
+    z = rng.normal(size=(m, din)).astype(np.float32)
+    raw_ls = rng.uniform(0.2, 1.0, size=(d, din)).astype(np.float32)
+    raw_var = rng.uniform(-0.5, 0.5, size=(d,)).astype(np.float32)
+    kern = RBFParams(_t(raw_ls), _t(raw_var))
+    with torch.no_grad():
+        ls, var = kern.lengthscales, kern.variance
+        got = ck.rbf_gram_plain(_t(x), _t(z), ls, var)
+        assert got.shape == (d, n, m)
+        _close(ck.rbf_gram(_t(x), _t(z), ls, var), got, atol=0.0)  # CPU route
+        want = rbf_gram_pallas(jnp.asarray(x), jnp.asarray(z),
+                               jnp.asarray(ls.numpy()), jnp.asarray(var.numpy()),
+                               interpret=True)
+        _close(got, want, rtol=2e-4, atol=2e-5, msg="pallas interpret")
+        _close(got, rbf_K(kern, _t(z), _t(x)).mT, rtol=2e-4, atol=2e-5,
+               msg="rbf_K transposed")
+
+
+def test_rbf_gram_is_forward_only():
+    before = ck.LAUNCHES["rbf_gram"]
+    x, z = torch.randn(6, 2), torch.randn(4, 2)
+    ls, var = torch.ones(3, 2), torch.ones(3)
+    for i in range(4):
+        args = [x, z, ls, var]
+        args[i] = args[i].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="forward only"):
+            ck.rbf_gram(*args)
+        with torch.no_grad():              # grad mode off: nothing to record
+            assert ck.rbf_gram(*args).shape == (3, 6, 4)
+    assert ck.LAUNCHES["rbf_gram"] == before

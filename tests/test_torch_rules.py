@@ -12,6 +12,7 @@ import torch
 from gpode_tpu_torch import resolve_device
 from gpode_tpu_torch.convert import gpode_params_from_numpy, params_from_numpy
 from gpode_tpu_torch.models.gpode import GPODEParams, sample_predict_noise
+from gpode_tpu_torch.scripts import proto_wide_rhs
 from gpode_tpu_torch.train import builders as tb
 from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
                                                preset_model_args)
@@ -70,7 +71,8 @@ def _gpode_view(args, **kw):
                                    "preset_build_bench_problem",
                                    "gpode_params_from_numpy",
                                    "sample_predict_noise",
-                                   "make_projected_scorer"])
+                                   "make_projected_scorer", "build_gpode",
+                                   "proto_wide_rhs"])
 def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(
         monkeypatch, entry):
     _no_card(monkeypatch)
@@ -93,11 +95,18 @@ def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(
         "make_projected_scorer": lambda **kw: make_projected_scorer(
             args.solver_config(), None, np.zeros((2, 4, 3), np.float32),
             np.linspace(0, 0.3, 4), None, **kw),
+        "build_gpode": lambda **kw: tb.build_gpode(
+            torch.Generator().manual_seed(0), args,
+            np.zeros((2, 4, 3), np.float32), **kw),
+        # the command line's --device; main returns 0 after the error lines
+        "proto_wide_rhs": lambda **kw: proto_wide_rhs.main(
+            ["--rows", "9", "--m", "4", "--s", "8", "--d", "2"]
+            + [f"--{k}={v}" for k, v in kw.items()]) == 0,
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry](device="cuda")
     if entry in ("resolve_device", "build_shooting", "sample_predict_noise",
-                 "make_projected_scorer"):
+                 "make_projected_scorer", "build_gpode", "proto_wide_rhs"):
         assert calls[entry](device="cpu") is not None
