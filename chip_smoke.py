@@ -25,7 +25,14 @@ exit code and no result line:
      tile); the three wide-layout rhs functions against their plain versions
      at N=2995 and 3000, M=100 and 256, the wide backward also for
      bit-identical reruns. Bounds read the function,
-     not the formulation: the wide kernels take the per-dim rhs's counts;
+     not the formulation: the wide kernels take the per-dim rhs's counts.
+     The dopri5 attempt's backward is held and timed at M=256 too, the rk4
+     segment's timed at 3 substeps and at M=256. For every backward kernel
+     it prints registers and spill bytes (the build's ptxas record), block
+     size, dynamic shared memory and resident blocks and warps per SM (the
+     occupancy query); the two segment backward kernels must be free of
+     spills and take at most 3.7x (dopri5) and 2.45x (rk4) one fused_rhs
+     backward launch of this call;
   4. train: the official-recipe shooting train step (dopri5, whole-span
      first step, 5 MC draws, no frozen mask as in bench.py): the step-0 loss
      against the same step through the plain path at rtol 1e-4, then 3
@@ -109,6 +116,13 @@ REPLACES = {
     "fused_rhs_wide2_fwd": "scripts/proto_wide_rhs.py:168",
     "fused_rhs_wide_bwd": "scripts/proto_wide_rhs.py:305",
 }
+# The two segment backward kernels before their redesign (PERF.md; NVIDIA
+# H100 80GB HBM3, 700.00 W): device ms per launch and the ratio to one
+# fused_rhs backward launch of the same call. Held here: the ratio now is at
+# most `limit` (1.4x faster than before, whatever card the call lands on).
+EARLIER = {"fused_dopri5_attempt_bwd": dict(ms=0.8809, ratio=5.17, limit=3.7),
+           "fused_rk4_segment_bwd": dict(ms=0.5846, ratio=3.43, limit=2.45)}
+
 # the kernels each path must launch, and those a train path must not
 MAIN_PATH_KERNELS = {
     "official": ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd"),
@@ -309,6 +323,8 @@ def kernel_phase(dev):
         rhs_ops(n, din, d, m, s), 4 * (n * din + pf + n * d)))
     out["fused_rhs_bwd"] = (e_bwd, ms_b, ms_bp, *bound(
         vjp_ops(n, din, d, m, s), 4 * (n * din + n * d + pf + n * din + pf)))
+    resources = {"fused_rhs_bwd": print_backward_resources(
+        "fused_rhs_bwd", ck.rhs_bwd_occupancy(n, *dims, dev))}
 
     # -- fused_dopri5_attempt forward / backward
     x5_k, err_k = ck.fused_dopri5_attempt(x, dt, *params, rtol, atol)
@@ -339,11 +355,41 @@ def kernel_phase(dev):
     ms_dbp = cuda_ms(lambda: torch.autograd.grad(x5_p, inputs, g, retain_graph=True))
     out["fused_dopri5_attempt_fwd"] = (max(e_dfwd, e_x5_long), ms_df, ms_dfp, *bound(
         7 * rhs_ops(n, din, d, m, s), 4 * (n * din + pf + 2 * n * d + 6 * n * din)))
+    first = ck._launch_dp_bwd(xs, g, dt, ops, *dims)
+    second = ck._launch_dp_bwd(xs, g, dt, ops, *dims)
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          "two fused_dopri5_attempt backward runs differ")
+    print("  fused_dopri5_attempt_bwd: two runs bit-identical")
+
+    # the backward at M=256 (the m256 shape): held and timed
+    inputs256, dt256, args256, _, _ = main_path_inputs(dev, "m256")
+    m256 = inputs256[1].shape[0]
+    check(m256 == 256, "the m256 preset has not M=256")
+    x5_k, _ = ck.fused_dopri5_attempt(inputs256[0], dt256, *inputs256[1:],
+                                      args256.rtol, args256.atol)
+    x5_p, _, xs256 = ck.dopri5_attempt_plain(inputs256[0], dt256, *inputs256[1:],
+                                             args256.rtol, args256.atol)
+    e_dbwd = max(e_dbwd, compare_grads(
+        torch.autograd.grad(x5_k, inputs256, g),
+        torch.autograd.grad(x5_p, inputs256, g), "fused_dopri5_attempt_bwd (M=256)"))
+    ops256 = ck._kernel_operands(*[p.detach() for p in inputs256[1:]])
+    xs256 = xs256.detach().contiguous()
+    ms_db256 = cuda_ms(lambda: ck._launch_dp_bwd(xs256, g, dt256, ops256,
+                                                 din, d, m256, s))
+    print(f"  fused_dopri5_attempt_bwd at M=256: {ms_db256:.4f} ms per launch")
+
     out["fused_dopri5_attempt_bwd"] = (e_dbwd, ms_db, ms_dbp, *bound(
         6 * vjp_ops(n, din, d, m, s), 4 * (6 * n * din + n * d + pf + n * din + pf)))
 
     print_kernel_rows(out)
-    return out, e_err_long
+    geo = ck.segment_bwd_geometry(n, *dims, 6, ck._sms(dev))
+    report = print_backward_resources(
+        "fused_dopri5_attempt_bwd", ck.segment_bwd_occupancy(6, *dims, geo))
+    resources["fused_dopri5_attempt_bwd"] = dict(
+        report_redesigned("fused_dopri5_attempt_bwd", ms_db,
+                          out["fused_dopri5_attempt_bwd"][3], ms_b, report),
+        blocks=geo.blocks, rows_per_block=geo.rows_per_block, ms_m256=ms_db256)
+    return out, e_err_long, resources
 
 
 def long_span_error_check(x, params, rtol, atol):
@@ -388,11 +434,13 @@ def long_span_error_check(x, params, rtol, atol):
     return float((x5_k - x5_p).abs().max()), err
 
 
-def rk4_kernel_phase(dev):
+def rk4_kernel_phase(dev, rhs_bwd_ms):
     """The rk4 segment kernels at the fast step's inputs, at its 1 substep
     and at 3 (the reverse sweep across steps); the backward also at M=256
-    (the m256_fast shape) and twice for bit-identical cotangents. Times are
-    at 1 substep. Returns the two kernel rows."""
+    (the m256_fast shape) and twice for bit-identical cotangents. The rows'
+    times are at 1 substep; the backward is also timed at 3 substeps and at
+    M=256. `rhs_bwd_ms`: one fused_rhs backward launch of this call. Returns
+    the two kernel rows and the backward's resource report."""
     phase("kernels: rk4 segment")
     import torch
     from gpode_tpu_torch.ops import cuda_kernels as ck
@@ -433,6 +481,10 @@ def rk4_kernel_phase(dev):
     check(all(torch.equal(a, b) for a, b in zip(first, second)),
           "two fused_rk4_segment backward runs differ")
     print("  fused_rk4_segment_bwd: two runs bit-identical")
+    with torch.no_grad():
+        _, xs3 = ck._launch_rk4_fwd(xd, dt, 3, ops, *dims)
+    ms_b3 = cuda_ms(lambda: ck._launch_rk4_bwd(xs3, g, dt, 3, ops, *dims))
+    print(f"  fused_rk4_segment_bwd at 3 substeps: {ms_b3:.4f} ms per launch")
 
     inputs256, dt256, args256, _, _ = main_path_inputs(dev, "m256_fast")
     check(inputs256[1].shape[0] == 256, "the m256_fast preset has not M=256")
@@ -443,6 +495,13 @@ def rk4_kernel_phase(dev):
     e_bwd = max(e_bwd, compare_grads(
         torch.autograd.grad(x1_k, inputs256, g),
         torch.autograd.grad(x1_p, inputs256, g), "fused_rk4_segment_bwd (M=256)"))
+    ops256 = ck._kernel_operands(*[p.detach() for p in inputs256[1:]])
+    with torch.no_grad():
+        _, xs256 = ck._launch_rk4_fwd(inputs256[0].detach(), dt256, sub256,
+                                      ops256, din, d, 256, s)
+    ms_b256 = cuda_ms(lambda: ck._launch_rk4_bwd(xs256, g, dt256, sub256, ops256,
+                                                 din, d, 256, s))
+    print(f"  fused_rk4_segment_bwd at M=256: {ms_b256:.4f} ms per launch")
 
     pf = param_floats(din, d, m, s)
     out = {
@@ -452,7 +511,15 @@ def rk4_kernel_phase(dev):
             4 * vjp_ops(n, din, d, m, s), 4 * (4 * n * din + n * d + pf + n * din + pf))),
     }
     print_kernel_rows(out)
-    return out
+    geo = ck.segment_bwd_geometry(n, *dims, 4, ck._sms(dev))
+    report = print_backward_resources(
+        "fused_rk4_segment_bwd", ck.segment_bwd_occupancy(4, *dims, geo))
+    resources = dict(
+        report_redesigned("fused_rk4_segment_bwd", ms_b,
+                          out["fused_rk4_segment_bwd"][3], rhs_bwd_ms, report),
+        blocks=geo.blocks, rows_per_block=geo.rows_per_block,
+        ms_3_substeps=ms_b3, ms_m256=ms_b256)
+    return out, resources
 
 
 def print_kernel_rows(out):
@@ -461,10 +528,45 @@ def print_kernel_rows(out):
               f"{bms:.4f} ms ({by}), max_abs_err {err:.3e}")
 
 
+def print_backward_resources(name, report):
+    """One backward kernel's registers and spills (the build's ptxas record),
+    block size, dynamic shared memory and residency (the occupancy query)."""
+    print(f"{name} resources: {report['ptxas_registers']} registers, spill "
+          f"{report['spill_stores']} B stores / {report['spill_loads']} B loads, "
+          f"{report['local_bytes']} B local; block {report['threads']} threads, "
+          f"{report['smem_bytes']} B dynamic shared memory; resident "
+          f"{report['blocks_per_sm']} blocks = {report['warps_per_sm']} warps "
+          f"per SM ({report['entry']})")
+    check(report["blocks_per_sm"] >= 1, f"{name} does not fit an SM")
+    check(report["registers"] == report["ptxas_registers"],
+          f"{name}: the loaded kernel is not the one ptxas reported")
+    return report
+
+
+def report_redesigned(name, ms, bound_ms, rhs_bwd_ms, report):
+    """A redesigned segment backward against its earlier time, one fused_rhs
+    backward launch of this call, and its bound; holds the ratio limit and
+    the kernel free of spills."""
+    was = EARLIER[name]
+    ratio = ms / rhs_bwd_ms
+    print(f"{name}: {ms:.4f} ms per launch ({was['ms']:.4f} ms before the "
+          f"redesign: {was['ms'] / ms:.2f}x); {ratio:.2f}x one fused_rhs backward "
+          f"launch of this call ({rhs_bwd_ms:.4f} ms; {was['ratio']:.2f}x before, "
+          f"limit {was['limit']:.2f}x); {100 * bound_ms / ms:.1f}% of its bound "
+          f"({bound_ms:.4f} ms)")
+    check(ratio <= was["limit"], f"{name} takes {ratio:.2f}x a fused_rhs backward "
+          f"launch, over the limit {was['limit']:.2f}x")
+    check(report["spill_stores"] == 0 and report["spill_loads"] == 0,
+          f"{name} spills registers")
+    return dict(ms=ms, earlier_ms=was["ms"], ratio_to_rhs_bwd=ratio,
+                earlier_ratio=was["ratio"], bound_share=bound_ms / ms, **report)
+
+
 def gram_wide_kernel_phase(dev):
     """`rbf_gram` and the three wide-layout rhs kernels at the MoCap-09 step's
     inputs (and the M=256 preset's), each against its plain version on the
-    same operands. Times are at N=3000, M=100. Returns the four kernel rows."""
+    same operands. Times are at N=3000, M=100. Returns the four kernel rows
+    and the wide backward's resource report."""
     phase("kernels: rbf_gram and the wide layout")
     import torch
     from gpode_tpu_torch.ops import cuda_kernels as ck
@@ -557,7 +659,9 @@ def gram_wide_kernel_phase(dev):
         out[name] = (errs[name], *ms[name],
                      *(bwd_bound if name.endswith("bwd") else fwd_bound))
     print_kernel_rows(out)
-    return out
+    resources = print_backward_resources(
+        "fused_rhs_wide_bwd", wr.wide_bwd_occupancy(din, d, sp, mp))
+    return out, resources
 
 
 VDP_DATA = dict(s_train=25, t_train=7.0, noise_var=0.05, mu=0.5)
@@ -996,9 +1100,12 @@ def main(argv=None) -> int:
     import torch
     dev = torch.device("cuda")
     build_seconds = build_phase()
-    kernels, err_scaled_long_span = kernel_phase(dev)
-    kernels.update(rk4_kernel_phase(dev))
-    kernels.update(gram_wide_kernel_phase(dev))
+    kernels, err_scaled_long_span, backward = kernel_phase(dev)
+    rk4_rows, backward["fused_rk4_segment_bwd"] = rk4_kernel_phase(
+        dev, kernels["fused_rhs_bwd"][1])
+    kernels.update(rk4_rows)
+    wide_rows, backward["fused_rhs_wide_bwd"] = gram_wide_kernel_phase(dev)
+    kernels.update(wide_rows)
     train, launches, _, _ = train_phase(dev, "official", opts.profile_steps)
     train["reject_fallback_max_abs_err"] = reject_phase(dev)
     fast, fast_launches, fast_args, fast_params = train_phase(
@@ -1028,7 +1135,8 @@ def main(argv=None) -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_seconds": build_seconds,
                    "err_scaled_long_span_max_abs_err": err_scaled_long_span,
-                   "kernels": rows, "train": train, "train_fast": fast,
+                   "kernels": rows, "backward_kernels": backward,
+                   "train": train, "train_fast": fast,
                    "eval_fast": evaluation, "vdp": vdp,
                    "vdp_golden": vdp_golden, "field": field}, f, indent=1)
     print(json.dumps({"kernels": rows}))

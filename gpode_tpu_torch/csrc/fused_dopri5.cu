@@ -7,15 +7,25 @@
 // (:1003, pallas_call :1027; body `_fused_dp_attempt_bwd_kernel` :879).
 //
 // Bound: arithmetic — 7 rhs evaluations per row forward, 6 rhs VJPs per row
-// backward (rhs_tile.cuh), against ~100 bytes of state per row. The state
-// tile, all seven stage derivatives and the stage cotangents stay in shared
-// memory for the whole step; HBM sees x0 in and x5, err and the six stage
-// inputs (6,N,Din) out. The backward reads those stage inputs back instead
-// of recomputing the chain. Stage i+1 needs all D components of k_i, so the
-// block synchronises between stages: forward blocks are G groups of D warps
-// (warp (grp, d) evaluates dim d of every G-th row of the tile); backward
-// blocks are D warps with per-warp parameter-cotangent accumulators, reduced
-// across blocks in a fixed-order second pass (no float atomics).
+// backward (rhs_tile.cuh), against ~100 bytes of state per row. HBM sees x0
+// in and x5, err and the six stage inputs (6,N,Din) out; the backward reads
+// those stage inputs back instead of recomputing the chain. Stage i+1 needs
+// all D components of k_i, so a block synchronises between stages.
+//
+// Forward: the state tile, all seven stage derivatives and the stage inputs
+// stay in shared memory for the whole step; blocks are G groups of D warps,
+// warp (grp, d) evaluates dim d of every G-th row of the tile.
+//
+// Backward: what costs time is the latency of 6 * N * D * (2S + M) accurate
+// sincosf/expf results, so the design keeps many of them in flight per SM.
+// A block of G groups of D warps walks its rows in tiles of RT; per tile the
+// six stage inputs, the six stage cotangents and the running dx sit in shared
+// memory, and each stage is one `rhs_vjp_tile` call (rhs_tile.cuh): every
+// warp takes all RT rows for its own columns, so a block's accumulator memory
+// does not grow with its warps, parameter loads and accumulator updates are
+// paid once per tile, and the dx of a tile meets in shared memory once per
+// stage, added in warp order. One slab per block, reduced across blocks in a
+// fixed-order second pass (no float atomics).
 //
 // The tableau arrives as `coef` (A 7x7 row-major | b5 (7) | b5 - b4 (7)),
 // made from the port's single copy in gpode_tpu_torch/ops/ode.py, so an
@@ -92,58 +102,68 @@ static __global__ void dp_attempt_fwd_kernel(
   }
 }
 
-static __global__ void dp_attempt_bwd_kernel(
-    const float* __restrict__ xs, const float* __restrict__ gy,
-    const float* __restrict__ dt_ptr, const float* __restrict__ coef,
-    RhsParams p, float* __restrict__ dx, float* __restrict__ part_main,
-    float* __restrict__ part_dz, int n, int rows_per_block) {
-  extern __shared__ float smem[];
-  const int R = rows_per_block, din = p.din, D = p.d;
+// Backward: shared memory as TileSmem<DP, RT, 6, 7> (rhs_tile.cuh): planes
+// 0..5 the stage cotangents gk, plane 6 the running dx.
+template <int DP, int RT, int MAXT>
+static __global__ void __launch_bounds__(MAXT)
+dp_attempt_bwd_kernel(const float* __restrict__ xs, const float* __restrict__ gy,
+                      const float* __restrict__ dt_ptr,
+                      const float* __restrict__ coef, RhsParams p,
+                      float* __restrict__ dx, float* __restrict__ part_main,
+                      float* __restrict__ part_dz, int n, int rows_per_block,
+                      int groups) {
+  extern __shared__ __align__(16) float smem[];
+  using L = TileSmem<DP, RT, 6, 7>;
+  constexpr int GQ = tile_plane<DP, RT>();
+  const int din = p.din, D = p.d;
   const int qa = vjp_acc_floats(din, p.m, p.s);
-  float* xt = smem + D * qa;        // (6, R, Din) saved stage inputs
-  float* gk = xt + 6 * R * din;     // (6, R, D) stage cotangents
-  float* gxt = gk + 6 * R * D;      // (R, Din) running dx
-  float* dxd = gxt + R * din;       // (R, D, Din) per-dim dx shares
+  const int warps = blockDim.x >> 5;
+  float* xt = smem + L::xt;            // (6, RT, stride) saved stage inputs
+  float* gk = smem + L::planes;        // (6, GQ) stage cotangents, [r * Din + k]
+  float* gxt = gk + 6 * GQ;            // (GQ) running dx
+  float* ils = smem + L::il;           // (D, DP) 1 / lengthscale
+  float* acc = smem + L::acc;          // (D, qa) parameter cotangents
+  float* dls = acc + align4(D * qa);   // (warps, DP, 32) lengthscale shares
+  float* dxw = dls + 32 * DP * warps;  // (warps, 32) per-warp dx shares
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int d = warp;
-  const int row0 = blockIdx.x * R;
-  const int rows = min(R, n - row0);
-  const float dt = *dt_ptr;
-  const size_t plane = (size_t)n * din;
+  const int d = warp % D, grp = warp / D;
+  const int tile_end = min(n, (blockIdx.x + 1) * rows_per_block);
 
-  for (int i = threadIdx.x; i < D * qa; i += blockDim.x) smem[i] = 0.f;
-  for (int i = threadIdx.x; i < rows * din; i += blockDim.x) {
-    for (int st = 0; st < 6; ++st)
-      xt[st * R * din + i] = xs[st * plane + (size_t)row0 * din + i];
-    const float g = gy[(size_t)row0 * din + i];
-    gxt[i] = g;
-    for (int st = 0; st < 6; ++st) gk[st * R * D + i] = dt * coef[DP_B5 + st] * g;
-  }
-  __syncthreads();
+  for (int i = threadIdx.x; i < dxw - acc; i += blockDim.x) acc[i] = 0.f;
+  tile_load_inv_ls<DP>(p, ils);
 
-  VjpAcc acc;
-  vjp_acc_init(acc, smem + d * qa, din, p.m, p.s);
-  for (int st = 5; st >= 0; --st) {
-    for (int r = 0; r < rows; ++r)
-      rhs_vjp_row_dim(p, xt + (st * R + r) * din, d, gk[(st * R + r) * D + d],
-                      lane, acc, dxd + (r * D + d) * din);
-    __syncthreads();
+  for (int row0 = blockIdx.x * rows_per_block; row0 < tile_end; row0 += RT) {
+    const int rows = min(RT, tile_end - row0);
+    tile_load_stages<DP, RT>(xs, xt, 6, (size_t)n * din, row0, rows, din);
     for (int i = threadIdx.x; i < rows * din; i += blockDim.x) {
-      const int r = i / din, k = i % din;
-      float gxi = 0.f;
-      for (int dd = 0; dd < D; ++dd) gxi += dxd[(r * D + dd) * din + k];
-      gxt[i] += gxi;
-      for (int j = 0; j < st; ++j) {
-        const float a = coef[st * 7 + j];
-        if (a != 0.f) gk[(j * R + r) * D + k] += dt * a * gxi;
-      }
+      const float g = gy[(size_t)row0 * din + i];
+      gxt[i] = g;
+      for (int st = 0; st < 6; ++st) gk[st * GQ + i] = *dt_ptr * coef[DP_B5 + st] * g;
     }
     __syncthreads();
-  }
 
-  for (int i = threadIdx.x; i < rows * din; i += blockDim.x)
-    dx[(size_t)row0 * din + i] = gxt[i];
-  vjp_write_partials(p, acc, d, lane, blockIdx.x, part_main, part_dz);
+#pragma unroll 1
+    for (int st = 5; st >= 0; --st) {
+      rhs_vjp_tile<DP, RT>(p, xt + st * RT * tile_stride(DP), gk + st * GQ + d,
+                           rows, d, grp, groups, lane, acc + d * qa, ils + d * DP,
+                           dls + warp * DP * 32, dxw + warp * 32);
+      __syncthreads();
+      for (int i = threadIdx.x; i < rows * din; i += blockDim.x) {
+        const float gxi = tile_dx_sum<DP>(dxw, warps, i / din, i % din);
+        gxt[i] += gxi;
+        for (int j = 0; j < st; ++j) {
+          const float a = coef[st * 7 + j];
+          if (a != 0.f) gk[j * GQ + i] += *dt_ptr * a * gxi;
+        }
+      }
+      __syncthreads();
+    }
+
+    for (int i = threadIdx.x; i < rows * din; i += blockDim.x)
+      dx[(size_t)row0 * din + i] = gxt[i];
+    __syncthreads();  // the next tile overwrites xt / gk / gxt
+  }
+  tile_write_partials<DP>(p, acc, dls, groups, part_main, part_dz);
 }
 
 extern "C" int gpode_dp_attempt_fwd(const float* x0, const float* dt,
@@ -163,6 +183,60 @@ extern "C" int gpode_dp_attempt_fwd(const float* x0, const float* dt,
   return (int)cudaGetLastError();
 }
 
+// The instantiated backward variants: DP = 8 takes Din <= 8, DP = 16 takes
+// Din <= 16; RT * DP is the width of the dx fold; MAXT bounds the block and
+// with it the registers per thread (65536 / MAXT).
+#define DP_BWD_VARIANTS(X) X(4, 4, 640) X(5, 4, 640) X(5, 6, 640) X(8, 4, 512) X(16, 1, 512)
+
+template <int DP, int RT, int MAXT>
+static cudaError_t dp_bwd_prepare(int threads, size_t smem, int* occupancy) {
+  if (occupancy)
+    return occupancy_report(dp_attempt_bwd_kernel<DP, RT, MAXT>, threads, smem,
+                            occupancy);
+  return cudaFuncSetAttribute(dp_attempt_bwd_kernel<DP, RT, MAXT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// The backward kernel and its fixed-order reduction on `stream`; with
+// `occupancy` non-null nothing is launched and the kernel's occupancy_report
+// at this geometry is written there instead.
+static int dp_bwd_run(const float* xs, const float* g, const float* dt,
+                      const float* coef, const float* z, const float* inv_ls,
+                      const float* var, const float* omega, const float* phase,
+                      const float* w, const float* nu, float* dx, float* part_main,
+                      float* part_dz, float* out_main, float* out_dz, int n,
+                      int din, int d, int m, int s, int rows_per_block, int dp, int rt,
+                      int groups, int maxt, int* occupancy, void* stream) {
+  const RhsParams p = make_params(z, inv_ls, var, omega, phase, w, nu, din, d, m, s);
+  if (din != d || din < 1 || din > dp || m < 1 || s < 1 || groups < 1 ||
+      32 * d * groups > maxt || rt < 1 || rows_per_block < rt ||
+      rows_per_block % rt != 0)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 32 * d * groups;
+  const int blocks = (n + rows_per_block - 1) / rows_per_block;
+  const size_t smem =
+      sizeof(float) * (size_t)tile_smem_floats(
+                          dp, rt, 6, 7, d * vjp_acc_floats(din, m, s), d * groups);
+  cudaError_t e = cudaErrorInvalidValue;
+#define X(DP_, RT_, MAXT_)                                                        \
+  if (dp == DP_ && rt == RT_ && maxt == MAXT_) {                                  \
+    e = dp_bwd_prepare<DP_, RT_, MAXT_>(threads, smem, occupancy);                \
+    if (e == cudaSuccess && !occupancy) {                                         \
+      dp_attempt_bwd_kernel<DP_, RT_, MAXT_>                                      \
+          <<<blocks, threads, smem, (cudaStream_t)stream>>>(                      \
+              xs, g, dt, coef, p, dx, part_main, part_dz, n, rows_per_block,      \
+              groups);                                                            \
+      e = cudaGetLastError();                                                     \
+    }                                                                             \
+  }
+  DP_BWD_VARIANTS(X)
+#undef X
+  if (e != cudaSuccess || occupancy) return (int)e;
+  return (int)reduce_partials(p, blocks, part_main, part_dz, out_main, out_dz,
+                              (cudaStream_t)stream);
+}
+
 extern "C" int gpode_dp_attempt_bwd(const float* xs, const float* g,
                                     const float* dt, const float* coef,
                                     const float* z, const float* inv_ls,
@@ -172,19 +246,20 @@ extern "C" int gpode_dp_attempt_bwd(const float* xs, const float* g,
                                     float* part_main, float* part_dz,
                                     float* out_main, float* out_dz, int n,
                                     int din, int d, int m, int s,
-                                    int rows_per_block, void* stream) {
-  const RhsParams p = make_params(z, inv_ls, var, omega, phase, w, nu, din, d, m, s);
-  const int blocks = (n + rows_per_block - 1) / rows_per_block;
-  const size_t smem = sizeof(float) * ((size_t)d * vjp_acc_floats(din, m, s) +
-                                       (size_t)rows_per_block *
-                                           (7 * din + 6 * d + d * din));
-  cudaError_t e = cudaFuncSetAttribute(
-      dp_attempt_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dp_attempt_bwd_kernel<<<blocks, 32 * d, smem, (cudaStream_t)stream>>>(
-      xs, g, dt, coef, p, dx, part_main, part_dz, n, rows_per_block);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return (int)reduce_partials(p, blocks, part_main, part_dz, out_main, out_dz,
-                              (cudaStream_t)stream);
+                                    int rows_per_block, int dp, int rt, int groups,
+                                    int maxt, void* stream) {
+  return dp_bwd_run(xs, g, dt, coef, z, inv_ls, var, omega, phase, w, nu, dx,
+                    part_main, part_dz, out_main, out_dz, n, din, d, m, s,
+                    rows_per_block, dp, rt, groups, maxt, nullptr, stream);
+}
+
+// out = {resident blocks per SM, threads, dynamic shared bytes, registers,
+// local bytes} of the backward kernel at this geometry; launches nothing.
+extern "C" int gpode_dp_attempt_bwd_occupancy(int din, int d, int m, int s, int dp,
+                                              int rt, int groups, int maxt,
+                                              int* out) {
+  return dp_bwd_run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, rt, din, d, m, s, rt, dp, rt, groups, maxt, out,
+                    nullptr);
 }

@@ -110,3 +110,12 @@ extern "C" int gpode_fused_rhs_bwd(const float* x, const float* g,
   return (int)reduce_partials(p, blocks, part_main, part_dz, out_main, out_dz,
                               (cudaStream_t)stream);
 }
+
+// out = {resident blocks per SM, threads, dynamic shared bytes, registers,
+// local bytes} of the backward kernel at this geometry; launches nothing.
+extern "C" int gpode_fused_rhs_bwd_occupancy(int din, int d, int m, int s,
+                                             int rows_per_block, int* out) {
+  const size_t smem = sizeof(float) * ((size_t)d * vjp_acc_floats(din, m, s) +
+                                       (size_t)rows_per_block * (din + d + d * din));
+  return (int)occupancy_report(fused_rhs_bwd_kernel, 32 * d, smem, out);
+}

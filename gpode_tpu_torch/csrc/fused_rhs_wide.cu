@@ -447,3 +447,16 @@ extern "C" int gpode_wide_bwd(const float* x, const float* g, const float* b,
       part, out, blocks, slab);
   return (int)cudaGetLastError();
 }
+
+// out = {resident blocks per SM, threads, dynamic shared bytes, registers,
+// local bytes} of the backward kernel at this geometry; launches nothing.
+extern "C" int gpode_wide_bwd_occupancy(int din, int d, int sp, int mp, int warps,
+                                        int* out) {
+  if (!wide_shape_ok(din, d, sp, mp, warps)) return (int)cudaErrorInvalidValue;
+  const int slab = wide_slab_floats(din, d, d * (sp + mp));
+  const size_t smem = sizeof(float) * ((size_t)slab + WIDE_R * (din + 3 * d) +
+                                       (size_t)warps * WIDE_R * (din + d));
+  if (din <= 8 && d <= 8)
+    return (int)occupancy_report(wide_bwd_kernel<8>, 32 * warps, smem, out);
+  return (int)occupancy_report(wide_bwd_kernel<16>, 32 * warps, smem, out);
+}

@@ -16,6 +16,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -106,6 +107,30 @@ def build_all() -> dict[str, BuildInfo]:
             os.replace(tmp, out)
             _BUILT[name] = info
         return dict(_BUILT)
+
+
+def kernel_resources(name: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes of every kernel of library `name`, from the
+    `-Xptxas -v` lines of its build: {mangled entry name: {"registers",
+    "spill_stores", "spill_loads"}}."""
+    out: dict[str, dict[str, int]] = {}
+    entry = None
+    for line in build_all()[name].ptxas:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[entry]["spill_stores"] = int(m.group(1))
+            out[entry]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -17,6 +17,8 @@ Counterpart of `gpode_tpu/ops/pallas_kernels.py`:
 
 The wide-layout rhs kernels (`csrc/fused_rhs_wide.cu`) are bound in
 `ops/wide_rhs.py` and share this module's counters and helpers.
+:func:`segment_bwd_geometry` is the launch geometry of the two segment
+backward kernels, pure arithmetic that the CPU tests reach.
 
 Each public function takes the plain version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises. `LAUNCHES` counts kernel launches
@@ -32,6 +34,7 @@ variance (D,) CONSTRAINED, omega (Din, S, D), phase (1, S, D), weights
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -46,7 +49,8 @@ LAUNCHES = {"fused_rhs_fwd": 0, "fused_rhs_bwd": 0,
             "fused_rhs_wide_bwd": 0}
 
 # Kernel limits (csrc/rhs_tile.cuh): Din unrolled up to 16 in registers;
-# 32 * D threads per backward block; 227 KB of shared memory per block.
+# 32 * D threads per `fused_rhs` backward block; 227 KB of shared memory per
+# block.
 MAX_DIN = 16
 MAX_D = 32
 MAX_SMEM_BYTES = 232448
@@ -189,15 +193,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of csrc/*.cu: tensor pointers, then sizes, then the stream.
 _SIGNATURES = {
     "fused_rhs": {"gpode_fused_rhs_fwd": [_P] * 9 + [_I] * 7 + [_P],
-                  "gpode_fused_rhs_bwd": [_P] * 14 + [_I] * 6 + [_P]},
+                  "gpode_fused_rhs_bwd": [_P] * 14 + [_I] * 6 + [_P],
+                  "gpode_fused_rhs_bwd_occupancy": [_I] * 5 + [_P]},
     "fused_dopri5": {
         "gpode_dp_attempt_fwd": [_P] * 3 + [_F] * 2 + [_P] * 10 + [_I] * 7 + [_P],
-        "gpode_dp_attempt_bwd": [_P] * 16 + [_I] * 6 + [_P]},
+        "gpode_dp_attempt_bwd": [_P] * 16 + [_I] * 10 + [_P],
+        "gpode_dp_attempt_bwd_occupancy": [_I] * 8 + [_P]},
     "fused_rk4": {"gpode_rk4_fwd": [_P] * 11 + [_I] * 8 + [_P],
-                  "gpode_rk4_bwd": [_P] * 15 + [_I] * 7 + [_P]},
+                  "gpode_rk4_bwd": [_P] * 15 + [_I] * 11 + [_P],
+                  "gpode_rk4_bwd_occupancy": [_I] * 8 + [_P]},
     "rbf_gram": {"gpode_rbf_gram": [_P] * 5 + [_I] * 6 + [_P]},
     "fused_rhs_wide": {"gpode_wide_fwd": [_P] * 7 + [_I] * 8 + [_P],
-                       "gpode_wide_bwd": [_P] * 10 + [_I] * 7 + [_P]},
+                       "gpode_wide_bwd": [_P] * 10 + [_I] * 7 + [_P],
+                       "gpode_wide_bwd_occupancy": [_I] * 5 + [_P]},
 }
 _TYPED: set = set()
 
@@ -227,11 +235,15 @@ def _fwd_tiling(d):
     return 2 * groups, groups
 
 
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _bwd_rows_per_block(n, dev):
-    """Backward tile: about three blocks per SM, so the card fills while the
-    per-block partials (and the reduction that reads them) stay small."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, math.ceil(n / (3 * sms)))
+    """`fused_rhs` backward tile: about three blocks per SM, so the card
+    fills while the per-block partials (and the reduction that reads them)
+    stay small."""
+    return max(1, math.ceil(n / (3 * _sms(dev))))
 
 
 def _acc_floats(din, m, s):
@@ -246,6 +258,84 @@ def _check_smem(nbytes, what):
     if nbytes > MAX_SMEM_BYTES:
         raise ValueError(f"{what} needs {nbytes} bytes of shared memory per "
                          f"block, over the {MAX_SMEM_BYTES}-byte limit")
+
+
+# Segment backward blocks (csrc/rhs_tile.cuh `rhs_vjp_tile`): about
+# _SEG_BWD_WARPS warps, G groups of D, over tiles of RT rows; at most
+# _SEG_BWD_BLOCKS_PER_SM blocks per SM, so one slab per block stays cheap.
+# Measured on an H100 at N=2970, Din=D=5 (scripts/tune_segment_bwd.py): two
+# resident 10-warp blocks of 12 rows beat one 20-warp block and 8-row blocks.
+_SEG_BWD_WARPS = 10
+_SEG_BWD_BLOCKS_PER_SM = 2
+# (dp, rt, maxt) of the default kernel variant for Din <= dp, smallest first,
+# by stages: the dopri5 attempt (6) has registers for 6-row tiles at Din = 5,
+# the rk4 segment (4) would spill there.
+_SEG_BWD_VARIANTS = {
+    6: ((4, 4, 640), (5, 6, 640), (8, 4, 512), (16, 1, 512)),
+    4: ((4, 4, 640), (5, 4, 640), (8, 4, 512), (16, 1, 512)),
+}
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentBwdGeometry:
+    """Launch geometry of a segment backward kernel (dopri5 attempt: 6
+    stages in shared memory; rk4 segment: 4)."""
+    dp: int               # the kernel variant's bound of its loops over Din
+    rt: int               # rows per tile; rt * dp <= 32, the dx fold's width
+    groups: int           # G: the block is G groups of D warps
+    maxt: int             # the variant's thread bound (registers: 65536 / maxt)
+    threads: int
+    rows_per_block: int   # a multiple of rt
+    blocks: int
+    smem_bytes: int
+    part_main_floats: int  # scratch: (blocks, D, main_slab)
+    part_dz_floats: int    # scratch: (blocks, D, M * Din)
+
+
+def _align4(floats):
+    return (floats + 3) & ~3
+
+
+def segment_bwd_geometry(n, din, d, m, s, stages, sms=H100_SMS, *,
+                         variant=None, warps=_SEG_BWD_WARPS,
+                         blocks_per_sm=_SEG_BWD_BLOCKS_PER_SM):
+    """Geometry of the dopri5-attempt (`stages=6`) or rk4-segment
+    (`stages=4`) backward for N rows; raises ValueError on a shape the
+    kernels do not take. Pure arithmetic: no device is touched. The keyword
+    arguments are for `scripts/tune_segment_bwd.py`, which times other
+    geometries: `variant` = (dp, rt, maxt) of an instantiated kernel variant,
+    `warps` the block's target, `blocks_per_sm` the grid's."""
+    if stages not in (4, 6):
+        raise ValueError(f"stages must be 4 (rk4) or 6 (dopri5), got {stages}")
+    if din != d:
+        raise ValueError(f"the segment kernels need Din == D, got {din} and {d}")
+    if not 1 <= din <= MAX_DIN or m < 1 or s < 1 or n < 1:
+        raise ValueError(f"segment backward supports 1 <= Din = D <= {MAX_DIN} "
+                         f"and N, M, S >= 1; got N={n}, Din={din}, M={m}, S={s}")
+    dp, rt, maxt = variant or next(v for v in _SEG_BWD_VARIANTS[stages]
+                                   if din <= v[0])
+    if din > dp:
+        raise ValueError(f"variant {variant} takes Din <= {dp}, got {din}")
+    units = math.ceil(s / 32) + math.ceil(m / 32)     # 32-column units per dim
+    groups = max(1, min(units, min(warps, maxt // 32) // d))
+    warps = d * groups
+    tiles = math.ceil(n / rt)
+    rows_per_block = rt * math.ceil(tiles / (blocks_per_sm * sms))
+    blocks = math.ceil(n / rows_per_block)
+    # csrc/rhs_tile.cuh TileSmem: xt (stages, rt, stride) | planes of rt * dp
+    # floats (dopri5: gk x 6, gxt; rk4: gx x 4, gt, cot) | il (dp, dp) |
+    # accumulators | dls (warps, dp, 32) | dxw (warps, 32)
+    planes = 7 if stages == 6 else 6
+    smem = 4 * (stages * rt * _align4(dp) + planes * _align4(rt * dp) + dp * dp
+                + _align4(d * _acc_floats(din, m, s)) + 32 * dp * warps
+                + 32 * warps)
+    _check_smem(smem, "segment backward")
+    return SegmentBwdGeometry(
+        dp=dp, rt=rt, groups=groups, maxt=maxt, threads=32 * warps,
+        rows_per_block=rows_per_block, blocks=blocks, smem_bytes=smem,
+        part_main_floats=blocks * d * _main_slab(din, m, s),
+        part_dz_floats=blocks * d * m * din)
 
 
 def _unpack_param_cotangents(out_main, out_dz, din, d, m, s):
@@ -268,6 +358,17 @@ def _bwd_scratch(n_blocks, din, d, m, s, dev):
     return (torch.empty(n_blocks * d * qm, **f32),
             torch.empty(n_blocks * d * m * din, **f32),
             torch.empty(d, qm, **f32), torch.empty(m * din, **f32))
+
+
+def _segment_bwd_buffers(geo, n, din, d, m, s, dev):
+    """dx and the scratch of a segment backward at geometry `geo`: one slab
+    per (block, dim), and the two reduced outputs."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty(n, din, **f32),
+            torch.empty(geo.part_main_floats, **f32),
+            torch.empty(geo.part_dz_floats, **f32),
+            torch.empty(d, _main_slab(din, m, s), **f32),
+            torch.empty(m * din, **f32))
 
 
 def _raise_on(rc, what):
@@ -420,23 +521,19 @@ def _launch_dp_fwd(x0, dt, rtol, atol, ops, din, d, m, s):
     return x5, err, xs
 
 
-def _launch_dp_bwd(xs, g, dt, ops, din, d, m, s):
+def _launch_dp_bwd(xs, g, dt, ops, din, d, m, s, geometry=None):
     dev = xs.device
     n = xs.shape[1]
-    rows = _bwd_rows_per_block(n, dev)
-    _check_smem(4 * (d * _acc_floats(din, m, s)
-                     + rows * (7 * din + 6 * d + d * din)),
-                "fused_dopri5_attempt backward")
-    n_blocks = math.ceil(n / rows)
-    dx = torch.empty(n, din, dtype=torch.float32, device=dev)
-    part_main, part_dz, out_main, out_dz = _bwd_scratch(n_blocks, din, d, m,
-                                                        s, dev)
+    geo = geometry or segment_bwd_geometry(n, din, d, m, s, 6, _sms(dev))
+    dx, part_main, part_dz, out_main, out_dz = _segment_bwd_buffers(
+        geo, n, din, d, m, s, dev)
     lib = _lib("fused_dopri5")
     LAUNCHES["fused_dopri5_attempt_bwd"] += 1
     rc = lib.gpode_dp_attempt_bwd(
         _ptr(xs), _ptr(g), _ptr(dt), _ptr(_dp_coefficients(dev)),
         *map(_ptr, ops), _ptr(dx), _ptr(part_main), _ptr(part_dz),
-        _ptr(out_main), _ptr(out_dz), n, din, d, m, s, rows, _stream(dev))
+        _ptr(out_main), _ptr(out_dz), n, din, d, m, s, geo.rows_per_block,
+        geo.dp, geo.rt, geo.groups, geo.maxt, _stream(dev))
     _raise_on(rc, "fused_dopri5_attempt backward")
     return (dx,) + _unpack_param_cotangents(out_main, out_dz, din, d, m, s)
 
@@ -502,22 +599,19 @@ def _launch_rk4_fwd(x0, dt, substeps, ops, din, d, m, s):
     return x1, xs
 
 
-def _launch_rk4_bwd(xs, g, dt, substeps, ops, din, d, m, s):
+def _launch_rk4_bwd(xs, g, dt, substeps, ops, din, d, m, s, geometry=None):
     dev = xs.device
     n = xs.shape[1]
-    rows = _bwd_rows_per_block(n, dev)
-    _check_smem(4 * (d * _acc_floats(din, m, s) + rows * (9 * din + d * din)),
-                "fused_rk4_segment backward")
-    n_blocks = math.ceil(n / rows)
-    dx = torch.empty(n, din, dtype=torch.float32, device=dev)
-    part_main, part_dz, out_main, out_dz = _bwd_scratch(n_blocks, din, d, m,
-                                                        s, dev)
+    geo = geometry or segment_bwd_geometry(n, din, d, m, s, 4, _sms(dev))
+    dx, part_main, part_dz, out_main, out_dz = _segment_bwd_buffers(
+        geo, n, din, d, m, s, dev)
     lib = _lib("fused_rk4")
     LAUNCHES["fused_rk4_segment_bwd"] += 1
     rc = lib.gpode_rk4_bwd(
         _ptr(xs), _ptr(g), _ptr(dt), *map(_ptr, ops), _ptr(dx),
         _ptr(part_main), _ptr(part_dz), _ptr(out_main), _ptr(out_dz), n, din,
-        d, m, s, substeps, rows, _stream(dev))
+        d, m, s, substeps, geo.rows_per_block, geo.dp, geo.rt, geo.groups,
+        geo.maxt, _stream(dev))
     _raise_on(rc, "fused_rk4_segment backward")
     return (dx,) + _unpack_param_cotangents(out_main, out_dz, din, d, m, s)
 
@@ -560,6 +654,57 @@ def fused_rk4_segment(x0, dt, z, lengthscales, variance, omega, phase,
                                  omega, phase, weights, nu, substeps)[0]
     return _FusedRk4SegmentFn.apply(x0, dt, z, lengthscales, variance, omega,
                                     phase, weights, nu, substeps)
+
+
+# ---------------------------------------------------------------------------
+# What a backward kernel holds on the card
+# ---------------------------------------------------------------------------
+
+def kernel_occupancy(lib_name, c_function, entry_key, *int_args):
+    """One backward kernel's resources at a launch geometry: the occupancy
+    query of `c_function` (csrc: resident blocks per SM, block threads,
+    dynamic shared bytes, registers, local bytes) and the registers and spill
+    bytes that ptxas reported for the entry whose mangled name contains
+    `entry_key`."""
+    out = (ctypes.c_int * 5)()
+    rc = getattr(_lib(lib_name), c_function)(
+        *int_args, ctypes.cast(out, ctypes.c_void_p))
+    _raise_on(rc, f"{c_function} query")
+    resident, threads, smem, registers, local = out
+    found = [v for k, v in cuda_build.kernel_resources(lib_name).items()
+             if entry_key in k]
+    if len(found) != 1:
+        raise RuntimeError(f"{len(found)} ptxas records match {entry_key!r} in "
+                           f"{lib_name}")
+    return dict(entry=entry_key, threads=threads, smem_bytes=smem,
+                blocks_per_sm=resident, warps_per_sm=resident * threads // 32,
+                registers=registers, local_bytes=local,
+                ptxas_registers=found[0]["registers"],
+                spill_stores=found[0]["spill_stores"],
+                spill_loads=found[0]["spill_loads"])
+
+
+def segment_bwd_occupancy(stages, din, d, m, s, geo):
+    """`kernel_occupancy` of the dopri5-attempt (`stages=6`) or rk4-segment
+    (`stages=4`) backward at geometry `geo`."""
+    lib_name, fn, kernel = {
+        6: ("fused_dopri5", "gpode_dp_attempt_bwd_occupancy",
+            "dp_attempt_bwd_kernel"),
+        4: ("fused_rk4", "gpode_rk4_bwd_occupancy", "rk4_bwd_kernel")}[stages]
+    key = f"{kernel}ILi{geo.dp}ELi{geo.rt}ELi{geo.maxt}EE"
+    report = kernel_occupancy(lib_name, fn, key, din, d, m, s, geo.dp, geo.rt,
+                              geo.groups, geo.maxt)
+    if report["smem_bytes"] != geo.smem_bytes:
+        raise RuntimeError(f"{kernel} takes {report['smem_bytes']} bytes of "
+                           f"shared memory, the geometry says {geo.smem_bytes}")
+    return report
+
+
+def rhs_bwd_occupancy(n, din, d, m, s, dev):
+    """`kernel_occupancy` of the `fused_rhs` backward for N rows."""
+    return kernel_occupancy("fused_rhs", "gpode_fused_rhs_bwd_occupancy",
+                            "fused_rhs_bwd_kernel", din, d, m, s,
+                            _bwd_rows_per_block(n, dev))
 
 
 # ---------------------------------------------------------------------------

@@ -283,6 +283,14 @@ def launch_wide_bwd(x, g, b, phase_w, zn_w, invls2_t, wblk, d, sp, mp):
     return dx, db, dwblk, dphase_w, dzn_w, dinvls2_xn
 
 
+def wide_bwd_occupancy(din, d, sp, mp):
+    """`cuda_kernels.kernel_occupancy` of the wide backward."""
+    width = 8 if din <= 8 and d <= 8 else 16
+    return ck.kernel_occupancy("fused_rhs_wide", "gpode_wide_bwd_occupancy",
+                               f"wide_bwd_kernelILi{width}EE", din, d, sp, mp,
+                               _BWD_WARPS)
+
+
 def kernel_pack(z, lengthscales, variance, omega, phase, weights, nu):
     """`wide_pack` at the kernels' pad, every operand contiguous."""
     *packed, sp, mp = wide_pack(z, lengthscales, variance, omega, phase,

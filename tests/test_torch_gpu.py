@@ -41,8 +41,8 @@ def _inputs(dev, seed=0):
             for a in arrays]
 
 
-def _grads(out, inputs, g):
-    return torch.autograd.grad(out, inputs, g)
+def _grads(out, inputs, g, retain=False):
+    return torch.autograd.grad(out, inputs, g, retain_graph=retain)
 
 
 def _assert_close(got, want, what, fwd=True):
@@ -256,3 +256,75 @@ def test_wide_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="Din, D <= 16"):
         wr.fused_rhs_wide(*_wide_inputs(cuda, 8, 8, seed=15, din=3, d=17, s=32))
     assert ck.LAUNCHES == before
+
+
+def _segment_inputs(dev, n, dim, m, s, seed):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    ls = rng.uniform(0.8, 1.6, size=(dim, dim)).astype(f32)
+    arrays = (rng.normal(size=(n, dim)), rng.normal(size=(m, dim)), ls,
+              rng.uniform(0.3, 0.8, size=(dim,)),
+              rng.normal(size=(dim, s, dim)) / ls.T[:, None, :],
+              2 * np.pi * rng.uniform(size=(1, s, dim)),
+              rng.normal(size=(s, dim)), 0.3 * rng.normal(size=(dim, m)))
+    return [torch.tensor(np.asarray(a, f32), device=dev, requires_grad=True)
+            for a in arrays]
+
+
+# (N, Din = D, M, S): N off the row tile, one row, M = 256, the exact-width
+# variant (5), both padded widths (8 and 10 -> 16), the narrow one (2), and S
+# and M that leave ragged 32-column units
+SEGMENT_SHAPES = [(2970, 5, 100, 256), (2970, 5, 256, 256), (77, 5, 100, 256),
+                  (1, 5, 100, 256), (203, 8, 100, 256), (203, 10, 100, 256),
+                  (50, 2, 16, 32), (203, 3, 40, 100)]
+SEGMENT_IDS = ["official", "m256", "ragged_n77", "one_row", "din8", "din10",
+               "tiny", "ragged_units"]
+
+
+def _check_segment_backward(cuda, out, ref, args, what):
+    g = torch.randn(out.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(21))
+    first = _grads(out, args, g, retain=True)
+    for name, a, b in zip(NAMES, first, _grads(ref, args, g)):
+        _assert_close(a, b, f"{what} d{name}", fwd=False)
+    for name, a, b in zip(NAMES, first, _grads(out, args, g)):
+        assert torch.equal(a, b), name  # fixed-order reduction, no atomics
+
+
+@pytest.mark.parametrize("n,dim,m,s", SEGMENT_SHAPES, ids=SEGMENT_IDS)
+def test_fused_dopri5_attempt_backward_over_shapes(cuda, n, dim, m, s):
+    args = _segment_inputs(cuda, n, dim, m, s, seed=20)
+    dt = torch.full((1,), 0.01, device=cuda)
+    before = ck.LAUNCHES["fused_dopri5_attempt_bwd"]
+    x5, _ = ck.fused_dopri5_attempt(args[0], dt, *args[1:], 1e-6, 1e-6)
+    rx5, _, _ = ck.dopri5_attempt_plain(args[0], dt, *args[1:], 1e-6, 1e-6)
+    _check_segment_backward(cuda, x5, rx5, args, "dopri5 attempt")
+    assert ck.LAUNCHES["fused_dopri5_attempt_bwd"] == before + 2
+
+
+@pytest.mark.parametrize("substeps", [1, 3])
+@pytest.mark.parametrize("n,dim,m,s", SEGMENT_SHAPES, ids=SEGMENT_IDS)
+def test_fused_rk4_segment_backward_over_shapes(cuda, n, dim, m, s, substeps):
+    args = _segment_inputs(cuda, n, dim, m, s, seed=22)
+    dt = torch.full((1,), 0.03, device=cuda)
+    before = ck.LAUNCHES["fused_rk4_segment_bwd"]
+    x1 = ck.fused_rk4_segment(args[0], dt, *args[1:], substeps)
+    rx1, _ = ck.rk4_segment_plain(args[0], dt, *args[1:], substeps)
+    _check_segment_backward(cuda, x1, rx1, args, f"rk4 x{substeps}")
+    assert ck.LAUNCHES["fused_rk4_segment_bwd"] == before + 2
+
+
+def test_segment_backward_raises_on_unsupported_shapes(cuda):
+    """Din = D = 16 needs 404 KB of accumulators: refused before a launch."""
+    args = _segment_inputs(cuda, 8, 16, 100, 256, seed=23)
+    dt = torch.full((1,), 0.01, device=cuda)
+    before = (ck.LAUNCHES["fused_rk4_segment_bwd"],
+              ck.LAUNCHES["fused_dopri5_attempt_bwd"])
+    x1 = ck.fused_rk4_segment(args[0], dt, *args[1:], 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        x1.sum().backward()
+    x5, _ = ck.fused_dopri5_attempt(args[0], dt, *args[1:], 1e-6, 1e-6)
+    with pytest.raises(ValueError, match="shared memory"):
+        x5.sum().backward()
+    assert before == (ck.LAUNCHES["fused_rk4_segment_bwd"],
+                      ck.LAUNCHES["fused_dopri5_attempt_bwd"])
