@@ -385,6 +385,7 @@ def kernel_phase(dev):
     geo = ck.segment_bwd_geometry(n, *dims, 6, ck._sms(dev))
     report = print_backward_resources(
         "fused_dopri5_attempt_bwd", ck.segment_bwd_occupancy(6, *dims, geo))
+    check_variants_free_of_spills("fused_dopri5_attempt_bwd", 6)
     resources["fused_dopri5_attempt_bwd"] = dict(
         report_redesigned("fused_dopri5_attempt_bwd", ms_db,
                           out["fused_dopri5_attempt_bwd"][3], ms_b, report),
@@ -514,6 +515,7 @@ def rk4_kernel_phase(dev, rhs_bwd_ms):
     geo = ck.segment_bwd_geometry(n, *dims, 4, ck._sms(dev))
     report = print_backward_resources(
         "fused_rk4_segment_bwd", ck.segment_bwd_occupancy(4, *dims, geo))
+    check_variants_free_of_spills("fused_rk4_segment_bwd", 4)
     resources = dict(
         report_redesigned("fused_rk4_segment_bwd", ms_b,
                           out["fused_rk4_segment_bwd"][3], rhs_bwd_ms, report),
@@ -541,6 +543,30 @@ def print_backward_resources(name, report):
     check(report["registers"] == report["ptxas_registers"],
           f"{name}: the loaded kernel is not the one ptxas reported")
     return report
+
+
+def check_variants_free_of_spills(name, stages):
+    """Every instantiated variant of a segment backward kernel (one per range
+    of Din), from the build's ptxas record: the table the launch geometry
+    selects from is what was built, and none of it spills."""
+    from gpode_tpu_torch.ops import cuda_build
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    lib_name, kernel = {6: ("fused_dopri5", "dp_attempt_bwd_kernel"),
+                        4: ("fused_rk4", "rk4_bwd_kernel")}[stages]
+    built = {k: v for k, v in cuda_build.kernel_resources(lib_name).items()
+             if kernel in k}
+    for dp, rt, maxt in ck._SEG_BWD_VARIANTS[stages]:
+        key = f"{kernel}ILi{dp}ELi{rt}ELi{maxt}EE"
+        found = [v for k, v in built.items() if key in k]
+        check(len(found) == 1, f"{name}: {len(found)} builds of {key}")
+        print(f"  {name} variant <{dp}, {rt}, {maxt}>: {found[0]['registers']} "
+              f"registers, spill {found[0]['spill_stores']} B stores / "
+              f"{found[0]['spill_loads']} B loads")
+        check(found[0]["spill_stores"] == 0 and found[0]["spill_loads"] == 0,
+              f"{name} variant <{dp}, {rt}, {maxt}> spills registers")
+    check(len(built) == len(ck._SEG_BWD_VARIANTS[stages]),
+          f"{name}: {len(built)} variants built, the geometry selects from "
+          f"{len(ck._SEG_BWD_VARIANTS[stages])}")
 
 
 def report_redesigned(name, ms, bound_ms, rhs_bwd_ms, report):

@@ -183,10 +183,12 @@ extern "C" int gpode_dp_attempt_fwd(const float* x0, const float* dt,
   return (int)cudaGetLastError();
 }
 
-// The instantiated backward variants: DP = 8 takes Din <= 8, DP = 16 takes
-// Din <= 16; RT * DP is the width of the dx fold; MAXT bounds the block and
-// with it the registers per thread (65536 / MAXT).
-#define DP_BWD_VARIANTS(X) X(4, 4, 640) X(5, 4, 640) X(5, 6, 640) X(8, 4, 512) X(16, 1, 512)
+// The instantiated backward variants (DP, RT, MAXT), one per range of Din
+// (<= 4, 5, <= 8, <= 16; ops/cuda_kernels.py picks the smallest DP >= Din):
+// RT * DP is the width of the dx fold; MAXT bounds the block and with it the
+// registers per thread (65536 / MAXT). Six stages leave registers for 6-row
+// tiles at Din = 5.
+#define DP_BWD_VARIANTS(X) X(4, 4, 640) X(5, 6, 640) X(8, 4, 512) X(16, 1, 512)
 
 template <int DP, int RT, int MAXT>
 static cudaError_t dp_bwd_prepare(int threads, size_t smem, int* occupancy) {

@@ -183,10 +183,10 @@ extern "C" int gpode_rk4_fwd(const float* x0, const float* dt, const float* z,
   return (int)cudaGetLastError();
 }
 
-// The instantiated backward variants, as in fused_dopri5.cu: DP = 8 takes
-// Din <= 8, DP = 16 takes Din <= 16; MAXT bounds the block and with it the
-// registers per thread (65536 / MAXT).
-#define RK4_BWD_VARIANTS(X) X(4, 4, 640) X(5, 4, 640) X(5, 6, 640) X(8, 4, 512) X(16, 1, 512)
+// The instantiated backward variants (DP, RT, MAXT), one per range of Din as
+// in fused_dopri5.cu; MAXT bounds the block and with it the registers per
+// thread (65536 / MAXT). At Din = 5 a 6-row tile would spill here, so 4 rows.
+#define RK4_BWD_VARIANTS(X) X(4, 4, 640) X(5, 4, 640) X(8, 4, 512) X(16, 1, 512)
 
 template <int DP, int RT, int MAXT>
 static cudaError_t rk4_bwd_prepare(int threads, size_t smem, int* occupancy) {

@@ -263,18 +263,17 @@ def _check_smem(nbytes, what):
 # Segment backward blocks (csrc/rhs_tile.cuh `rhs_vjp_tile`): about
 # _SEG_BWD_WARPS warps, G groups of D, over tiles of RT rows; at most
 # _SEG_BWD_BLOCKS_PER_SM blocks per SM, so one slab per block stays cheap.
-# Measured on an H100 at N=2970, Din=D=5 (scripts/tune_segment_bwd.py): two
+# Measured on an H100 at N=2970, Din=D=5 (the sweep is in PERF.md): two
 # resident 10-warp blocks of 12 rows beat one 20-warp block and 8-row blocks.
 _SEG_BWD_WARPS = 10
 _SEG_BWD_BLOCKS_PER_SM = 2
-# (dp, rt, maxt) of the default kernel variant for Din <= dp, smallest first,
-# by stages: the dopri5 attempt (6) has registers for 6-row tiles at Din = 5,
-# the rk4 segment (4) would spill there.
+# (dp, rt, maxt) of the instantiated kernel variants by stages, smallest dp
+# first; a shape takes the first with Din <= dp. The dopri5 attempt (6) has
+# registers for 6-row tiles at Din = 5, the rk4 segment (4) would spill there.
 _SEG_BWD_VARIANTS = {
     6: ((4, 4, 640), (5, 6, 640), (8, 4, 512), (16, 1, 512)),
     4: ((4, 4, 640), (5, 4, 640), (8, 4, 512), (16, 1, 512)),
 }
-H100_SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,15 +296,11 @@ def _align4(floats):
     return (floats + 3) & ~3
 
 
-def segment_bwd_geometry(n, din, d, m, s, stages, sms=H100_SMS, *,
-                         variant=None, warps=_SEG_BWD_WARPS,
-                         blocks_per_sm=_SEG_BWD_BLOCKS_PER_SM):
+def segment_bwd_geometry(n, din, d, m, s, stages, sms):
     """Geometry of the dopri5-attempt (`stages=6`) or rk4-segment
-    (`stages=4`) backward for N rows; raises ValueError on a shape the
-    kernels do not take. Pure arithmetic: no device is touched. The keyword
-    arguments are for `scripts/tune_segment_bwd.py`, which times other
-    geometries: `variant` = (dp, rt, maxt) of an instantiated kernel variant,
-    `warps` the block's target, `blocks_per_sm` the grid's."""
+    (`stages=4`) backward for N rows on a card of `sms` multiprocessors;
+    raises ValueError on a shape the kernels do not take. Pure arithmetic:
+    no device is touched."""
     if stages not in (4, 6):
         raise ValueError(f"stages must be 4 (rk4) or 6 (dopri5), got {stages}")
     if din != d:
@@ -313,15 +308,12 @@ def segment_bwd_geometry(n, din, d, m, s, stages, sms=H100_SMS, *,
     if not 1 <= din <= MAX_DIN or m < 1 or s < 1 or n < 1:
         raise ValueError(f"segment backward supports 1 <= Din = D <= {MAX_DIN} "
                          f"and N, M, S >= 1; got N={n}, Din={din}, M={m}, S={s}")
-    dp, rt, maxt = variant or next(v for v in _SEG_BWD_VARIANTS[stages]
-                                   if din <= v[0])
-    if din > dp:
-        raise ValueError(f"variant {variant} takes Din <= {dp}, got {din}")
+    dp, rt, maxt = next(v for v in _SEG_BWD_VARIANTS[stages] if din <= v[0])
     units = math.ceil(s / 32) + math.ceil(m / 32)     # 32-column units per dim
-    groups = max(1, min(units, min(warps, maxt // 32) // d))
+    groups = max(1, min(units, min(_SEG_BWD_WARPS, maxt // 32) // d))
     warps = d * groups
     tiles = math.ceil(n / rt)
-    rows_per_block = rt * math.ceil(tiles / (blocks_per_sm * sms))
+    rows_per_block = rt * math.ceil(tiles / (_SEG_BWD_BLOCKS_PER_SM * sms))
     blocks = math.ceil(n / rows_per_block)
     # csrc/rhs_tile.cuh TileSmem: xt (stages, rt, stride) | planes of rt * dp
     # floats (dopri5: gk x 6, gxt; rk4: gx x 4, gt, cot) | il (dp, dp) |
@@ -521,10 +513,10 @@ def _launch_dp_fwd(x0, dt, rtol, atol, ops, din, d, m, s):
     return x5, err, xs
 
 
-def _launch_dp_bwd(xs, g, dt, ops, din, d, m, s, geometry=None):
+def _launch_dp_bwd(xs, g, dt, ops, din, d, m, s):
     dev = xs.device
     n = xs.shape[1]
-    geo = geometry or segment_bwd_geometry(n, din, d, m, s, 6, _sms(dev))
+    geo = segment_bwd_geometry(n, din, d, m, s, 6, _sms(dev))
     dx, part_main, part_dz, out_main, out_dz = _segment_bwd_buffers(
         geo, n, din, d, m, s, dev)
     lib = _lib("fused_dopri5")
@@ -599,10 +591,10 @@ def _launch_rk4_fwd(x0, dt, substeps, ops, din, d, m, s):
     return x1, xs
 
 
-def _launch_rk4_bwd(xs, g, dt, substeps, ops, din, d, m, s, geometry=None):
+def _launch_rk4_bwd(xs, g, dt, substeps, ops, din, d, m, s):
     dev = xs.device
     n = xs.shape[1]
-    geo = geometry or segment_bwd_geometry(n, din, d, m, s, 4, _sms(dev))
+    geo = segment_bwd_geometry(n, din, d, m, s, 4, _sms(dev))
     dx, part_main, part_dz, out_main, out_dz = _segment_bwd_buffers(
         geo, n, din, d, m, s, dev)
     lib = _lib("fused_rk4")

@@ -8,6 +8,8 @@ before anything is launched.
 """
 
 import math
+import pathlib
+import re
 
 import pytest
 
@@ -25,6 +27,7 @@ SHAPES = {
     "ragged_features": (203, 3, 40, 100),
 }
 STAGES = {"dopri5": 6, "rk4": 4}
+SMS = 132   # multiprocessors of an H100 SXM
 
 
 def _align4(v):
@@ -35,12 +38,12 @@ def _align4(v):
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_geometry_covers_rows_and_fits_the_card(shape, kernel):
     n, dim, m, s = SHAPES[shape]
-    geo = ck.segment_bwd_geometry(n, dim, dim, m, s, STAGES[kernel])
+    geo = ck.segment_bwd_geometry(n, dim, dim, m, s, STAGES[kernel], SMS)
     # tiles: whole tiles per block, every row in exactly one block
     assert geo.rows_per_block % geo.rt == 0 and geo.rows_per_block >= geo.rt
     assert geo.blocks * geo.rows_per_block >= n
     assert (geo.blocks - 1) * geo.rows_per_block < n
-    assert geo.blocks <= ck._SEG_BWD_BLOCKS_PER_SM * ck.H100_SMS
+    assert geo.blocks <= ck._SEG_BWD_BLOCKS_PER_SM * SMS
     # the variant: loops over Din reach it, a tile's dx shares fit one fold
     assert (geo.dp, geo.rt, geo.maxt) in ck._SEG_BWD_VARIANTS[STAGES[kernel]]
     assert dim <= geo.dp and geo.rt * geo.dp <= 32
@@ -68,9 +71,9 @@ def test_main_path_geometry_fills_the_card(shape):
     memory and every block has rows."""
     n, dim, m, s = SHAPES[shape]
     for stages in STAGES.values():
-        geo = ck.segment_bwd_geometry(n, dim, dim, m, s, stages)
+        geo = ck.segment_bwd_geometry(n, dim, dim, m, s, stages, SMS)
         assert 2 * geo.smem_bytes <= ck.MAX_SMEM_BYTES
-        assert geo.blocks > ck.H100_SMS
+        assert geo.blocks > SMS
         assert geo.dp == 5   # the exact-width variant: no padded lanes of work
 
 
@@ -96,14 +99,33 @@ def test_geometry_adapts_to_the_sm_count(sms):
 def test_unsupported_shape_raises_before_any_launch(args, match):
     before = dict(ck.LAUNCHES)
     with pytest.raises(ValueError, match=match):
-        ck.segment_bwd_geometry(*args)
+        ck.segment_bwd_geometry(*args, SMS)
     assert ck.LAUNCHES == before
 
 
-def test_variant_override_is_checked():
-    geo = ck.segment_bwd_geometry(2970, 5, 5, 100, 256, 6, variant=(8, 4, 512),
-                                  warps=15, blocks_per_sm=1)
-    assert (geo.dp, geo.rt, geo.maxt, geo.threads) == (8, 4, 512, 480)
-    assert geo.blocks <= ck.H100_SMS
-    with pytest.raises(ValueError, match="Din <= 4"):
-        ck.segment_bwd_geometry(2970, 5, 5, 100, 256, 6, variant=(4, 4, 640))
+@pytest.mark.parametrize("dim,dopri5,rk4", [
+    (1, (4, 4, 640), (4, 4, 640)), (4, (4, 4, 640), (4, 4, 640)),
+    (5, (5, 6, 640), (5, 4, 640)), (6, (8, 4, 512), (8, 4, 512)),
+    (8, (8, 4, 512), (8, 4, 512)), (9, (16, 1, 512), (16, 1, 512)),
+    (12, (16, 1, 512), (16, 1, 512)),
+])
+def test_each_width_takes_the_narrowest_instantiated_variant(dim, dopri5, rk4):
+    """(loop bound over Din, rows per tile, thread bound) by Din: the tables
+    in `csrc/fused_dopri5.cu` and `csrc/fused_rk4.cu` instantiate exactly
+    these, and no other."""
+    for stages, want in ((6, dopri5), (4, rk4)):
+        geo = ck.segment_bwd_geometry(300, dim, dim, 16, 64, stages, SMS)
+        assert (geo.dp, geo.rt, geo.maxt) == want
+
+
+@pytest.mark.parametrize("source,macro,stages", [
+    ("fused_dopri5.cu", "DP_BWD_VARIANTS", 6),
+    ("fused_rk4.cu", "RK4_BWD_VARIANTS", 4),
+])
+def test_sources_instantiate_the_variants_the_geometry_selects(source, macro,
+                                                               stages):
+    text = (pathlib.Path(ck.__file__).parents[1] / "csrc" / source).read_text()
+    line = re.search(rf"#define {macro}\(X\)(.*)", text).group(1)
+    built = tuple(tuple(map(int, v)) for v in
+                  re.findall(r"X\((\d+), (\d+), (\d+)\)", line))
+    assert built == ck._SEG_BWD_VARIANTS[stages]
