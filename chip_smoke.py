@@ -19,20 +19,23 @@ exit code and no result line:
      against its plain PyTorch version — forward rtol 1e-4 (atol 1e-5 *
      max|ref|), cotangents atol 1e-3 * max|g| — and times the kernel, the
      plain version and the least time the card could take. The rk4 segment
-     is held at 1 substep (the fast step) and at 3, its backward also at
-     M=256 (the `m256_fast` shape) and for bit-identical reruns. `rbf_gram`
+     is held at 1 substep (the fast step), at 3 and at M=256 (the
+     `m256_fast` shape). `rbf_gram`
      is held at the same N=3000, M=100, at M=256 and at N=77 (a ragged last
      tile); the three wide-layout rhs functions against their plain versions
      at N=2995 and 3000, M=100 and 256, the wide backward also for
      bit-identical reruns. Bounds read the function,
      not the formulation: the wide kernels take the per-dim rhs's counts.
-     The dopri5 attempt's backward is held and timed at M=256 too, the rk4
-     segment's timed at 3 substeps and at M=256. For every backward kernel
-     it prints registers and spill bytes (the build's ptxas record), block
-     size, dynamic shared memory and resident blocks and warps per SM (the
-     occupancy query); the two segment backward kernels must be free of
-     spills and take at most 3.7x (dopri5) and 2.45x (rk4) one fused_rhs
-     backward launch of this call;
+     The dopri5 attempt's forward and backward are held and timed at M=256
+     too, the rk4 segment's timed at 3 substeps and at M=256, and two
+     launches of each segment kernel must be bit-identical. For every
+     backward kernel and both segment forwards it prints registers and spill
+     bytes (the build's ptxas record), block size, dynamic shared memory and
+     resident blocks and warps per SM (the occupancy query); every built
+     variant of the four segment kernels must be free of spills and be one
+     the launch geometry selects, and they must take at most 4.5x (dopri5)
+     and 2.5x (rk4) one fused_rhs forward launch of this call (forwards) and
+     3.7x and 2.45x one fused_rhs backward launch (backwards);
   4. train: the official-recipe shooting train step (dopri5, whole-span
      first step, 5 MC draws, no frozen mask as in bench.py): the step-0 loss
      against the same step through the plain path at rtol 1e-4, then 3
@@ -116,12 +119,20 @@ REPLACES = {
     "fused_rhs_wide2_fwd": "scripts/proto_wide_rhs.py:168",
     "fused_rhs_wide_bwd": "scripts/proto_wide_rhs.py:305",
 }
-# The two segment backward kernels before their redesign (PERF.md; NVIDIA
-# H100 80GB HBM3, 700.00 W): device ms per launch and the ratio to one
-# fused_rhs backward launch of the same call. Held here: the ratio now is at
-# most `limit` (1.4x faster than before, whatever card the call lands on).
-EARLIER = {"fused_dopri5_attempt_bwd": dict(ms=0.8809, ratio=5.17, limit=3.7),
-           "fused_rk4_segment_bwd": dict(ms=0.5846, ratio=3.43, limit=2.45)}
+# The four segment kernels before their redesign (PERF.md; NVIDIA H100 80GB
+# HBM3, 700.00 W): device ms per launch and the ratio to one launch of the
+# `yardstick` kernel of the same call. Held here: the ratio now is at most
+# `limit` (1.4x / 1.5x faster than before, whatever card the call lands on).
+EARLIER = {
+    "fused_dopri5_attempt_bwd": dict(ms=0.8809, ratio=5.17, limit=3.7,
+                                     yardstick="fused_rhs_bwd"),
+    "fused_rk4_segment_bwd": dict(ms=0.5846, ratio=3.43, limit=2.45,
+                                  yardstick="fused_rhs_bwd"),
+    "fused_dopri5_attempt_fwd": dict(ms=0.2184, ratio=6.74, limit=4.5,
+                                     yardstick="fused_rhs_fwd"),
+    "fused_rk4_segment_fwd": dict(ms=0.1198, ratio=3.70, limit=2.5,
+                                  yardstick="fused_rhs_fwd"),
+}
 
 # the kernels each path must launch, and those a train path must not
 MAIN_PATH_KERNELS = {
@@ -323,7 +334,7 @@ def kernel_phase(dev):
         rhs_ops(n, din, d, m, s), 4 * (n * din + pf + n * d)))
     out["fused_rhs_bwd"] = (e_bwd, ms_b, ms_bp, *bound(
         vjp_ops(n, din, d, m, s), 4 * (n * din + n * d + pf + n * din + pf)))
-    resources = {"fused_rhs_bwd": print_backward_resources(
+    resources = {"fused_rhs_bwd": print_resources(
         "fused_rhs_bwd", ck.rhs_bwd_occupancy(n, *dims, dev))}
 
     # -- fused_dopri5_attempt forward / backward
@@ -347,21 +358,24 @@ def kernel_phase(dev):
         torch.autograd.grad(x5_p, inputs, g, retain_graph=True),
         "fused_dopri5_attempt_bwd")
     with torch.no_grad():
-        _, _, xs = ck._launch_dp_fwd(xd, dt, rtol, atol, ops, *dims)
+        first = ck._launch_dp_fwd(xd, dt, rtol, atol, ops, *dims)
+        check(all(torch.equal(a, b) for a, b in zip(
+            first, ck._launch_dp_fwd(xd, dt, rtol, atol, ops, *dims))),
+            "two fused_dopri5_attempt forward runs differ")
+        print("  fused_dopri5_attempt_fwd: two runs bit-identical")
+        xs = first[2]
         ms_df = cuda_ms(lambda: ck._launch_dp_fwd(xd, dt, rtol, atol, ops, *dims))
         ms_dfp = cuda_ms(lambda: ck.dopri5_attempt_plain(
             xd, dt, *[p.detach() for p in params], rtol, atol))
     ms_db = cuda_ms(lambda: ck._launch_dp_bwd(xs, g, dt, ops, *dims))
     ms_dbp = cuda_ms(lambda: torch.autograd.grad(x5_p, inputs, g, retain_graph=True))
-    out["fused_dopri5_attempt_fwd"] = (max(e_dfwd, e_x5_long), ms_df, ms_dfp, *bound(
-        7 * rhs_ops(n, din, d, m, s), 4 * (n * din + pf + 2 * n * d + 6 * n * din)))
     first = ck._launch_dp_bwd(xs, g, dt, ops, *dims)
     second = ck._launch_dp_bwd(xs, g, dt, ops, *dims)
     check(all(torch.equal(a, b) for a, b in zip(first, second)),
           "two fused_dopri5_attempt backward runs differ")
     print("  fused_dopri5_attempt_bwd: two runs bit-identical")
 
-    # the backward at M=256 (the m256 shape): held and timed
+    # forward and backward at M=256 (the m256 shape): held and timed
     inputs256, dt256, args256, _, _ = main_path_inputs(dev, "m256")
     m256 = inputs256[1].shape[0]
     check(m256 == 256, "the m256 preset has not M=256")
@@ -369,39 +383,47 @@ def kernel_phase(dev):
                                       args256.rtol, args256.atol)
     x5_p, _, xs256 = ck.dopri5_attempt_plain(inputs256[0], dt256, *inputs256[1:],
                                              args256.rtol, args256.atol)
+    e_dfwd = max(e_dfwd, compare_fwd(x5_k, x5_p, "fused_dopri5_attempt_fwd x5 (M=256)"))
     e_dbwd = max(e_dbwd, compare_grads(
         torch.autograd.grad(x5_k, inputs256, g),
         torch.autograd.grad(x5_p, inputs256, g), "fused_dopri5_attempt_bwd (M=256)"))
     ops256 = ck._kernel_operands(*[p.detach() for p in inputs256[1:]])
+    dims256 = (din, d, m256, s)
+    x256 = inputs256[0].detach()
+    with torch.no_grad():
+        ms_df256 = cuda_ms(lambda: ck._launch_dp_fwd(
+            x256, dt256, args256.rtol, args256.atol, ops256, *dims256))
     xs256 = xs256.detach().contiguous()
-    ms_db256 = cuda_ms(lambda: ck._launch_dp_bwd(xs256, g, dt256, ops256,
-                                                 din, d, m256, s))
-    print(f"  fused_dopri5_attempt_bwd at M=256: {ms_db256:.4f} ms per launch")
+    ms_db256 = cuda_ms(lambda: ck._launch_dp_bwd(xs256, g, dt256, ops256, *dims256))
+    print(f"  fused_dopri5_attempt at M=256: forward {ms_df256:.4f}, backward "
+          f"{ms_db256:.4f} ms per launch")
 
+    out["fused_dopri5_attempt_fwd"] = (max(e_dfwd, e_x5_long), ms_df, ms_dfp, *bound(
+        7 * rhs_ops(n, din, d, m, s), 4 * (n * din + pf + 2 * n * d + 6 * n * din)))
     out["fused_dopri5_attempt_bwd"] = (e_dbwd, ms_db, ms_dbp, *bound(
         6 * vjp_ops(n, din, d, m, s), 4 * (6 * n * din + n * d + pf + n * din + pf)))
 
     print_kernel_rows(out)
-    geo = ck.segment_bwd_geometry(n, *dims, 6, ck._sms(dev))
-    report = print_backward_resources(
-        "fused_dopri5_attempt_bwd", ck.segment_bwd_occupancy(6, *dims, geo))
-    check_variants_free_of_spills("fused_dopri5_attempt_bwd", 6)
-    resources["fused_dopri5_attempt_bwd"] = dict(
-        report_redesigned("fused_dopri5_attempt_bwd", ms_db,
-                          out["fused_dopri5_attempt_bwd"][3], ms_b, report),
-        blocks=geo.blocks, rows_per_block=geo.rows_per_block, ms_m256=ms_db256)
-    return out, e_err_long, resources
+    yardstick = {"fused_rhs_fwd": ms_f, "fused_rhs_bwd": ms_b}
+    resources["fused_dopri5_attempt_fwd"] = report_segment_kernel(
+        dev, "fused_dopri5_attempt_fwd", n, dims, out, yardstick, ms_m256=ms_df256)
+    resources["fused_dopri5_attempt_bwd"] = report_segment_kernel(
+        dev, "fused_dopri5_attempt_bwd", n, dims, out, yardstick, ms_m256=ms_db256)
+    return out, e_err_long, resources, yardstick
 
 
 def long_span_error_check(x, params, rtol, atol):
     """The attempt kernel over the shortest span (0.01 * 1.25^k) whose plain
     error estimate exceeds 1e3, far above its rounding (about 0.1 at
-    rtol = atol = 1e-6): err_scaled against the plain version at rtol 1e-3
-    with atol 1e-4 * max|ref|. Over such a span the six-stage chain
-    amplifies rounding, so x5 is held against the plain version in float64:
-    the kernel's error may be at most 4 times the float32 plain version's
-    (1e-6 * max|ref| at the least). Returns the max abs errors of x5 (against
-    the float32 plain version) and of err_scaled."""
+    rtol = atol = 1e-6). Over such a span the six-stage chain amplifies
+    rounding, so both outputs are held against the plain version in float64:
+    x5's error may be at most 4 times the float32 plain version's (1e-6 *
+    max|ref| at the least); err_scaled within rtol 1e-3 with atol 1e-4 *
+    max|ref|, or twice the float32 plain version's own largest error where
+    that is more (the estimate divides float32 rounding of the stage sums by
+    atol + rtol * |x|, so its smallest entries sit at that rounding in every
+    float32 version). Returns the max abs errors of x5 (against the float32
+    plain version) and of err_scaled (against float64)."""
     import torch
     from gpode_tpu_torch.ops import cuda_kernels as ck
     for k in range(60):
@@ -415,7 +437,7 @@ def long_span_error_check(x, params, rtol, atol):
         raise CheckFailed("no span lifts the embedded error above 1e3")
     with torch.no_grad():
         x5_k, err_k = ck.fused_dopri5_attempt(x, dt, *params, rtol, atol)
-        x5_64, _, _ = ck.dopri5_attempt_plain(
+        x5_64, err_64, _ = ck.dopri5_attempt_plain(
             x.double(), dt.double(), *[p.double() for p in params], rtol, atol)
     e_k64 = float((x5_k.double() - x5_64).abs().max())
     e_p64 = float((x5_p.double() - x5_64).abs().max())
@@ -425,23 +447,28 @@ def long_span_error_check(x, params, rtol, atol):
           f"max|ref| {float(x5_64.abs().max()):.3e})")
     check(math.isfinite(e_k64) and e_k64 <= limit,
           f"fused_dopri5_attempt_fwd x5 at dt={span:.5g} is off beyond rounding")
-    err = float((err_k - err_p).abs().max())
-    scale = float(err_p.abs().max())
-    ok = bool(torch.all((err_k - err_p).abs() <= 1e-3 * err_p.abs() + 1e-4 * scale))
-    print(f"  fused_dopri5_attempt_fwd err_scaled at dt={span:.5g}: max_abs_err "
-          f"{err:.3e} (max|ref| {scale:.3e})")
+    err = float((err_k.double() - err_64).abs().max())
+    err_p64 = float((err_p.double() - err_64).abs().max())
+    scale = float(err_64.abs().max())
+    floor = max(1e-4 * scale, 2 * err_p64)
+    ok = bool(torch.all((err_k.double() - err_64).abs()
+                        <= 1e-3 * err_64.abs() + floor))
+    print(f"  fused_dopri5_attempt_fwd err_scaled at dt={span:.5g} vs float64: "
+          f"kernel {err:.3e}, plain float32 {err_p64:.3e}, kernel vs plain "
+          f"float32 {float((err_k - err_p).abs().max()):.3e} (atol {floor:.3e}, "
+          f"max|ref| {scale:.3e})")
     check(ok and math.isfinite(err),
           f"fused_dopri5_attempt_fwd err_scaled disagrees at dt={span:.5g}")
     return float((x5_k - x5_p).abs().max()), err
 
 
-def rk4_kernel_phase(dev, rhs_bwd_ms):
+def rk4_kernel_phase(dev, yardstick):
     """The rk4 segment kernels at the fast step's inputs, at its 1 substep
-    and at 3 (the reverse sweep across steps); the backward also at M=256
-    (the m256_fast shape) and twice for bit-identical cotangents. The rows'
-    times are at 1 substep; the backward is also timed at 3 substeps and at
-    M=256. `rhs_bwd_ms`: one fused_rhs backward launch of this call. Returns
-    the two kernel rows and the backward's resource report."""
+    and at 3 (the reverse sweep across steps), at M=256 (the m256_fast
+    shape), and twice each for bit-identical results. The rows' times are at
+    1 substep; both kernels are also timed at 3 substeps and at M=256.
+    `yardstick`: device ms of one fused_rhs forward and backward launch of
+    this call. Returns the two kernel rows and their resource reports."""
     phase("kernels: rk4 segment")
     import torch
     from gpode_tpu_torch.ops import cuda_kernels as ck
@@ -471,7 +498,12 @@ def rk4_kernel_phase(dev, rhs_bwd_ms):
     ops = ck._kernel_operands(*[p.detach() for p in params])
     xd, pd = x.detach(), [p.detach() for p in params]
     with torch.no_grad():
-        _, xs = ck._launch_rk4_fwd(xd, dt, 1, ops, *dims)
+        first = ck._launch_rk4_fwd(xd, dt, 1, ops, *dims)
+        check(all(torch.equal(a, b) for a, b in zip(
+            first, ck._launch_rk4_fwd(xd, dt, 1, ops, *dims))),
+            "two fused_rk4_segment forward runs differ")
+        print("  fused_rk4_segment_fwd: two runs bit-identical")
+        xs = first[1]
         ms_f = cuda_ms(lambda: ck._launch_rk4_fwd(xd, dt, 1, ops, *dims))
         ms_fp = cuda_ms(lambda: ck.rk4_segment_plain(xd, dt, *pd, 1))
     ms_b = cuda_ms(lambda: ck._launch_rk4_bwd(xs, g, dt, 1, ops, *dims))
@@ -484,8 +516,10 @@ def rk4_kernel_phase(dev, rhs_bwd_ms):
     print("  fused_rk4_segment_bwd: two runs bit-identical")
     with torch.no_grad():
         _, xs3 = ck._launch_rk4_fwd(xd, dt, 3, ops, *dims)
+        ms_f3 = cuda_ms(lambda: ck._launch_rk4_fwd(xd, dt, 3, ops, *dims))
     ms_b3 = cuda_ms(lambda: ck._launch_rk4_bwd(xs3, g, dt, 3, ops, *dims))
-    print(f"  fused_rk4_segment_bwd at 3 substeps: {ms_b3:.4f} ms per launch")
+    print(f"  fused_rk4_segment at 3 substeps: forward {ms_f3:.4f}, backward "
+          f"{ms_b3:.4f} ms per launch")
 
     inputs256, dt256, args256, _, _ = main_path_inputs(dev, "m256_fast")
     check(inputs256[1].shape[0] == 256, "the m256_fast preset has not M=256")
@@ -497,12 +531,15 @@ def rk4_kernel_phase(dev, rhs_bwd_ms):
         torch.autograd.grad(x1_k, inputs256, g),
         torch.autograd.grad(x1_p, inputs256, g), "fused_rk4_segment_bwd (M=256)"))
     ops256 = ck._kernel_operands(*[p.detach() for p in inputs256[1:]])
+    x256 = inputs256[0].detach()
     with torch.no_grad():
-        _, xs256 = ck._launch_rk4_fwd(inputs256[0].detach(), dt256, sub256,
-                                      ops256, din, d, 256, s)
+        _, xs256 = ck._launch_rk4_fwd(x256, dt256, sub256, ops256, din, d, 256, s)
+        ms_f256 = cuda_ms(lambda: ck._launch_rk4_fwd(x256, dt256, sub256, ops256,
+                                                     din, d, 256, s))
     ms_b256 = cuda_ms(lambda: ck._launch_rk4_bwd(xs256, g, dt256, sub256, ops256,
                                                  din, d, 256, s))
-    print(f"  fused_rk4_segment_bwd at M=256: {ms_b256:.4f} ms per launch")
+    print(f"  fused_rk4_segment at M=256: forward {ms_f256:.4f}, backward "
+          f"{ms_b256:.4f} ms per launch")
 
     pf = param_floats(din, d, m, s)
     out = {
@@ -512,15 +549,13 @@ def rk4_kernel_phase(dev, rhs_bwd_ms):
             4 * vjp_ops(n, din, d, m, s), 4 * (4 * n * din + n * d + pf + n * din + pf))),
     }
     print_kernel_rows(out)
-    geo = ck.segment_bwd_geometry(n, *dims, 4, ck._sms(dev))
-    report = print_backward_resources(
-        "fused_rk4_segment_bwd", ck.segment_bwd_occupancy(4, *dims, geo))
-    check_variants_free_of_spills("fused_rk4_segment_bwd", 4)
-    resources = dict(
-        report_redesigned("fused_rk4_segment_bwd", ms_b,
-                          out["fused_rk4_segment_bwd"][3], rhs_bwd_ms, report),
-        blocks=geo.blocks, rows_per_block=geo.rows_per_block,
-        ms_3_substeps=ms_b3, ms_m256=ms_b256)
+    resources = {
+        "fused_rk4_segment_fwd": report_segment_kernel(
+            dev, "fused_rk4_segment_fwd", n, dims, out, yardstick,
+            ms_3_substeps=ms_f3, ms_m256=ms_f256),
+        "fused_rk4_segment_bwd": report_segment_kernel(
+            dev, "fused_rk4_segment_bwd", n, dims, out, yardstick,
+            ms_3_substeps=ms_b3, ms_m256=ms_b256)}
     return out, resources
 
 
@@ -530,9 +565,9 @@ def print_kernel_rows(out):
               f"{bms:.4f} ms ({by}), max_abs_err {err:.3e}")
 
 
-def print_backward_resources(name, report):
-    """One backward kernel's registers and spills (the build's ptxas record),
-    block size, dynamic shared memory and residency (the occupancy query)."""
+def print_resources(name, report):
+    """One kernel's registers and spills (the build's ptxas record), block
+    size, dynamic shared memory and residency (the occupancy query)."""
     print(f"{name} resources: {report['ptxas_registers']} registers, spill "
           f"{report['spill_stores']} B stores / {report['spill_loads']} B loads, "
           f"{report['local_bytes']} B local; block {report['threads']} threads, "
@@ -545,17 +580,24 @@ def print_backward_resources(name, report):
     return report
 
 
-def check_variants_free_of_spills(name, stages):
-    """Every instantiated variant of a segment backward kernel (one per range
-    of Din), from the build's ptxas record: the table the launch geometry
-    selects from is what was built, and none of it spills."""
+# the segment kernels' (direction, stages) by name
+SEGMENT = {"fused_dopri5_attempt_fwd": ("fwd", 6),
+           "fused_dopri5_attempt_bwd": ("bwd", 6),
+           "fused_rk4_segment_fwd": ("fwd", 4),
+           "fused_rk4_segment_bwd": ("bwd", 4)}
+
+
+def check_variants_free_of_spills(name):
+    """Every instantiated variant of a segment kernel (one per range of Din),
+    from the build's ptxas record: the table the launch geometry selects
+    from is what was built, and none of it spills."""
     from gpode_tpu_torch.ops import cuda_build
     from gpode_tpu_torch.ops import cuda_kernels as ck
-    lib_name, kernel = {6: ("fused_dopri5", "dp_attempt_bwd_kernel"),
-                        4: ("fused_rk4", "rk4_bwd_kernel")}[stages]
+    lib_name, kernel, _ = ck.SEGMENT_KERNELS[SEGMENT[name]]
+    variants = ck.SEGMENT_VARIANTS[SEGMENT[name]]
     built = {k: v for k, v in cuda_build.kernel_resources(lib_name).items()
              if kernel in k}
-    for dp, rt, maxt in ck._SEG_BWD_VARIANTS[stages]:
+    for dp, rt, maxt in variants:
         key = f"{kernel}ILi{dp}ELi{rt}ELi{maxt}EE"
         found = [v for k, v in built.items() if key in k]
         check(len(found) == 1, f"{name}: {len(found)} builds of {key}")
@@ -564,28 +606,42 @@ def check_variants_free_of_spills(name, stages):
               f"{found[0]['spill_loads']} B loads")
         check(found[0]["spill_stores"] == 0 and found[0]["spill_loads"] == 0,
               f"{name} variant <{dp}, {rt}, {maxt}> spills registers")
-    check(len(built) == len(ck._SEG_BWD_VARIANTS[stages]),
+    check(len(built) == len(variants),
           f"{name}: {len(built)} variants built, the geometry selects from "
-          f"{len(ck._SEG_BWD_VARIANTS[stages])}")
+          f"{len(variants)}")
 
 
-def report_redesigned(name, ms, bound_ms, rhs_bwd_ms, report):
-    """A redesigned segment backward against its earlier time, one fused_rhs
-    backward launch of this call, and its bound; holds the ratio limit and
-    the kernel free of spills."""
+def report_segment_kernel(dev, name, n, dims, out, yardstick, **extra):
+    """A redesigned segment kernel at N rows of shape `dims` (Din, D, M, S):
+    its resources at the main path's geometry, every built variant free of
+    spills, and its time against its earlier one, one launch of its
+    yardstick kernel of this call (`yardstick`: device ms by name) and its
+    bound (`out[name]`: the kernel row). Holds the ratio limit."""
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    direction, stages = SEGMENT[name]
+    if direction == "fwd":
+        geo = ck.segment_fwd_geometry(n, *dims, stages)
+        rows_per_block = geo.rt
+    else:
+        geo = ck.segment_bwd_geometry(n, *dims, stages, ck._sms(dev))
+        rows_per_block = geo.rows_per_block
+    report = print_resources(name, ck.segment_occupancy(direction, stages, *dims, geo))
+    check_variants_free_of_spills(name)
     was = EARLIER[name]
-    ratio = ms / rhs_bwd_ms
+    ms, bound_ms = out[name][1], out[name][3]
+    yard_ms = yardstick[was["yardstick"]]
+    ratio = ms / yard_ms
     print(f"{name}: {ms:.4f} ms per launch ({was['ms']:.4f} ms before the "
-          f"redesign: {was['ms'] / ms:.2f}x); {ratio:.2f}x one fused_rhs backward "
-          f"launch of this call ({rhs_bwd_ms:.4f} ms; {was['ratio']:.2f}x before, "
+          f"redesign: {was['ms'] / ms:.2f}x); {ratio:.2f}x one {was['yardstick']} "
+          f"launch of this call ({yard_ms:.4f} ms; {was['ratio']:.2f}x before, "
           f"limit {was['limit']:.2f}x); {100 * bound_ms / ms:.1f}% of its bound "
           f"({bound_ms:.4f} ms)")
-    check(ratio <= was["limit"], f"{name} takes {ratio:.2f}x a fused_rhs backward "
+    check(ratio <= was["limit"], f"{name} takes {ratio:.2f}x a {was['yardstick']} "
           f"launch, over the limit {was['limit']:.2f}x")
-    check(report["spill_stores"] == 0 and report["spill_loads"] == 0,
-          f"{name} spills registers")
-    return dict(ms=ms, earlier_ms=was["ms"], ratio_to_rhs_bwd=ratio,
-                earlier_ratio=was["ratio"], bound_share=bound_ms / ms, **report)
+    return dict(ms=ms, earlier_ms=was["ms"], ratio_to_yardstick=ratio,
+                yardstick=was["yardstick"], earlier_ratio=was["ratio"],
+                bound_share=bound_ms / ms, blocks=geo.blocks,
+                rows_per_block=rows_per_block, **report, **extra)
 
 
 def gram_wide_kernel_phase(dev):
@@ -685,7 +741,7 @@ def gram_wide_kernel_phase(dev):
         out[name] = (errs[name], *ms[name],
                      *(bwd_bound if name.endswith("bwd") else fwd_bound))
     print_kernel_rows(out)
-    resources = print_backward_resources(
+    resources = print_resources(
         "fused_rhs_wide_bwd", wr.wide_bwd_occupancy(din, d, sp, mp))
     return out, resources
 
@@ -1126,11 +1182,11 @@ def main(argv=None) -> int:
     import torch
     dev = torch.device("cuda")
     build_seconds = build_phase()
-    kernels, err_scaled_long_span, backward = kernel_phase(dev)
-    rk4_rows, backward["fused_rk4_segment_bwd"] = rk4_kernel_phase(
-        dev, kernels["fused_rhs_bwd"][1])
+    kernels, err_scaled_long_span, resources, yardstick = kernel_phase(dev)
+    rk4_rows, rk4_resources = rk4_kernel_phase(dev, yardstick)
     kernels.update(rk4_rows)
-    wide_rows, backward["fused_rhs_wide_bwd"] = gram_wide_kernel_phase(dev)
+    resources.update(rk4_resources)
+    wide_rows, resources["fused_rhs_wide_bwd"] = gram_wide_kernel_phase(dev)
     kernels.update(wide_rows)
     train, launches, _, _ = train_phase(dev, "official", opts.profile_steps)
     train["reject_fallback_max_abs_err"] = reject_phase(dev)
@@ -1161,7 +1217,7 @@ def main(argv=None) -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_seconds": build_seconds,
                    "err_scaled_long_span_max_abs_err": err_scaled_long_span,
-                   "kernels": rows, "backward_kernels": backward,
+                   "kernels": rows, "kernel_resources": resources,
                    "train": train, "train_fast": fast,
                    "eval_fast": evaluation, "vdp": vdp,
                    "vdp_golden": vdp_golden, "field": field}, f, indent=1)

@@ -12,9 +12,14 @@
 // those stage inputs back instead of recomputing the chain. Stage i+1 needs
 // all D components of k_i, so a block synchronises between stages.
 //
-// Forward: the state tile, all seven stage derivatives and the stage inputs
-// stay in shared memory for the whole step; blocks are G groups of D warps,
-// warp (grp, d) evaluates dim d of every G-th row of the tile.
+// Forward: one block per tile of RT rows, G groups of D warps. Each of the
+// seven evaluations (f0, six stages, k7 = f(x5)) is one `rhs_tile` call
+// (rhs_tile.cuh): warp (grp, d) owns every G-th 32-column unit of dim d and
+// runs the tile's rows as independent cosf/expf chains, its row sums in
+// registers until one fold; the warps of a dim meet in shared memory, added
+// in group order, where the thread of (row, k) forms k_i and the next stage
+// input. The state tile, the stage derivatives and the stage input stay in
+// shared memory for the whole step.
 //
 // Backward: what costs time is the latency of 6 * N * D * (2S + M) accurate
 // sincosf/expf results, so the design keeps many of them in flight per SM.
@@ -36,69 +41,66 @@
 #define DP_B5 49
 #define DP_E 56
 
-static __global__ void dp_attempt_fwd_kernel(
-    const float* __restrict__ x0, const float* __restrict__ dt_ptr,
-    const float* __restrict__ coef, float rtol, float atol, RhsParams p,
-    float* __restrict__ x5_out, float* __restrict__ err_out,
-    float* __restrict__ xs_out, int n, int rows_per_block, int groups) {
-  extern __shared__ float smem[];
-  const int R = rows_per_block, din = p.din, D = p.d;
-  float* xb = smem;             // (R, Din) x0 tile
-  float* xi = xb + R * din;     // (R, Din) current stage input
-  float* ks = xi + R * din;     // (7, R, D) stage derivatives
+// Forward: shared memory as FwdSmem<DP, RT, 7> (rhs_tile.cuh).
+template <int DP, int RT, int MAXT>
+static __global__ void __launch_bounds__(MAXT)
+dp_attempt_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ dt_ptr,
+                      const float* __restrict__ coef, float rtol, float atol,
+                      RhsParams p, float* __restrict__ x5_out,
+                      float* __restrict__ err_out, float* __restrict__ xs_out, int n,
+                      int groups) {
+  extern __shared__ __align__(16) float smem[];
+  using L = FwdSmem<DP, RT, 7>;
+  constexpr int GQ = align4(RT * DP);
+  const int din = p.din, D = p.d;
+  float* xb = smem + L::xb;    // (RT, stride) x0 tile
+  float* xi = smem + L::xi;    // (RT, stride) current stage input
+  float* ks = smem + L::ks;    // (7, GQ) stage derivatives, [r * DP + k]
+  float* ils = smem + L::il;   // (D, DP) 1 / lengthscale
+  float* red = smem + L::red;  // (warps, 32) the warps' row sums
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int d = warp % D, grp = warp / D;
-  const int row0 = blockIdx.x * R;
-  const int rows = min(R, n - row0);
+  const int row0 = blockIdx.x * RT;
+  const int rows = min(RT, n - row0);
   const float dt = *dt_ptr;
   const size_t plane = (size_t)n * din;  // one stage of xs_out
+  const size_t off = (size_t)row0 * din;
 
-  for (int i = threadIdx.x; i < rows * din; i += blockDim.x) {
-    const float v = x0[(size_t)row0 * din + i];
-    xb[i] = v;
-    xi[i] = v;
-    xs_out[(size_t)row0 * din + i] = v;
-  }
+  tile_load_inv_ls<DP>(p, ils);
+  tile_load_x0<DP, RT>(x0, xb, xi, xs_out, row0, rows, din);
   __syncthreads();
 
-  for (int st = 0; st < 6; ++st) {
-    for (int r = grp; r < rows; r += groups) {
-      const float v = rhs_row_dim(p, xi + r * din, d, lane);
-      if (lane == 0) ks[(st * R + r) * D + d] = v;
-    }
+#pragma unroll 1
+  for (int st = 0; st < 7; ++st) {
+    tile_stage<DP, RT>(p, xi, rows, d, grp, groups, lane, ils + d * DP,
+                       red + warp * 32);
     __syncthreads();
+    // the thread of (r, k) forms k_st there and reads only the k_j it formed
     for (int i = threadIdx.x; i < rows * din; i += blockDim.x) {
       const int r = i / din, k = i % din;
+      const int xk = r * tile_stride(DP) + k;
+      float* kr = ks + r * DP + k;  // k_j at kr[j * GQ]
+      kr[st * GQ] = tile_rhs_sum<RT>(p, red, groups, r, k);
       float acc = 0.f;
       if (st < 5) {  // next stage input: x + dt * sum_j a[st+1][j] k_j
-        for (int j = 0; j <= st; ++j)
-          acc += coef[(st + 1) * 7 + j] * ks[(j * R + r) * D + k];
-        xi[i] = xb[i] + dt * acc;
-        xs_out[(st + 1) * plane + (size_t)row0 * din + i] = xi[i];
-      } else {       // 5th-order endpoint: x + dt * sum_{b5_j != 0} b5_j k_j
+        for (int j = 0; j <= st; ++j) acc += coef[(st + 1) * 7 + j] * kr[j * GQ];
+        xi[xk] = xb[xk] + dt * acc;
+        xs_out[(st + 1) * plane + off + i] = xi[xk];
+      } else if (st == 5) {  // 5th-order endpoint: x + dt * sum_{b5_j != 0} b5_j k_j
         for (int j = 0; j < 6; ++j) {
           const float b = coef[DP_B5 + j];
-          if (b != 0.f) acc += b * ks[(j * R + r) * D + k];
+          if (b != 0.f) acc += b * kr[j * GQ];
         }
-        xi[i] = xb[i] + dt * acc;
+        xi[xk] = xb[xk] + dt * acc;
+      } else {  // k7 = f(x5): the embedded error estimate
+        for (int j = 0; j < 7; ++j) acc += coef[DP_E + j] * kr[j * GQ];
+        const float x5 = xi[xk];
+        const float scale = atol + rtol * fmaxf(fabsf(xb[xk]), fabsf(x5));
+        x5_out[off + i] = x5;
+        err_out[off + i] = dt * acc / scale;
       }
     }
     __syncthreads();
-  }
-
-  for (int r = grp; r < rows; r += groups) {  // k7 = f(x5), error estimate only
-    const float v = rhs_row_dim(p, xi + r * din, d, lane);
-    if (lane == 0) ks[(6 * R + r) * D + d] = v;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * din; i += blockDim.x) {
-    const int r = i / din, k = i % din;
-    float acc = 0.f;
-    for (int j = 0; j < 7; ++j) acc += coef[DP_E + j] * ks[(j * R + r) * D + k];
-    const float x5 = xi[i];
-    const float scale = atol + rtol * fmaxf(fabsf(xb[i]), fabsf(x5));
-    x5_out[(size_t)row0 * din + i] = x5;
-    err_out[(size_t)row0 * din + i] = dt * acc / scale;
   }
 }
 
@@ -166,21 +168,69 @@ dp_attempt_bwd_kernel(const float* __restrict__ xs, const float* __restrict__ gy
   tile_write_partials<DP>(p, acc, dls, groups, part_main, part_dz);
 }
 
+// The instantiated forward variants (DP, RT, MAXT), one per range of Din
+// (<= 4, 5, <= 8, <= 16; ops/cuda_kernels.py picks the smallest DP >= Din):
+// 2 * RT is the width of the row-sum fold; MAXT bounds the block and with it
+// the registers per thread (65536 / MAXT): at 1024, 64 registers, so three
+// 10-warp blocks are resident per SM (the fastest geometry measured at
+// Din = 5; PERF.md).
+#define DP_FWD_VARIANTS(X) X(4, 8, 1024) X(5, 8, 1024) X(8, 4, 384) X(16, 4, 512)
+
+// The forward kernel on `stream`; with `occupancy` non-null nothing is
+// launched and the kernel's occupancy_report at this geometry is written
+// there instead.
+static int dp_fwd_run(const float* x0, const float* dt, const float* coef, float rtol,
+                      float atol, const float* z, const float* inv_ls,
+                      const float* var, const float* omega, const float* phase,
+                      const float* w, const float* nu, float* x5, float* err,
+                      float* xs, int n, int din, int d, int m, int s, int dp, int rt,
+                      int groups, int maxt, int* occupancy, void* stream) {
+  const RhsParams p = make_params(z, inv_ls, var, omega, phase, w, nu, din, d, m, s);
+  if (din != d || din < 1 || din > dp || m < 1 || s < 1 || n < 1 || groups < 1 ||
+      32 * d * groups > maxt)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 32 * d * groups;
+  const int blocks = (n + rt - 1) / rt;
+  const size_t smem = sizeof(float) * (size_t)fwd_smem_floats(dp, rt, 7, d * groups);
+  cudaError_t e = cudaErrorInvalidValue;
+#define X(DP_, RT_, MAXT_)                                                        \
+  if (dp == DP_ && rt == RT_ && maxt == MAXT_) {                                  \
+    e = prepare_kernel(dp_attempt_fwd_kernel<DP_, RT_, MAXT_>, threads, smem,     \
+                       occupancy);                                                \
+    if (e == cudaSuccess && !occupancy) {                                         \
+      dp_attempt_fwd_kernel<DP_, RT_, MAXT_>                                      \
+          <<<blocks, threads, smem, (cudaStream_t)stream>>>(                      \
+              x0, dt, coef, rtol, atol, p, x5, err, xs, n, groups);               \
+      e = cudaGetLastError();                                                     \
+    }                                                                             \
+  }
+  DP_FWD_VARIANTS(X)
+#undef X
+  return (int)e;
+}
+
 extern "C" int gpode_dp_attempt_fwd(const float* x0, const float* dt,
                                     const float* coef, float rtol, float atol,
                                     const float* z, const float* inv_ls,
                                     const float* var, const float* omega,
                                     const float* phase, const float* w,
                                     const float* nu, float* x5, float* err,
-                                    float* xs, int n, int din, int d, int m,
-                                    int s, int rows_per_block, int groups,
+                                    float* xs, int n, int din, int d, int m, int s,
+                                    int dp, int rt, int groups, int maxt,
                                     void* stream) {
-  const RhsParams p = make_params(z, inv_ls, var, omega, phase, w, nu, din, d, m, s);
-  const int blocks = (n + rows_per_block - 1) / rows_per_block;
-  const size_t smem = sizeof(float) * (size_t)rows_per_block * (2 * din + 7 * d);
-  dp_attempt_fwd_kernel<<<blocks, 32 * d * groups, smem, (cudaStream_t)stream>>>(
-      x0, dt, coef, rtol, atol, p, x5, err, xs, n, rows_per_block, groups);
-  return (int)cudaGetLastError();
+  return dp_fwd_run(x0, dt, coef, rtol, atol, z, inv_ls, var, omega, phase, w, nu,
+                    x5, err, xs, n, din, d, m, s, dp, rt, groups, maxt, nullptr,
+                    stream);
+}
+
+// out = {resident blocks per SM, threads, dynamic shared bytes, registers,
+// local bytes} of the forward kernel at this geometry; launches nothing.
+extern "C" int gpode_dp_attempt_fwd_occupancy(int din, int d, int m, int s, int dp,
+                                              int rt, int groups, int maxt,
+                                              int* out) {
+  return dp_fwd_run(nullptr, nullptr, nullptr, 0.f, 0.f, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    rt, din, d, m, s, dp, rt, groups, maxt, out, nullptr);
 }
 
 // The instantiated backward variants (DP, RT, MAXT), one per range of Din
@@ -189,16 +239,6 @@ extern "C" int gpode_dp_attempt_fwd(const float* x0, const float* dt,
 // registers per thread (65536 / MAXT). Six stages leave registers for 6-row
 // tiles at Din = 5.
 #define DP_BWD_VARIANTS(X) X(4, 4, 640) X(5, 6, 640) X(8, 4, 512) X(16, 1, 512)
-
-template <int DP, int RT, int MAXT>
-static cudaError_t dp_bwd_prepare(int threads, size_t smem, int* occupancy) {
-  if (occupancy)
-    return occupancy_report(dp_attempt_bwd_kernel<DP, RT, MAXT>, threads, smem,
-                            occupancy);
-  return cudaFuncSetAttribute(dp_attempt_bwd_kernel<DP, RT, MAXT>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
 
 // The backward kernel and its fixed-order reduction on `stream`; with
 // `occupancy` non-null nothing is launched and the kernel's occupancy_report
@@ -223,7 +263,8 @@ static int dp_bwd_run(const float* xs, const float* g, const float* dt,
   cudaError_t e = cudaErrorInvalidValue;
 #define X(DP_, RT_, MAXT_)                                                        \
   if (dp == DP_ && rt == RT_ && maxt == MAXT_) {                                  \
-    e = dp_bwd_prepare<DP_, RT_, MAXT_>(threads, smem, occupancy);                \
+    e = prepare_kernel(dp_attempt_bwd_kernel<DP_, RT_, MAXT_>, threads, smem,     \
+                       occupancy);                                                \
     if (e == cudaSuccess && !occupancy) {                                         \
       dp_attempt_bwd_kernel<DP_, RT_, MAXT_>                                      \
           <<<blocks, threads, smem, (cudaStream_t)stream>>>(                      \

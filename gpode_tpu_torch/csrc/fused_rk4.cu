@@ -14,9 +14,11 @@
 // instead of recomputing the chain. Stage i+1 needs all D components of k_i,
 // so a block synchronises between stages.
 //
-// Forward: the state tile, the stage input and k1..k4 stay in shared memory
-// for the whole interval; blocks are G groups of D warps (warp (grp, d)
-// evaluates dim d of every G-th row of the tile), as in fused_dopri5.cu.
+// Forward: as the dopri5 attempt's (fused_dopri5.cu): one block per tile of
+// RT rows, G groups of D warps, each of the 4 * substeps evaluations one
+// `rhs_tile` call (rhs_tile.cuh) whose row sums meet in shared memory, where
+// the thread of (row, k) forms k_i and the next stage input. The state tile,
+// the stage input and k1..k4 stay in shared memory for the whole interval.
 //
 // Backward: as the dopri5 attempt's (fused_dopri5.cu), the time is the
 // latency of the accurate sincosf/expf, and the design is the same: a block
@@ -35,54 +37,66 @@
 
 #include "rhs_tile.cuh"
 
-static __global__ void rk4_fwd_kernel(const float* __restrict__ x0,
-                                      const float* __restrict__ dt_ptr,
-                                      RhsParams p, float* __restrict__ x1_out,
-                                      float* __restrict__ xs_out, int n,
-                                      int substeps, int rows_per_block,
-                                      int groups) {
-  extern __shared__ float smem[];
-  const int R = rows_per_block, din = p.din, D = p.d;
-  float* xb = smem;            // (R, Din) state at the start of the step
-  float* xi = xb + R * din;    // (R, Din) current stage input
-  float* ks = xi + R * din;    // (4, R, D) stage derivatives
+// Forward: shared memory as FwdSmem<DP, RT, 4> (rhs_tile.cuh).
+template <int DP, int RT, int MAXT>
+static __global__ void __launch_bounds__(MAXT)
+rk4_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ dt_ptr,
+               RhsParams p, float* __restrict__ x1_out, float* __restrict__ xs_out,
+               int n, int substeps, int groups) {
+  extern __shared__ __align__(16) float smem[];
+  using L = FwdSmem<DP, RT, 4>;
+  constexpr int GQ = align4(RT * DP);
+  const int din = p.din, D = p.d;
+  float* xb = smem + L::xb;    // (RT, stride) state at the start of the step
+  float* xi = smem + L::xi;    // (RT, stride) current stage input
+  float* ks = smem + L::ks;    // (4, GQ) stage derivatives, [r * DP + k]
+  float* ils = smem + L::il;   // (D, DP) 1 / lengthscale
+  float* red = smem + L::red;  // (warps, 32) the warps' row sums
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int d = warp % D, grp = warp / D;
-  const int row0 = blockIdx.x * R;
-  const int rows = min(R, n - row0);
+  const int row0 = blockIdx.x * RT;
+  const int rows = min(RT, n - row0);
   const float h = *dt_ptr / (float)substeps;
   const float h2 = 0.5f * h, h6 = h / 6.f;
   const size_t plane = (size_t)n * din;  // one stage of xs_out
   const size_t off = (size_t)row0 * din;
 
-  for (int i = threadIdx.x; i < rows * din; i += blockDim.x) xb[i] = x0[off + i];
+  tile_load_inv_ls<DP>(p, ils);
+  tile_load_x0<DP, RT>(x0, xb, xi, xs_out, row0, rows, din);
   __syncthreads();
 
+#pragma unroll 1
   for (int step = 0; step < substeps; ++step) {
+#pragma unroll 1
     for (int st = 0; st < 4; ++st) {
-      // stage inputs: x, x + h/2 k1, x + h/2 k2, x + h k3
+      tile_stage<DP, RT>(p, xi, rows, d, grp, groups, lane, ils + d * DP,
+                         red + warp * 32);
+      __syncthreads();
+      // the thread of (r, k) forms k_st there and reads only the k_j it formed
       for (int i = threadIdx.x; i < rows * din; i += blockDim.x) {
         const int r = i / din, k = i % din;
-        float v = xb[i];
-        if (st > 0) v = xb[i] + (st == 3 ? h : h2) * ks[((st - 1) * R + r) * D + k];
-        xi[i] = v;
-        xs_out[(size_t)(4 * step + st) * plane + off + i] = v;
-      }
-      __syncthreads();
-      for (int r = grp; r < rows; r += groups) {
-        const float v = rhs_row_dim(p, xi + r * din, d, lane);
-        if (lane == 0) ks[(st * R + r) * D + d] = v;
+        const int xk = r * tile_stride(DP) + k;
+        float* kr = ks + r * DP + k;  // k_j at kr[j * GQ]
+        const float f = tile_rhs_sum<RT>(p, red, groups, r, k);
+        kr[st * GQ] = f;
+        if (st < 3) {  // stage inputs x + h/2 k1, x + h/2 k2, x + h k3
+          const float v = xb[xk] + (st == 2 ? h : h2) * f;
+          xi[xk] = v;
+          xs_out[(size_t)(4 * step + st + 1) * plane + off + i] = v;
+        } else {  // x + h/6 (k1 + 2 k2 + 2 k3 + k4), the next step's state
+          const float v = xb[xk] + h6 * (kr[0] + 2.f * kr[GQ] + 2.f * kr[2 * GQ] +
+                                         kr[3 * GQ]);
+          xb[xk] = v;
+          xi[xk] = v;
+          if (step + 1 < substeps)
+            xs_out[(size_t)(4 * step + 4) * plane + off + i] = v;
+          else
+            x1_out[off + i] = v;
+        }
       }
       __syncthreads();
     }
-    for (int i = threadIdx.x; i < rows * din; i += blockDim.x) {
-      const float* kr = ks + (i / din) * D + i % din;  // k_j at kr[j * R * D]
-      xb[i] = xb[i] + h6 * (kr[0] + 2.f * kr[R * D] + 2.f * kr[2 * R * D] +
-                            kr[3 * R * D]);
-    }
-    __syncthreads();
   }
-  for (int i = threadIdx.x; i < rows * din; i += blockDim.x) x1_out[off + i] = xb[i];
 }
 
 // h = dt / substeps, read where it is used so that it holds no register
@@ -168,34 +182,66 @@ rk4_bwd_kernel(const float* __restrict__ xs, const float* __restrict__ gy,
   tile_write_partials<DP>(p, acc, dls, groups, part_main, part_dz);
 }
 
+// The instantiated forward variants (DP, RT, MAXT), one per range of Din as
+// in fused_dopri5.cu.
+#define RK4_FWD_VARIANTS(X) X(4, 8, 1024) X(5, 8, 1024) X(8, 4, 384) X(16, 4, 512)
+
+// The forward kernel on `stream`; with `occupancy` non-null nothing is
+// launched and the kernel's occupancy_report at this geometry is written
+// there instead.
+static int rk4_fwd_run(const float* x0, const float* dt, const float* z,
+                       const float* inv_ls, const float* var, const float* omega,
+                       const float* phase, const float* w, const float* nu,
+                       float* x1, float* xs, int n, int din, int d, int m, int s,
+                       int substeps, int dp, int rt, int groups, int maxt,
+                       int* occupancy, void* stream) {
+  const RhsParams p = make_params(z, inv_ls, var, omega, phase, w, nu, din, d, m, s);
+  if (din != d || din < 1 || din > dp || m < 1 || s < 1 || n < 1 || substeps < 1 ||
+      groups < 1 || 32 * d * groups > maxt)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 32 * d * groups;
+  const int blocks = (n + rt - 1) / rt;
+  const size_t smem = sizeof(float) * (size_t)fwd_smem_floats(dp, rt, 4, d * groups);
+  cudaError_t e = cudaErrorInvalidValue;
+#define X(DP_, RT_, MAXT_)                                                        \
+  if (dp == DP_ && rt == RT_ && maxt == MAXT_) {                                  \
+    e = prepare_kernel(rk4_fwd_kernel<DP_, RT_, MAXT_>, threads, smem, occupancy); \
+    if (e == cudaSuccess && !occupancy) {                                         \
+      rk4_fwd_kernel<DP_, RT_, MAXT_><<<blocks, threads, smem,                    \
+                                        (cudaStream_t)stream>>>(                  \
+          x0, dt, p, x1, xs, n, substeps, groups);                                \
+      e = cudaGetLastError();                                                     \
+    }                                                                             \
+  }
+  RK4_FWD_VARIANTS(X)
+#undef X
+  return (int)e;
+}
+
 extern "C" int gpode_rk4_fwd(const float* x0, const float* dt, const float* z,
                              const float* inv_ls, const float* var,
                              const float* omega, const float* phase,
                              const float* w, const float* nu, float* x1,
                              float* xs, int n, int din, int d, int m, int s,
-                             int substeps, int rows_per_block, int groups,
+                             int substeps, int dp, int rt, int groups, int maxt,
                              void* stream) {
-  const RhsParams p = make_params(z, inv_ls, var, omega, phase, w, nu, din, d, m, s);
-  const int blocks = (n + rows_per_block - 1) / rows_per_block;
-  const size_t smem = sizeof(float) * (size_t)rows_per_block * (2 * din + 4 * d);
-  rk4_fwd_kernel<<<blocks, 32 * d * groups, smem, (cudaStream_t)stream>>>(
-      x0, dt, p, x1, xs, n, substeps, rows_per_block, groups);
-  return (int)cudaGetLastError();
+  return rk4_fwd_run(x0, dt, z, inv_ls, var, omega, phase, w, nu, x1, xs, n, din, d,
+                     m, s, substeps, dp, rt, groups, maxt, nullptr, stream);
+}
+
+// out = {resident blocks per SM, threads, dynamic shared bytes, registers,
+// local bytes} of the forward kernel at this geometry; launches nothing.
+extern "C" int gpode_rk4_fwd_occupancy(int din, int d, int m, int s, int dp, int rt,
+                                       int groups, int maxt, int* out) {
+  return rk4_fwd_run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, nullptr, nullptr, nullptr, rt, din, d, m, s, 1, dp, rt,
+                     groups, maxt, out, nullptr);
 }
 
 // The instantiated backward variants (DP, RT, MAXT), one per range of Din as
 // in fused_dopri5.cu; MAXT bounds the block and with it the registers per
 // thread (65536 / MAXT). At Din = 5 a 6-row tile would spill here, so 4 rows.
 #define RK4_BWD_VARIANTS(X) X(4, 4, 640) X(5, 4, 640) X(8, 4, 512) X(16, 1, 512)
-
-template <int DP, int RT, int MAXT>
-static cudaError_t rk4_bwd_prepare(int threads, size_t smem, int* occupancy) {
-  if (occupancy)
-    return occupancy_report(rk4_bwd_kernel<DP, RT, MAXT>, threads, smem, occupancy);
-  return cudaFuncSetAttribute(rk4_bwd_kernel<DP, RT, MAXT>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
 
 // The backward kernel and its fixed-order reduction on `stream`; with
 // `occupancy` non-null nothing is launched and the kernel's occupancy_report
@@ -221,7 +267,7 @@ static int rk4_bwd_run(const float* xs, const float* g, const float* dt,
   cudaError_t e = cudaErrorInvalidValue;
 #define X(DP_, RT_, MAXT_)                                                        \
   if (dp == DP_ && rt == RT_ && maxt == MAXT_) {                                  \
-    e = rk4_bwd_prepare<DP_, RT_, MAXT_>(threads, smem, occupancy);               \
+    e = prepare_kernel(rk4_bwd_kernel<DP_, RT_, MAXT_>, threads, smem, occupancy); \
     if (e == cudaSuccess && !occupancy) {                                         \
       rk4_bwd_kernel<DP_, RT_, MAXT_>                                             \
           <<<blocks, threads, smem, (cudaStream_t)stream>>>(                      \

@@ -1,7 +1,7 @@
 // Shared device code for the GPODE Hopper kernels (fused_rhs.cu,
 // fused_dopri5.cu, fused_rk4.cu, fused_rhs_wide.cu): the sampled-vector-field
-// rhs for one (row, output dim), its VJP in two forms, and the fixed-order
-// reduction of per-block parameter cotangents.
+// rhs and its VJP, each in two forms, and the fixed-order reduction of
+// per-block parameter cotangents.
 //
 // Replaces the tile functions of gpode_tpu/ops/pallas_kernels.py:
 // `_rhs_tile` (:200) and `_rhs_vjp_tile` (:274, the VPU loop form).
@@ -14,25 +14,28 @@
 // the time is how many of them are in flight: independent chains per thread
 // and resident warps per SM.
 //
-// Row form (`rhs_row_dim`, `rhs_vjp_row_dim`; the forward kernels and the
-// fused_rhs backward): one warp owns one (row, output dim d); its 32 lanes
-// split the S random features and the M inducing points, then combine with
-// xor-shuffle sums. The VJP keeps per-warp accumulators in shared memory and
-// updates them once per row.
+// Row form (`rhs_row_dim`, `rhs_vjp_row_dim`; the standalone fused_rhs
+// kernels): one warp owns one (row, output dim d); its 32 lanes split the S
+// random features and the M inducing points, then combine with xor-shuffle
+// sums. The VJP keeps per-warp accumulators in shared memory and updates
+// them once per row.
 //
-// Tile form (`rhs_vjp_tile`; the two segment backward kernels, which are six
-// and 4 * substeps VJPs of every row): a lane owns a column (a random feature
-// or an inducing point of one dim) for the whole kernel. It loads the
-// column's parameters once per tile of RT rows, runs the RT rows as RT
-// independent sincosf/expf chains with the column's cotangent sums in
-// registers, and touches the block's shared-memory accumulators once per
-// column and tile instead of once per row. The dx shares of a tile stay in
-// registers and are summed over the lanes by one transposing fold (31
-// shuffles for up to 32 values, not 5 per value). All loops over Din have
-// compile-time bounds (template DP >= Din; DP = 5 is exact for the MoCap
-// models), 1/lengthscale and the lengthscale shares live in shared memory,
-// and dvar follows from dw and dnu, so the kernel holds 84-96 registers
-// with no spill and two 10-warp blocks are resident per SM.
+// Tile form (`rhs_tile`, `rhs_vjp_tile`; the two segment kernels, forward
+// and backward, which evaluate every row 7 / 4 * substeps times and take as
+// many VJPs): a lane owns a column (a random feature or an inducing point of
+// one dim) for the whole kernel. It loads the column's parameters once per
+// tile of RT rows and runs the RT rows as RT independent cosf/expf (forward)
+// or sincosf/expf (VJP) chains, its sums over the tile in registers. The
+// forward's per-row sums of a tile and the VJP's dx shares stay in registers
+// until one transposing fold sums them over the lanes (31 shuffles for up to
+// 32 values, not 5 per value); the warps of one dim then meet in shared
+// memory, added in warp order. The VJP touches the block's shared-memory
+// accumulators once per column and tile instead of once per row. All loops
+// over Din have compile-time bounds (template DP >= Din; DP = 5 is exact for
+// the MoCap models) and 1/lengthscale lives in shared memory; in the VJP the
+// lengthscale shares do too, and dvar follows from dw and dnu, so the
+// backward kernels hold 84-96 registers with no spill and two 10-warp blocks
+// are resident per SM.
 //
 // Parameter cotangents: the TPU kernel summed them across its sequential grid
 // with `+=` into one output block. Hopper blocks run concurrently, so a block
@@ -293,6 +296,163 @@ __device__ __forceinline__ void tile_row(const float* row, float (&x)[DP]) {
   for (int k = 0; k < DP; ++k) x[k] = xx[k];
 }
 
+// The width of the fold that sums N register values over a warp's lanes
+// (N <= 32), and where its totals land: value v ends in lane v << fold_shift.
+__host__ __device__ constexpr int fold_width(int n) {
+  return n <= 8 ? 8 : n <= 16 ? 16 : 32;
+}
+__host__ __device__ constexpr int fold_shift(int n) {
+  return fold_width(n) == 32 ? 0 : fold_width(n) == 16 ? 1 : 2;
+}
+
+// f_d over the first `rows` rows of a tile, this warp's share: the sums over
+// its columns of cos(x.Omega_s + phi_s) w_s (features) and of
+// exp(-|(x - z_j) / ls|^2 / 2) nu_j (inducing points), per row. xt (RT,
+// tile_stride(DP)) is shared memory, zero beyond Din; il_s dim d's
+// 1/lengthscale (DP floats, zero beyond Din). Writes the 2 * RT sums, each
+// summed over the warp's lanes, to sums_w (this warp's 32 floats): features
+// of row r at r, inducing points at RT + r. A call with rows == RT (a
+// compile-time constant where the caller passes RT) tests no row count.
+template <int DP, int RT>
+__device__ __forceinline__ void rhs_tile(const RhsParams& p, const float* xt,
+                                         int rows, int d, int grp, int groups,
+                                         int lane, const float* il_s,
+                                         float* sums_w) {
+  constexpr int XS = tile_stride(DP);
+  constexpr int V = fold_width(2 * RT);
+  static_assert(2 * RT <= 32, "a tile's row sums must fit one fold");
+  const int din = p.din, S = p.s, M = p.m;
+  const float* omd = p.omega + (size_t)d * din * S;
+  const float* phd = p.phase + (size_t)d * S;
+  const float* wd = p.w + (size_t)d * S;
+  const float* nud = p.nu + (size_t)d * M;
+
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+
+  const int feat_units = (S + 31) >> 5;
+  const int units = feat_units + ((M + 31) >> 5);
+  for (int unit = grp; unit < units; unit += groups) {
+    if (unit < feat_units) {  // warp-uniform
+      const int s = (unit << 5) + lane;
+      const bool live = s < S;
+      const int sc = live ? s : S - 1;
+      float om[DP];
+#pragma unroll
+      for (int k = 0; k < DP; ++k) om[k] = (k < din) ? omd[(size_t)k * S + sc] : 0.f;
+      const float ph = phd[sc];
+      const float wv = live ? wd[sc] : 0.f;  // a dead lane adds 0
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        if (r < rows) {
+          float x[DP];
+          tile_row<DP>(xt + r * XS, x);
+          float xo = 0.f;
+#pragma unroll
+          for (int k = 0; k < DP; ++k) xo = fmaf(x[k], om[k], xo);
+          acc[r] = fmaf(cosf(xo + ph), wv, acc[r]);
+        }
+      }
+    } else {
+      const int j = ((unit - feat_units) << 5) + lane;
+      const bool live = j < M;
+      const int jc = live ? j : M - 1;
+      float zj[DP];
+#pragma unroll
+      for (int k = 0; k < DP; ++k) zj[k] = (k < din) ? p.z[(size_t)jc * din + k] : 0.f;
+      const float nuv = live ? nud[jc] : 0.f;  // a dead lane adds 0
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        if (r < rows) {
+          float x[DP];
+          tile_row<DP>(xt + r * XS, x);
+          float sq = 0.f;
+#pragma unroll
+          for (int k = 0; k < DP; ++k) {
+            const float t = (x[k] - zj[k]) * il_s[k];
+            sq = fmaf(t, t, sq);
+          }
+          acc[RT + r] = fmaf(expf(-0.5f * sq), nuv, acc[RT + r]);
+        }
+      }
+    }
+  }
+
+  const float total = LaneFold<V, 16>::run(acc, lane);
+  constexpr int SHIFT = fold_shift(2 * RT);
+  if ((lane & ((1 << SHIFT) - 1)) == 0) sums_w[lane >> SHIFT] = total;
+}
+
+// f_d at row r of a tile from the warps' sums (rhs_tile): sqrt(2 var_d / S)
+// times the features' sum plus var_d times the inducing points', each added
+// over the dim's `groups` warps in group order. red holds 32 floats per warp,
+// warp (grp, d) at (grp * D + d) * 32.
+template <int RT>
+__device__ __forceinline__ float tile_rhs_sum(const RhsParams& p, const float* red,
+                                              int groups, int r, int d) {
+  float fs = 0.f, gs = 0.f;
+  for (int g = 0; g < groups; ++g) {
+    const float* w = red + (g * p.d + d) * 32;
+    fs += w[r];
+    gs += w[RT + r];
+  }
+  const float vd = p.var[d];
+  return sqrtf(2.f * vd / (float)p.s) * fs + vd * gs;
+}
+
+// One stage of a segment forward: every warp's rhs_tile share of f at the
+// tile xt, with the row count a compile-time RT for a whole tile.
+template <int DP, int RT>
+__device__ __forceinline__ void tile_stage(const RhsParams& p, const float* xt,
+                                           int rows, int d, int grp, int groups,
+                                           int lane, const float* il_s,
+                                           float* sums_w) {
+  if (rows == RT)
+    rhs_tile<DP, RT>(p, xt, RT, d, grp, groups, lane, il_s, sums_w);
+  else
+    rhs_tile<DP, RT>(p, xt, rows, d, grp, groups, lane, il_s, sums_w);
+}
+
+// Shared memory of a segment forward block (one tile of RT rows): xb and xi
+// (RT, tile_stride(DP)) the tile's state and current stage input, KS planes
+// of align4(RT * DP) floats for the stage derivatives, indexed
+// [r * DP + k], il (DP, DP) 1/lengthscale, then red (warps, 32) the warps'
+// row sums.
+template <int DP, int RT, int KS>
+struct FwdSmem {
+  static constexpr int xb = 0;
+  static constexpr int xi = RT * tile_stride(DP);
+  static constexpr int ks = 2 * RT * tile_stride(DP);
+  static constexpr int il = ks + KS * align4(RT * DP);
+  static constexpr int red = il + DP * DP;
+};
+
+__host__ __device__ constexpr int fwd_smem_floats(int dp, int rt, int ks,
+                                                  int warps) {
+  return 2 * rt * tile_stride(dp) + ks * align4(rt * dp) + dp * dp + 32 * warps;
+}
+
+// Load a tile of x0 (N, Din) from row0 into xb and xi (RT, tile_stride(DP)),
+// zero beyond Din and `rows`, and copy its rows to xs0 (the first plane of
+// the saved stage inputs).
+template <int DP, int RT>
+__device__ __forceinline__ void tile_load_x0(const float* __restrict__ x0,
+                                             float* xb, float* xi,
+                                             float* __restrict__ xs0, int row0,
+                                             int rows, int din) {
+  constexpr int XS = tile_stride(DP);
+  for (int i = threadIdx.x; i < RT * XS; i += blockDim.x) {
+    const int r = i / XS, k = i % XS;
+    const float v =
+        (r < rows && k < din) ? x0[(size_t)(row0 + r) * din + k] : 0.f;
+    xb[i] = v;
+    xi[i] = v;
+  }
+  for (int i = threadIdx.x; i < rows * din; i += blockDim.x)
+    xs0[(size_t)row0 * din + i] = x0[(size_t)row0 * din + i];
+}
+
 // VJP of f_d over the first `rows` rows of a tile. All pointers but those in
 // `p` are shared memory: xt (RT, tile_stride(DP)), zero beyond Din;
 // g[r * Din] the cotangent of f_d at row r; il_s dim d's 1/lengthscale (DP
@@ -309,7 +469,7 @@ __device__ __forceinline__ void rhs_vjp_tile(const RhsParams& p, const float* xt
                                              float* acc, const float* il_s,
                                              float* dls_w, float* dx_out) {
   constexpr int XS = tile_stride(DP);
-  constexpr int V = RT * DP <= 8 ? 8 : RT * DP <= 16 ? 16 : 32;  // the fold's width
+  constexpr int V = fold_width(RT * DP);
   static_assert(RT * DP <= 32, "a tile's dx shares must fit one fold");
   const int din = p.din, S = p.s, M = p.m;
   float* acc_domega = acc;
@@ -427,7 +587,7 @@ __device__ __forceinline__ void rhs_vjp_tile(const RhsParams& p, const float* xt
 #pragma unroll
   for (int i = 0; i < V; ++i) fold[i] = (i < RT * DP) ? dxa[i] : 0.f;
   const float total = LaneFold<V, 16>::run(fold, lane);
-  constexpr int SHIFT = (V == 32) ? 0 : (V == 16) ? 1 : 2;
+  constexpr int SHIFT = fold_shift(RT * DP);
   if ((lane & ((1 << SHIFT) - 1)) == 0) dx_out[lane >> SHIFT] = total;
 }
 
@@ -563,6 +723,16 @@ static cudaError_t occupancy_report(Kernel kernel, int threads, size_t smem,
   out[3] = attr.numRegs;
   out[4] = (int)attr.localSizeBytes;
   return cudaSuccess;
+}
+
+// Allow `kernel` `smem` bytes of dynamic shared memory; with `occupancy`
+// non-null, write its occupancy_report at this geometry there instead.
+template <class Kernel>
+static cudaError_t prepare_kernel(Kernel kernel, int threads, size_t smem,
+                                  int* occupancy) {
+  if (occupancy) return occupancy_report(kernel, threads, smem, occupancy);
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 // out[j] = sum_b part[b * len + j], b ascending: the fixed-order second

@@ -17,8 +17,9 @@ Counterpart of `gpode_tpu/ops/pallas_kernels.py`:
 
 The wide-layout rhs kernels (`csrc/fused_rhs_wide.cu`) are bound in
 `ops/wide_rhs.py` and share this module's counters and helpers.
-:func:`segment_bwd_geometry` is the launch geometry of the two segment
-backward kernels, pure arithmetic that the CPU tests reach.
+:func:`segment_fwd_geometry` and :func:`segment_bwd_geometry` are the launch
+geometries of the two segment kernels, forward and backward, pure arithmetic
+that the CPU tests reach.
 
 Each public function takes the plain version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises. `LAUNCHES` counts kernel launches
@@ -196,10 +197,12 @@ _SIGNATURES = {
                   "gpode_fused_rhs_bwd": [_P] * 14 + [_I] * 6 + [_P],
                   "gpode_fused_rhs_bwd_occupancy": [_I] * 5 + [_P]},
     "fused_dopri5": {
-        "gpode_dp_attempt_fwd": [_P] * 3 + [_F] * 2 + [_P] * 10 + [_I] * 7 + [_P],
+        "gpode_dp_attempt_fwd": [_P] * 3 + [_F] * 2 + [_P] * 10 + [_I] * 9 + [_P],
+        "gpode_dp_attempt_fwd_occupancy": [_I] * 8 + [_P],
         "gpode_dp_attempt_bwd": [_P] * 16 + [_I] * 10 + [_P],
         "gpode_dp_attempt_bwd_occupancy": [_I] * 8 + [_P]},
-    "fused_rk4": {"gpode_rk4_fwd": [_P] * 11 + [_I] * 8 + [_P],
+    "fused_rk4": {"gpode_rk4_fwd": [_P] * 11 + [_I] * 10 + [_P],
+                  "gpode_rk4_fwd_occupancy": [_I] * 8 + [_P],
                   "gpode_rk4_bwd": [_P] * 15 + [_I] * 11 + [_P],
                   "gpode_rk4_bwd_occupancy": [_I] * 8 + [_P]},
     "rbf_gram": {"gpode_rbf_gram": [_P] * 5 + [_I] * 6 + [_P]},
@@ -230,7 +233,7 @@ def _stream(dev):
 
 
 def _fwd_tiling(d):
-    """Forward blocks: G groups of D warps, 2 rows per group."""
+    """`fused_rhs` forward blocks: G groups of D warps, 2 rows per group."""
     groups = max(1, min(4, 32 // d))
     return 2 * groups, groups
 
@@ -260,6 +263,17 @@ def _check_smem(nbytes, what):
                          f"block, over the {MAX_SMEM_BYTES}-byte limit")
 
 
+# Segment forward blocks (csrc/rhs_tile.cuh `rhs_tile`): one tile of RT rows
+# per block, about _SEG_FWD_WARPS warps, G groups of D. Measured on an H100
+# at N=3000, Din=D=5 (PERF.md): 8-row tiles in 10-warp blocks capped at 64
+# registers (three resident per SM) beat 4-, 6- and 16-row tiles, 5- and
+# 20-warp blocks and the 96-register cap.
+_SEG_FWD_WARPS = 10
+# (dp, rt, maxt) of the instantiated forward variants by stages, smallest dp
+# first, the same for both kernels (csrc DP_FWD_VARIANTS, RK4_FWD_VARIANTS);
+# a shape takes the first with Din <= dp.
+_SEG_FWD_VARIANTS = dict.fromkeys(
+    (6, 4), ((4, 8, 1024), (5, 8, 1024), (8, 4, 384), (16, 4, 512)))
 # Segment backward blocks (csrc/rhs_tile.cuh `rhs_vjp_tile`): about
 # _SEG_BWD_WARPS warps, G groups of D, over tiles of RT rows; at most
 # _SEG_BWD_BLOCKS_PER_SM blocks per SM, so one slab per block stays cheap.
@@ -267,13 +281,66 @@ def _check_smem(nbytes, what):
 # resident 10-warp blocks of 12 rows beat one 20-warp block and 8-row blocks.
 _SEG_BWD_WARPS = 10
 _SEG_BWD_BLOCKS_PER_SM = 2
-# (dp, rt, maxt) of the instantiated kernel variants by stages, smallest dp
-# first; a shape takes the first with Din <= dp. The dopri5 attempt (6) has
-# registers for 6-row tiles at Din = 5, the rk4 segment (4) would spill there.
+# (dp, rt, maxt) of the instantiated backward variants by stages, smallest dp
+# first. The dopri5 attempt (6) has registers for 6-row tiles at Din = 5,
+# the rk4 segment (4) would spill there.
 _SEG_BWD_VARIANTS = {
     6: ((4, 4, 640), (5, 6, 640), (8, 4, 512), (16, 1, 512)),
     4: ((4, 4, 640), (5, 4, 640), (8, 4, 512), (16, 1, 512)),
 }
+
+
+def _align4(floats):
+    return (floats + 3) & ~3
+
+
+def _segment_variant(n, din, d, m, s, stages, variants, warps, what):
+    """The (dp, rt, maxt) a segment kernel takes for this shape from its
+    `variants` by stages, and G, the groups of D warps of its block: about
+    `warps` warps within the variant's thread bound, at most one group per
+    32-column unit of a dim. Raises ValueError on a shape the kernels do not
+    take."""
+    if stages not in (4, 6):
+        raise ValueError(f"stages must be 4 (rk4) or 6 (dopri5), got {stages}")
+    if din != d:
+        raise ValueError(f"the segment kernels need Din == D, got {din} and {d}")
+    if not 1 <= din <= MAX_DIN or m < 1 or s < 1 or n < 1:
+        raise ValueError(f"segment {what} supports 1 <= Din = D <= {MAX_DIN} "
+                         f"and N, M, S >= 1; got N={n}, Din={din}, M={m}, S={s}")
+    dp, rt, maxt = next(v for v in variants[stages] if din <= v[0])
+    units = math.ceil(s / 32) + math.ceil(m / 32)     # 32-column units per dim
+    return dp, rt, maxt, max(1, min(units, min(warps, maxt // 32) // d))
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentFwdGeometry:
+    """Launch geometry of a segment forward kernel (dopri5 attempt: 7
+    evaluations per step; rk4 segment: 4 per substep): one tile per block."""
+    dp: int               # the kernel variant's bound of its loops over Din
+    rt: int               # rows per tile and block; 2 * rt <= 32, the fold's width
+    groups: int           # G: the block is G groups of D warps
+    maxt: int             # the variant's thread bound (registers: 65536 / maxt)
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+def segment_fwd_geometry(n, din, d, m, s, stages):
+    """Geometry of the dopri5-attempt (`stages=6`, the stage inputs it saves)
+    or rk4-segment (`stages=4`) forward for N rows; raises ValueError on a
+    shape the kernels do not take. Pure arithmetic: no device is touched."""
+    dp, rt, maxt, groups = _segment_variant(
+        n, din, d, m, s, stages, _SEG_FWD_VARIANTS, _SEG_FWD_WARPS, "forward")
+    warps = d * groups
+    # csrc/rhs_tile.cuh FwdSmem: xb, xi (rt, stride) | stage derivatives
+    # (7 or 4 planes of rt * dp) | il (dp, dp) | red (warps, 32)
+    derivs = 7 if stages == 6 else 4
+    smem = 4 * (2 * rt * _align4(dp) + derivs * _align4(rt * dp) + dp * dp
+                + 32 * warps)
+    _check_smem(smem, "segment forward")
+    return SegmentFwdGeometry(dp=dp, rt=rt, groups=groups, maxt=maxt,
+                              threads=32 * warps, blocks=math.ceil(n / rt),
+                              smem_bytes=smem)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,25 +359,13 @@ class SegmentBwdGeometry:
     part_dz_floats: int    # scratch: (blocks, D, M * Din)
 
 
-def _align4(floats):
-    return (floats + 3) & ~3
-
-
 def segment_bwd_geometry(n, din, d, m, s, stages, sms):
     """Geometry of the dopri5-attempt (`stages=6`) or rk4-segment
     (`stages=4`) backward for N rows on a card of `sms` multiprocessors;
     raises ValueError on a shape the kernels do not take. Pure arithmetic:
     no device is touched."""
-    if stages not in (4, 6):
-        raise ValueError(f"stages must be 4 (rk4) or 6 (dopri5), got {stages}")
-    if din != d:
-        raise ValueError(f"the segment kernels need Din == D, got {din} and {d}")
-    if not 1 <= din <= MAX_DIN or m < 1 or s < 1 or n < 1:
-        raise ValueError(f"segment backward supports 1 <= Din = D <= {MAX_DIN} "
-                         f"and N, M, S >= 1; got N={n}, Din={din}, M={m}, S={s}")
-    dp, rt, maxt = next(v for v in _SEG_BWD_VARIANTS[stages] if din <= v[0])
-    units = math.ceil(s / 32) + math.ceil(m / 32)     # 32-column units per dim
-    groups = max(1, min(units, min(_SEG_BWD_WARPS, maxt // 32) // d))
+    dp, rt, maxt, groups = _segment_variant(
+        n, din, d, m, s, stages, _SEG_BWD_VARIANTS, _SEG_BWD_WARPS, "backward")
     warps = d * groups
     tiles = math.ceil(n / rt)
     rows_per_block = rt * math.ceil(tiles / (_SEG_BWD_BLOCKS_PER_SM * sms))
@@ -501,14 +556,14 @@ def _launch_dp_fwd(x0, dt, rtol, atol, ops, din, d, m, s):
     xs = torch.empty(6, n, din, **f32)
     if n == 0:
         return x5, err, xs
-    rows, groups = _fwd_tiling(d)
+    geo = segment_fwd_geometry(n, din, d, m, s, 6)
     lib = _lib("fused_dopri5")
     LAUNCHES["fused_dopri5_attempt_fwd"] += 1
     rc = lib.gpode_dp_attempt_fwd(
         _ptr(x0), _ptr(dt), _ptr(_dp_coefficients(dev)),
         ctypes.c_float(rtol), ctypes.c_float(atol), *map(_ptr, ops),
-        _ptr(x5), _ptr(err), _ptr(xs), n, din, d, m, s, rows, groups,
-        _stream(dev))
+        _ptr(x5), _ptr(err), _ptr(xs), n, din, d, m, s, geo.dp, geo.rt,
+        geo.groups, geo.maxt, _stream(dev))
     _raise_on(rc, "fused_dopri5_attempt forward")
     return x5, err, xs
 
@@ -581,12 +636,12 @@ def _launch_rk4_fwd(x0, dt, substeps, ops, din, d, m, s):
     x1, xs = torch.empty(n, d, **f32), torch.empty(4 * substeps, n, din, **f32)
     if n == 0:
         return x1, xs
-    rows, groups = _fwd_tiling(d)
+    geo = segment_fwd_geometry(n, din, d, m, s, 4)
     lib = _lib("fused_rk4")
     LAUNCHES["fused_rk4_segment_fwd"] += 1
     rc = lib.gpode_rk4_fwd(
         _ptr(x0), _ptr(dt), *map(_ptr, ops), _ptr(x1), _ptr(xs), n, din, d,
-        m, s, substeps, rows, groups, _stream(dev))
+        m, s, substeps, geo.dp, geo.rt, geo.groups, geo.maxt, _stream(dev))
     _raise_on(rc, "fused_rk4_segment forward")
     return x1, xs
 
@@ -649,15 +704,14 @@ def fused_rk4_segment(x0, dt, z, lengthscales, variance, omega, phase,
 
 
 # ---------------------------------------------------------------------------
-# What a backward kernel holds on the card
+# What a kernel holds on the card
 # ---------------------------------------------------------------------------
 
 def kernel_occupancy(lib_name, c_function, entry_key, *int_args):
-    """One backward kernel's resources at a launch geometry: the occupancy
-    query of `c_function` (csrc: resident blocks per SM, block threads,
-    dynamic shared bytes, registers, local bytes) and the registers and spill
-    bytes that ptxas reported for the entry whose mangled name contains
-    `entry_key`."""
+    """One kernel's resources at a launch geometry: the occupancy query of
+    `c_function` (csrc: resident blocks per SM, block threads, dynamic shared
+    bytes, registers, local bytes) and the registers and spill bytes that
+    ptxas reported for the entry whose mangled name contains `entry_key`."""
     out = (ctypes.c_int * 5)()
     rc = getattr(_lib(lib_name), c_function)(
         *int_args, ctypes.cast(out, ctypes.c_void_p))
@@ -676,13 +730,27 @@ def kernel_occupancy(lib_name, c_function, entry_key, *int_args):
                 spill_loads=found[0]["spill_loads"])
 
 
-def segment_bwd_occupancy(stages, din, d, m, s, geo):
+# (library, kernel, occupancy query) of the segment kernels by (direction,
+# stages); a kernel variant's mangled name holds
+# f"{kernel}ILi{dp}ELi{rt}ELi{maxt}EE"
+SEGMENT_KERNELS = {
+    ("fwd", 6): ("fused_dopri5", "dp_attempt_fwd_kernel",
+                 "gpode_dp_attempt_fwd_occupancy"),
+    ("bwd", 6): ("fused_dopri5", "dp_attempt_bwd_kernel",
+                 "gpode_dp_attempt_bwd_occupancy"),
+    ("fwd", 4): ("fused_rk4", "rk4_fwd_kernel", "gpode_rk4_fwd_occupancy"),
+    ("bwd", 4): ("fused_rk4", "rk4_bwd_kernel", "gpode_rk4_bwd_occupancy"),
+}
+# the (dp, rt, maxt) variants each segment kernel instantiates
+SEGMENT_VARIANTS = {("fwd", st): _SEG_FWD_VARIANTS[st] for st in (6, 4)}
+SEGMENT_VARIANTS.update({("bwd", st): _SEG_BWD_VARIANTS[st] for st in (6, 4)})
+
+
+def segment_occupancy(direction, stages, din, d, m, s, geo):
     """`kernel_occupancy` of the dopri5-attempt (`stages=6`) or rk4-segment
-    (`stages=4`) backward at geometry `geo`."""
-    lib_name, fn, kernel = {
-        6: ("fused_dopri5", "gpode_dp_attempt_bwd_occupancy",
-            "dp_attempt_bwd_kernel"),
-        4: ("fused_rk4", "gpode_rk4_bwd_occupancy", "rk4_bwd_kernel")}[stages]
+    (`stages=4`) kernel, forward (`direction="fwd"`) or backward ("bwd"),
+    at geometry `geo`."""
+    lib_name, kernel, fn = SEGMENT_KERNELS[direction, stages]
     key = f"{kernel}ILi{geo.dp}ELi{geo.rt}ELi{geo.maxt}EE"
     report = kernel_occupancy(lib_name, fn, key, din, d, m, s, geo.dp, geo.rt,
                               geo.groups, geo.maxt)

@@ -37,6 +37,7 @@ from gpode_tpu.train import builders as jb
 from gpode_tpu.train import metrics as jmetrics
 from gpode_tpu.train.evaluation import \
     make_projected_scorer as j_make_projected_scorer
+from gpode_tpu.utils import native
 from gpode_tpu.utils.time_grids import insert_zero_t0 as j_insert_zero_t0
 
 from gpode_tpu_torch.convert import gpode_params_from_numpy, params_from_numpy
@@ -96,9 +97,13 @@ def problem():
     params = jb.build_shooting(jax.random.PRNGKey(0), J_ARGS, ys_pca,
                                projector=j_projector(data_pca), full_dim=50)
     params = params._replace(gp=initialize_kernel_parameters(params.gp))
-    params = params._replace(gp=initialize_inducing(
-        params.gp, ys_pca, float(data_pca.trn.ts.max()), 1e0,
-        rng=np.random.RandomState(0)))
+    with pytest.MonkeyPatch.context() as mp:
+        # scipy's k-means on every run: whether the JAX package's native
+        # library loads depends on which test process built it first
+        mp.setattr(native, "available", lambda: False)
+        params = params._replace(gp=initialize_inducing(
+            params.gp, ys_pca, float(data_pca.trn.ts.max()), 1e0,
+            rng=np.random.RandomState(0)))
     jview = jgpode.GPODEParams(gp=params.gp, x0=params.states.x0,
                                likelihood=params.likelihood)
     tparams = params_from_numpy(_flat(params), T_ARGS, device="cpu")

@@ -328,3 +328,42 @@ def test_segment_backward_raises_on_unsupported_shapes(cuda):
         x5.sum().backward()
     assert before == (ck.LAUNCHES["fused_rk4_segment_bwd"],
                       ck.LAUNCHES["fused_dopri5_attempt_bwd"])
+
+
+def _segment_forward(kind, args, dt, substeps):
+    """One launch of a segment forward kernel and its plain version on the
+    same operands: ((state, stage inputs[, scaled error]), the same plain)."""
+    x0, params = args[0].detach(), [a.detach() for a in args[1:]]
+    n, dim = x0.shape
+    m, s = params[0].shape[0], params[5].shape[0]
+    ops = ck._kernel_operands(*params)
+    with torch.no_grad():
+        if kind == "dopri5":
+            x5, err, xs = ck._launch_dp_fwd(x0, dt, 1e-6, 1e-6, ops, dim, dim, m, s)
+            rx5, rerr, rxs = ck.dopri5_attempt_plain(x0, dt, *params, 1e-6, 1e-6)
+            return (x5, xs, err), (rx5, rxs, rerr)
+        x1, xs = ck._launch_rk4_fwd(x0, dt, substeps, ops, dim, dim, m, s)
+        return (x1, xs), ck.rk4_segment_plain(x0, dt, *params, substeps)
+
+
+@pytest.mark.parametrize("kind,substeps", [("dopri5", 1), ("rk4", 1), ("rk4", 3)],
+                         ids=["dopri5", "rk4", "rk4_x3"])
+@pytest.mark.parametrize("n,dim,m,s", SEGMENT_SHAPES, ids=SEGMENT_IDS)
+def test_segment_forward_over_shapes(cuda, n, dim, m, s, kind, substeps):
+    """Both segment forwards against their plain versions: the state, the
+    stage inputs the backward reads back, and dopri5's scaled error (at
+    dt=0.01 float32 rounding of the stage sums in both versions); N=77, 203
+    and 50 end in a ragged tile. Two launches are bit-identical."""
+    args = _segment_inputs(cuda, n, dim, m, s, seed=24)
+    dt = torch.full((1,), 0.01, device=cuda)
+    key = {"dopri5": "fused_dopri5_attempt_fwd", "rk4": "fused_rk4_segment_fwd"}[kind]
+    before = ck.LAUNCHES[key]
+    got, want = _segment_forward(kind, args, dt, substeps)
+    _assert_close(got[0], want[0], "state")
+    _assert_close(got[1], want[1], "stage inputs")
+    if kind == "dopri5":
+        torch.testing.assert_close(got[2], want[2], rtol=0.0, atol=0.1)
+    again, _ = _segment_forward(kind, args, dt, substeps)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)  # every (row, dim) sum in one fixed order
+    assert ck.LAUNCHES[key] == before + 2

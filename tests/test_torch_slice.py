@@ -27,6 +27,7 @@ from gpode_tpu.models.init import (initialize_inducing,
 from gpode_tpu.train import builders as jb
 from gpode_tpu.train.trainer import (build_frozen_mask, default_optimizer,
                                      make_train_step)
+from gpode_tpu.utils import native
 
 from gpode_tpu_torch.convert import params_from_numpy, params_to_numpy
 from gpode_tpu_torch.models.shooting import StepNoise
@@ -75,9 +76,13 @@ def problem():
     params = jb.build_shooting(jax.random.PRNGKey(0), J_ARGS, ys_pca,
                                projector=j_projector(data_pca), full_dim=50)
     params = params._replace(gp=initialize_kernel_parameters(params.gp))
-    params = params._replace(gp=initialize_inducing(
-        params.gp, ys_pca, float(data_pca.trn.ts.max()), 1e0,
-        rng=np.random.RandomState(0)))
+    with pytest.MonkeyPatch.context() as mp:
+        # scipy's k-means on every run: whether the JAX package's native
+        # library loads depends on which test process built it first
+        mp.setattr(native, "available", lambda: False)
+        params = params._replace(gp=initialize_inducing(
+            params.gp, ys_pca, float(data_pca.trn.ts.max()), 1e0,
+            rng=np.random.RandomState(0)))
     return params, data_full.trn.ys[:N_SEQ], data_pca.trn.ts
 
 
