@@ -94,6 +94,7 @@ PEAK_HBM_BYTES = 3.35e12
 
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 KERNEL_ITERS = 50
+GEMM_N = 2048
 EVAL_DRAWS, EVAL_REPEATS = 128, 3
 
 NAMES = ("x", "z", "lengthscales", "variance", "omega", "phase", "weights", "nu")
@@ -245,6 +246,21 @@ def cuda_ms(fn, iters=KERNEL_ITERS, warmup=5):
             fn()
 
     return device_ms(enqueue, iters, host_s)
+
+
+def gemm_ms(dev):
+    """Device ms of the ratio checks' yardstick: one float32 product of two
+    GEMM_N x GEMM_N matrices (`torch.mm`, TF32 off), which shares no code
+    with any kernel of this repository, timed in the same call."""
+    import torch
+    gen = torch.Generator(dev).manual_seed(3)
+    a, b = (torch.randn(GEMM_N, GEMM_N, device=dev, generator=gen)
+            for _ in range(2))
+    out = torch.empty_like(a)
+    ms = cuda_ms(lambda: torch.mm(a, b, out=out))
+    print(f"yardstick: torch.mm {GEMM_N}x{GEMM_N} @ {GEMM_N}x{GEMM_N} float32 "
+          f"{ms:.4f} ms", flush=True)
+    return ms
 
 
 def main_path_inputs(dev, preset="official"):
@@ -1182,6 +1198,7 @@ def main(argv=None) -> int:
     import torch
     dev = torch.device("cuda")
     build_seconds = build_phase()
+    gemm = gemm_ms(dev)
     kernels, err_scaled_long_span, resources, yardstick = kernel_phase(dev)
     rk4_rows, rk4_resources = rk4_kernel_phase(dev, yardstick)
     kernels.update(rk4_rows)
@@ -1203,6 +1220,10 @@ def main(argv=None) -> int:
                      "field": field_launches, "wide_ab": wide_ab_phase()}
 
     phase("result")
+    gemm_after = gemm_ms(dev)
+    gemm_ratios = {name: row[1] / gemm for name, row in kernels.items()}
+    print("ratio to the yardstick: " + ", ".join(
+        f"{name} {r:.4f}" for name, r in gemm_ratios.items()))
     rows = []
     for name, (err, ms, pms, bms, by) in kernels.items():
         # launches from the path that runs the kernel, counted from 0
@@ -1216,6 +1237,7 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_seconds": build_seconds,
+                   "gemm_ms": [gemm, gemm_after], "gemm_ratios": gemm_ratios,
                    "err_scaled_long_span_max_abs_err": err_scaled_long_span,
                    "kernels": rows, "kernel_resources": resources,
                    "train": train, "train_fast": fast,
