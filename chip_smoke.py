@@ -28,14 +28,16 @@ exit code and no result line:
      not the formulation: the wide kernels take the per-dim rhs's counts.
      The dopri5 attempt's forward and backward are held and timed at M=256
      too, the rk4 segment's timed at 3 substeps and at M=256, and two
-     launches of each segment kernel must be bit-identical. For every
-     backward kernel and both segment forwards it prints registers and spill
-     bytes (the build's ptxas record), block size, dynamic shared memory and
-     resident blocks and warps per SM (the occupancy query); every built
-     variant of the four segment kernels must be free of spills and be one
-     the launch geometry selects, and they must take at most 4.5x (dopri5)
-     and 2.5x (rk4) one fused_rhs forward launch of this call (forwards) and
-     3.7x and 2.45x one fused_rhs backward launch (backwards);
+     launches of each row-tile kernel (`fused_rhs` and the segment kernels)
+     must be bit-identical. For every backward kernel and every row-tile
+     forward it prints registers and spill bytes (the build's ptxas record),
+     block size, dynamic shared memory and resident blocks and warps per SM
+     (the occupancy query); every built variant of the six row-tile kernels
+     must be free of spills and be one the launch geometry selects. The
+     yardstick of their speed is one float32 GEMM (`torch.mm` of two
+     GEMM_N x GEMM_N matrices, TF32 off), which shares no code with any
+     kernel here, timed in the same call: each of the six must stay within
+     the limit of its ratio to that GEMM (EARLIER);
   4. train: the official-recipe shooting train step (dopri5, whole-span
      first step, 5 MC draws, no frozen mask as in bench.py): the step-0 loss
      against the same step through the plain path at rtol 1e-4, then 3
@@ -44,6 +46,12 @@ exit code and no result line:
   5. reject fallback: `flow_forward` of the bench draw over a span whose
      whole-span attempt is rejected, through the kernels and through the
      plain path, held equal (rtol 1e-4);
+  5b. official heuristic: the official preset with Hairer's first-step
+     heuristic (`first_step=None`, `max_steps=64`: the train scripts'
+     defaults), whose generic dopri5 solve launches the `fused_rhs` forward
+     at every stage over the 2970 segment rows and its backward at every
+     stage's VJP: the step-0 loss against the plain path at rtol 1e-4, then
+     the timed steps as in phase 4, printing each kernel's launches per step;
   6. fast train: the same for the `fast` preset (rk4, one step per
      interval), which must launch each rk4 segment kernel once per step and
      neither the dopri5 attempt nor the standalone rhs; prints its step-0
@@ -120,25 +128,28 @@ REPLACES = {
     "fused_rhs_wide2_fwd": "scripts/proto_wide_rhs.py:168",
     "fused_rhs_wide_bwd": "scripts/proto_wide_rhs.py:305",
 }
-# The four segment kernels before their redesign (PERF.md; NVIDIA H100 80GB
-# HBM3, 700.00 W): device ms per launch and the ratio to one launch of the
-# `yardstick` kernel of the same call. Held here: the ratio now is at most
-# `limit` (1.4x / 1.5x faster than before, whatever card the call lands on).
+# The six redesigned row-tile kernels: device ms per launch before their
+# redesign (`ms`; PERF.md, NVIDIA H100 80GB HBM3, 700.00 W) and the ratio of
+# each to one launch of the yardstick GEMM of the same call, recorded on the
+# kernels of commit 350a559 (`ratio`; PERF.md, PR 6 call 1, GEMM 0.3409 ms).
+# Held in every call: the ratio now is at most `limit` — 1.25x the recorded
+# ratio for the four segment kernels, and the recorded ratio / 1.5 for the
+# two `fused_rhs` kernels (their redesign is 1.5x faster whatever card the
+# call lands on).
 EARLIER = {
-    "fused_dopri5_attempt_bwd": dict(ms=0.8809, ratio=5.17, limit=3.7,
-                                     yardstick="fused_rhs_bwd"),
-    "fused_rk4_segment_bwd": dict(ms=0.5846, ratio=3.43, limit=2.45,
-                                  yardstick="fused_rhs_bwd"),
-    "fused_dopri5_attempt_fwd": dict(ms=0.2184, ratio=6.74, limit=4.5,
-                                     yardstick="fused_rhs_fwd"),
-    "fused_rk4_segment_fwd": dict(ms=0.1198, ratio=3.70, limit=2.5,
-                                  yardstick="fused_rhs_fwd"),
+    "fused_rhs_fwd": dict(ms=0.0321, ratio=0.0951, limit=0.0951 / 1.5),
+    "fused_rhs_bwd": dict(ms=0.1692, ratio=0.5013, limit=0.5013 / 1.5),
+    "fused_dopri5_attempt_fwd": dict(ms=0.2184, ratio=0.2292, limit=1.25 * 0.2292),
+    "fused_dopri5_attempt_bwd": dict(ms=0.8809, ratio=0.5843, limit=1.25 * 0.5843),
+    "fused_rk4_segment_fwd": dict(ms=0.1198, ratio=0.1305, limit=1.25 * 0.1305),
+    "fused_rk4_segment_bwd": dict(ms=0.5846, ratio=0.4721, limit=1.25 * 0.4721),
 }
 
 # the kernels each path must launch, and those a train path must not
 MAIN_PATH_KERNELS = {
     "official": ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd"),
     "fast": ("fused_rk4_segment_fwd", "fused_rk4_segment_bwd"),
+    "official_heuristic": ("fused_rhs_fwd", "fused_rhs_bwd"),
     "field": ("rbf_gram",),
     "wide_ab": ("fused_rhs_fwd", "fused_rhs_bwd", "fused_rhs_wide_fwd",
                 "fused_rhs_wide2_fwd", "fused_rhs_wide_bwd"),
@@ -147,6 +158,8 @@ OFF_PATH_KERNELS = {
     "official": (),
     "fast": ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd",
              "fused_rhs_fwd", "fused_rhs_bwd"),
+    "official_heuristic": ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd",
+                           "fused_rk4_segment_fwd", "fused_rk4_segment_bwd"),
 }
 
 
@@ -173,8 +186,9 @@ def rhs_ops(n, din, d, m, s):
 
 
 def vjp_ops(n, din, d, m, s):
-    """One rhs VJP (csrc/rhs_tile.cuh rhs_vjp_row_dim): per feature 6*Din+13
-    flops and sin+cos, per inducing point 14*Din+9 flops and one exp."""
+    """One rhs VJP (csrc/rhs_tile.cuh rhs_vjp_tile): per feature 6*Din+13
+    flops and sin+cos, per inducing point 14*Din+9 flops and one exp, the
+    counts of the plain chain rule (the tile forms dvar from dw and dnu)."""
     return n * d * (s * (6 * din + 13) + m * (14 * din + 9)) + n * d * (2 * s + m)
 
 
@@ -313,7 +327,9 @@ def compare_grads(got, ref, what):
     return worst
 
 
-def kernel_phase(dev):
+def kernel_phase(dev, gemm):
+    """`fused_rhs` and the dopri5 attempt at the official step's inputs;
+    `gemm`: device ms of the yardstick GEMM of this call."""
     phase("kernels")
     import torch
     from gpode_tpu_torch.ops import cuda_kernels as ck
@@ -342,16 +358,21 @@ def kernel_phase(dev):
     ops = ck._kernel_operands(*[p.detach() for p in params])
     xd = x.detach()
     with torch.no_grad():
+        check(torch.equal(ck._launch_rhs_fwd(xd, ops, *dims),
+                          ck._launch_rhs_fwd(xd, ops, *dims)),
+              "two fused_rhs forward runs differ")
         ms_f = cuda_ms(lambda: ck._launch_rhs_fwd(xd, ops, *dims))
         ms_fp = cuda_ms(lambda: ck.fused_rhs_plain(xd, *[p.detach() for p in params]))
+    check(all(torch.equal(a, b) for a, b in zip(
+        ck._launch_rhs_bwd(xd, g, ops, *dims), ck._launch_rhs_bwd(xd, g, ops, *dims))),
+        "two fused_rhs backward runs differ")
+    print("  fused_rhs: two runs bit-identical in each direction")
     ms_b = cuda_ms(lambda: ck._launch_rhs_bwd_packed(xd, g, ops, *dims))
     ms_bp = cuda_ms(lambda: torch.autograd.grad(f_p, inputs, g, retain_graph=True))
     out["fused_rhs_fwd"] = (e_fwd, ms_f, ms_fp, *bound(
         rhs_ops(n, din, d, m, s), 4 * (n * din + pf + n * d)))
     out["fused_rhs_bwd"] = (e_bwd, ms_b, ms_bp, *bound(
         vjp_ops(n, din, d, m, s), 4 * (n * din + n * d + pf + n * din + pf)))
-    resources = {"fused_rhs_bwd": print_resources(
-        "fused_rhs_bwd", ck.rhs_bwd_occupancy(n, *dims, dev))}
 
     # -- fused_dopri5_attempt forward / backward
     x5_k, err_k = ck.fused_dopri5_attempt(x, dt, *params, rtol, atol)
@@ -420,12 +441,13 @@ def kernel_phase(dev):
         6 * vjp_ops(n, din, d, m, s), 4 * (6 * n * din + n * d + pf + n * din + pf)))
 
     print_kernel_rows(out)
-    yardstick = {"fused_rhs_fwd": ms_f, "fused_rhs_bwd": ms_b}
-    resources["fused_dopri5_attempt_fwd"] = report_segment_kernel(
-        dev, "fused_dopri5_attempt_fwd", n, dims, out, yardstick, ms_m256=ms_df256)
-    resources["fused_dopri5_attempt_bwd"] = report_segment_kernel(
-        dev, "fused_dopri5_attempt_bwd", n, dims, out, yardstick, ms_m256=ms_db256)
-    return out, e_err_long, resources, yardstick
+    resources = {name: report_tile_kernel(dev, name, n, dims, out, gemm)
+                 for name in ("fused_rhs_fwd", "fused_rhs_bwd")}
+    resources["fused_dopri5_attempt_fwd"] = report_tile_kernel(
+        dev, "fused_dopri5_attempt_fwd", n, dims, out, gemm, ms_m256=ms_df256)
+    resources["fused_dopri5_attempt_bwd"] = report_tile_kernel(
+        dev, "fused_dopri5_attempt_bwd", n, dims, out, gemm, ms_m256=ms_db256)
+    return out, e_err_long, resources
 
 
 def long_span_error_check(x, params, rtol, atol):
@@ -478,13 +500,13 @@ def long_span_error_check(x, params, rtol, atol):
     return float((x5_k - x5_p).abs().max()), err
 
 
-def rk4_kernel_phase(dev, yardstick):
+def rk4_kernel_phase(dev, gemm):
     """The rk4 segment kernels at the fast step's inputs, at its 1 substep
     and at 3 (the reverse sweep across steps), at M=256 (the m256_fast
     shape), and twice each for bit-identical results. The rows' times are at
     1 substep; both kernels are also timed at 3 substeps and at M=256.
-    `yardstick`: device ms of one fused_rhs forward and backward launch of
-    this call. Returns the two kernel rows and their resource reports."""
+    `gemm`: device ms of the yardstick GEMM of this call. Returns the two
+    kernel rows and their resource reports."""
     phase("kernels: rk4 segment")
     import torch
     from gpode_tpu_torch.ops import cuda_kernels as ck
@@ -566,11 +588,11 @@ def rk4_kernel_phase(dev, yardstick):
     }
     print_kernel_rows(out)
     resources = {
-        "fused_rk4_segment_fwd": report_segment_kernel(
-            dev, "fused_rk4_segment_fwd", n, dims, out, yardstick,
+        "fused_rk4_segment_fwd": report_tile_kernel(
+            dev, "fused_rk4_segment_fwd", n, dims, out, gemm,
             ms_3_substeps=ms_f3, ms_m256=ms_f256),
-        "fused_rk4_segment_bwd": report_segment_kernel(
-            dev, "fused_rk4_segment_bwd", n, dims, out, yardstick,
+        "fused_rk4_segment_bwd": report_tile_kernel(
+            dev, "fused_rk4_segment_bwd", n, dims, out, gemm,
             ms_3_substeps=ms_b3, ms_m256=ms_b256)}
     return out, resources
 
@@ -596,21 +618,31 @@ def print_resources(name, report):
     return report
 
 
-# the segment kernels' (direction, stages) by name
-SEGMENT = {"fused_dopri5_attempt_fwd": ("fwd", 6),
-           "fused_dopri5_attempt_bwd": ("bwd", 6),
-           "fused_rk4_segment_fwd": ("fwd", 4),
-           "fused_rk4_segment_bwd": ("bwd", 4)}
+# the row-tile kernels' (direction, stages) by name; stages None: fused_rhs
+TILE = {"fused_rhs_fwd": ("fwd", None), "fused_rhs_bwd": ("bwd", None),
+        "fused_dopri5_attempt_fwd": ("fwd", 6),
+        "fused_dopri5_attempt_bwd": ("bwd", 6),
+        "fused_rk4_segment_fwd": ("fwd", 4),
+        "fused_rk4_segment_bwd": ("bwd", 4)}
+
+
+def tile_tables(name):
+    """((library, kernel, occupancy query), the instantiated variants) of a
+    row-tile kernel."""
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    direction, stages = TILE[name]
+    if stages is None:
+        return ck.RHS_KERNELS[direction], ck.RHS_VARIANTS[direction]
+    return (ck.SEGMENT_KERNELS[direction, stages],
+            ck.SEGMENT_VARIANTS[direction, stages])
 
 
 def check_variants_free_of_spills(name):
-    """Every instantiated variant of a segment kernel (one per range of Din),
-    from the build's ptxas record: the table the launch geometry selects
-    from is what was built, and none of it spills."""
+    """Every instantiated variant of a row-tile kernel (one per range of
+    Din), from the build's ptxas record: the table the launch geometry
+    selects from is what was built, and none of it spills."""
     from gpode_tpu_torch.ops import cuda_build
-    from gpode_tpu_torch.ops import cuda_kernels as ck
-    lib_name, kernel, _ = ck.SEGMENT_KERNELS[SEGMENT[name]]
-    variants = ck.SEGMENT_VARIANTS[SEGMENT[name]]
+    (lib_name, kernel, _), variants = tile_tables(name)
     built = {k: v for k, v in cuda_build.kernel_resources(lib_name).items()
              if kernel in k}
     for dp, rt, maxt in variants:
@@ -627,37 +659,41 @@ def check_variants_free_of_spills(name):
           f"{len(variants)}")
 
 
-def report_segment_kernel(dev, name, n, dims, out, yardstick, **extra):
-    """A redesigned segment kernel at N rows of shape `dims` (Din, D, M, S):
+def report_tile_kernel(dev, name, n, dims, out, gemm, **extra):
+    """A redesigned row-tile kernel at N rows of shape `dims` (Din, D, M, S):
     its resources at the main path's geometry, every built variant free of
-    spills, and its time against its earlier one, one launch of its
-    yardstick kernel of this call (`yardstick`: device ms by name) and its
-    bound (`out[name]`: the kernel row). Holds the ratio limit."""
+    spills, and its time against its earlier one, one launch of the
+    yardstick GEMM of this call (`gemm` ms) and its bound (`out[name]`: the
+    kernel row). Holds the ratio limit."""
     from gpode_tpu_torch.ops import cuda_kernels as ck
-    direction, stages = SEGMENT[name]
-    if direction == "fwd":
+    direction, stages = TILE[name]
+    if stages is None and direction == "fwd":
+        geo = ck.rhs_fwd_geometry(n, *dims)
+    elif stages is None:
+        geo = ck.rhs_bwd_geometry(n, *dims, ck._sms(dev))
+    elif direction == "fwd":
         geo = ck.segment_fwd_geometry(n, *dims, stages)
-        rows_per_block = geo.rt
     else:
         geo = ck.segment_bwd_geometry(n, *dims, stages, ck._sms(dev))
-        rows_per_block = geo.rows_per_block
-    report = print_resources(name, ck.segment_occupancy(direction, stages, *dims, geo))
+    occupancy = (ck.rhs_occupancy(direction, *dims, geo) if stages is None
+                 else ck.segment_occupancy(direction, stages, *dims, geo))
+    report = print_resources(name, occupancy)
     check_variants_free_of_spills(name)
     was = EARLIER[name]
     ms, bound_ms = out[name][1], out[name][3]
-    yard_ms = yardstick[was["yardstick"]]
-    ratio = ms / yard_ms
-    print(f"{name}: {ms:.4f} ms per launch ({was['ms']:.4f} ms before the "
-          f"redesign: {was['ms'] / ms:.2f}x); {ratio:.2f}x one {was['yardstick']} "
-          f"launch of this call ({yard_ms:.4f} ms; {was['ratio']:.2f}x before, "
-          f"limit {was['limit']:.2f}x); {100 * bound_ms / ms:.1f}% of its bound "
-          f"({bound_ms:.4f} ms)")
-    check(ratio <= was["limit"], f"{name} takes {ratio:.2f}x a {was['yardstick']} "
-          f"launch, over the limit {was['limit']:.2f}x")
-    return dict(ms=ms, earlier_ms=was["ms"], ratio_to_yardstick=ratio,
-                yardstick=was["yardstick"], earlier_ratio=was["ratio"],
+    ratio = ms / gemm
+    print(f"{name}: {ms:.4f} ms per launch ({was['ms']:.4f} ms before its "
+          f"redesign: {was['ms'] / ms:.2f}x); {ratio:.4f}x the yardstick GEMM "
+          f"of this call ({gemm:.4f} ms; {was['ratio']:.4f}x on the parent, "
+          f"limit {was['limit']:.4f}x); {100 * bound_ms / ms:.1f}% of its "
+          f"bound ({bound_ms:.4f} ms)")
+    check(ratio <= was["limit"], f"{name} takes {ratio:.4f}x the yardstick "
+          f"GEMM, over the limit {was['limit']:.4f}x")
+    return dict(ms=ms, earlier_ms=was["ms"], ratio_to_gemm=ratio,
+                parent_ratio=was["ratio"], limit=was["limit"],
                 bound_share=bound_ms / ms, blocks=geo.blocks,
-                rows_per_block=rows_per_block, **report, **extra)
+                rows_per_block=getattr(geo, "rows_per_block", geo.rt),
+                **report, **extra)
 
 
 def gram_wide_kernel_phase(dev):
@@ -995,6 +1031,18 @@ def reject_phase(dev):
     return compare_fwd(x_k, x_p, "reject fallback x(T)")
 
 
+def phase_model_args(name):
+    """A preset's `ModelArgs`; "official_heuristic" is the official preset
+    with the train scripts' dopri5 defaults: Hairer's first-step heuristic
+    and max_steps=64 (scripts/_cli.py)."""
+    import dataclasses
+    from gpode_tpu_torch.train.bench_setup import preset_model_args
+    if name == "official_heuristic":
+        return dataclasses.replace(preset_model_args("official"),
+                                   first_step=None, max_steps=64)
+    return preset_model_args(name)
+
+
 def train_phase(dev, preset, profile_steps=0):
     """A preset's shooting train step: step-0 loss through the kernels
     against the plain path, then the timed steps with every launch counter
@@ -1008,7 +1056,7 @@ def train_phase(dev, preset, profile_steps=0):
     from gpode_tpu_torch.train.builders import shooting_loss_fn
     from gpode_tpu_torch.train.trainer import default_optimizer, make_train_step
 
-    args, params, ys, ts = build_bench_problem(preset_model_args(preset),
+    args, params, ys, ts = build_bench_problem(phase_model_args(preset),
                                                device=dev)
     gen = torch.Generator(dev).manual_seed(0)
     loss_fn = shooting_loss_fn(args)  # auto rule: 3000 rows take the kernels
@@ -1059,6 +1107,10 @@ def train_phase(dev, preset, profile_steps=0):
           f"{peak / 2**20:.1f} MiB; launches {launches}")
     check(all(math.isfinite(v) for v in losses), "non-finite training loss")
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    per_step = {name: launches[name] / n_steps
+                for name in MAIN_PATH_KERNELS[preset]}
+    print("launches per step: " + ", ".join(
+        f"{name} {v:.2f}" for name, v in per_step.items()))
     for name in MAIN_PATH_KERNELS[preset]:
         check(launches[name] > 0, f"{name} never launched on the {preset} path")
         if preset == "fast":  # no reject fallback: exactly once per step
@@ -1072,7 +1124,8 @@ def train_phase(dev, preset, profile_steps=0):
             profile_steps, preset)
     return dict(loss_first=losses[0], loss_last=losses[-1], step0_kernels=lk,
                 step0_plain=lp, steps_per_sec=sps, accepted=accepted,
-                rejected=rejected, nfe=nfe, peak_bytes=peak, **extra), \
+                rejected=rejected, nfe=nfe, peak_bytes=peak,
+                launches_per_step=per_step, **extra), \
         launches, args, params
 
 
@@ -1199,14 +1252,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     build_seconds = build_phase()
     gemm = gemm_ms(dev)
-    kernels, err_scaled_long_span, resources, yardstick = kernel_phase(dev)
-    rk4_rows, rk4_resources = rk4_kernel_phase(dev, yardstick)
+    kernels, err_scaled_long_span, resources = kernel_phase(dev, gemm)
+    rk4_rows, rk4_resources = rk4_kernel_phase(dev, gemm)
     kernels.update(rk4_rows)
     resources.update(rk4_resources)
     wide_rows, resources["fused_rhs_wide_bwd"] = gram_wide_kernel_phase(dev)
     kernels.update(wide_rows)
     train, launches, _, _ = train_phase(dev, "official", opts.profile_steps)
     train["reject_fallback_max_abs_err"] = reject_phase(dev)
+    heuristic, heuristic_launches, _, _ = train_phase(dev, "official_heuristic")
     fast, fast_launches, fast_args, fast_params = train_phase(
         dev, "fast", opts.profile_steps)
     evaluation = eval_phase(dev, fast_args, fast_params)
@@ -1217,6 +1271,7 @@ def main(argv=None) -> int:
     kernels["rbf_gram"] = (max(kernels["rbf_gram"][0], e_gram),
                            *kernels["rbf_gram"][1:])
     path_launches = {"official": launches, "fast": fast_launches,
+                     "official_heuristic": heuristic_launches,
                      "field": field_launches, "wide_ab": wide_ab_phase()}
 
     phase("result")
@@ -1241,6 +1296,7 @@ def main(argv=None) -> int:
                    "err_scaled_long_span_max_abs_err": err_scaled_long_span,
                    "kernels": rows, "kernel_resources": resources,
                    "train": train, "train_fast": fast,
+                   "train_official_heuristic": heuristic,
                    "eval_fast": evaluation, "vdp": vdp,
                    "vdp_golden": vdp_golden, "field": field}, f, indent=1)
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,6 @@
 // Shared device code for the GPODE Hopper kernels (fused_rhs.cu,
 // fused_dopri5.cu, fused_rk4.cu, fused_rhs_wide.cu): the sampled-vector-field
-// rhs and its VJP, each in two forms, and the fixed-order reduction of
+// rhs and its VJP over a tile of rows, and the fixed-order reduction of
 // per-block parameter cotangents.
 //
 // Replaces the tile functions of gpode_tpu/ops/pallas_kernels.py:
@@ -14,18 +14,14 @@
 // the time is how many of them are in flight: independent chains per thread
 // and resident warps per SM.
 //
-// Row form (`rhs_row_dim`, `rhs_vjp_row_dim`; the standalone fused_rhs
-// kernels): one warp owns one (row, output dim d); its 32 lanes split the S
-// random features and the M inducing points, then combine with xor-shuffle
-// sums. The VJP keeps per-warp accumulators in shared memory and updates
-// them once per row.
-//
-// Tile form (`rhs_tile`, `rhs_vjp_tile`; the two segment kernels, forward
-// and backward, which evaluate every row 7 / 4 * substeps times and take as
-// many VJPs): a lane owns a column (a random feature or an inducing point of
-// one dim) for the whole kernel. It loads the column's parameters once per
-// tile of RT rows and runs the RT rows as RT independent cosf/expf (forward)
-// or sincosf/expf (VJP) chains, its sums over the tile in registers. The
+// The tile (`rhs_tile`, `rhs_vjp_tile`; every kernel here but the wide
+// ones: the standalone fused_rhs forward and backward, one evaluation or VJP
+// per row, and the two segment kernels, which evaluate every row 7 / 4 *
+// substeps times and take as many VJPs): a lane owns a column (a random
+// feature or an inducing point of one dim) for the whole kernel. It loads
+// the column's parameters once per tile of RT rows and runs the RT rows as
+// RT independent cosf/expf (forward) or sincosf/expf (VJP) chains, its sums
+// over the tile in registers. The
 // forward's per-row sums of a tile and the VJP's dx shares stay in registers
 // until one transposing fold sums them over the lanes (31 shuffles for up to
 // 32 values, not 5 per value); the warps of one dim then meet in shared
@@ -73,36 +69,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// f_d(x) for one row x (Din values, any memory space). Every lane returns it.
-__device__ __forceinline__ float rhs_row_dim(const RhsParams& p, const float* x,
-                                             int d, int lane) {
-  const float* om = p.omega + (size_t)d * p.din * p.s;
-  const float* ph = p.phase + (size_t)d * p.s;
-  const float* wd = p.w + (size_t)d * p.s;
-  float acc_f = 0.f;
-  for (int s = lane; s < p.s; s += 32) {
-    float xo = 0.f;
-    for (int k = 0; k < p.din; ++k) xo = fmaf(x[k], om[(size_t)k * p.s + s], xo);
-    acc_f = fmaf(cosf(xo + ph[s]), wd[s], acc_f);
-  }
-  const float* il = p.inv_ls + d * p.din;
-  const float* nud = p.nu + (size_t)d * p.m;
-  float acc_g = 0.f;
-  for (int j = lane; j < p.m; j += 32) {
-    const float* zj = p.z + (size_t)j * p.din;
-    float sq = 0.f;
-    for (int k = 0; k < p.din; ++k) {
-      float t = (x[k] - zj[k]) * il[k];
-      sq = fmaf(t, t, sq);
-    }
-    acc_g = fmaf(expf(-0.5f * sq), nud[j], acc_g);
-  }
-  const float vd = p.var[d];
-  const float scale = sqrtf(2.f * vd / (float)p.s);
-  return scale * warp_sum(acc_f) + vd * warp_sum(acc_g);
-}
-
-// Floats of one warp's shared-memory accumulators.
+// Floats of one dim's shared-memory accumulators in a VJP block: domega
+// (Din*S), dphase (S), dw (S), dnu (M), dz (M*Din).
 __host__ __device__ __forceinline__ int vjp_acc_floats(int din, int m, int s) {
   return din * s + 2 * s + m + m * din;
 }
@@ -112,140 +80,18 @@ __host__ __device__ __forceinline__ int main_slab_floats(int din, int m, int s) 
   return din * s + 2 * s + m + din + 1;
 }
 
-// Per-warp VJP state: shared-memory accumulators for one output dim, plus
-// lane-local registers for the few per-dim scalars.
-struct VjpAcc {
-  float* domega;  // (Din, S)
-  float* dphase;  // (S)
-  float* dw;      // (S)
-  float* dnu;     // (M)
-  float* dz;      // (M, Din)
-  float dls[GPODE_MAX_DIN];
-  float dvar_rff;   // sum cos * dphi      (times scale / (2 var) at the end)
-  float dvar_gram;  // sum dgram * gram    (divided by var at the end)
-};
-
-__device__ __forceinline__ void vjp_acc_init(VjpAcc& a, float* base, int din,
-                                             int m, int s) {
-  a.domega = base;
-  a.dphase = a.domega + din * s;
-  a.dw = a.dphase + s;
-  a.dnu = a.dw + s;
-  a.dz = a.dnu + m;
-#pragma unroll
-  for (int k = 0; k < GPODE_MAX_DIN; ++k) a.dls[k] = 0.f;
-  a.dvar_rff = 0.f;
-  a.dvar_gram = 0.f;
-}
-
-// VJP of f_d at row x with cotangent g: accumulates the parameter
-// cotangents into `a` and writes this dim's share of dx (Din values) to
-// dx_out from lane 0.
-__device__ __forceinline__ void rhs_vjp_row_dim(const RhsParams& p, const float* x,
-                                                int d, float g, int lane,
-                                                VjpAcc& a, float* dx_out) {
-  float dx[GPODE_MAX_DIN];
-#pragma unroll
-  for (int k = 0; k < GPODE_MAX_DIN; ++k) dx[k] = 0.f;
-  const float vd = p.var[d];
-  const float scale = sqrtf(2.f * vd / (float)p.s);
-
-  const float* om = p.omega + (size_t)d * p.din * p.s;
-  const float* ph = p.phase + (size_t)d * p.s;
-  const float* wd = p.w + (size_t)d * p.s;
-  for (int s = lane; s < p.s; s += 32) {
-    float xo = 0.f;
-    for (int k = 0; k < p.din; ++k) xo = fmaf(x[k], om[(size_t)k * p.s + s], xo);
-    float sn, c;
-    sincosf(xo + ph[s], &sn, &c);
-    const float dphi = g * wd[s];
-    const float dxo = -sn * scale * dphi;
-    a.dw[s] += c * scale * g;
-    a.dphase[s] += dxo;
-    a.dvar_rff += c * dphi;
-#pragma unroll
-    for (int k = 0; k < GPODE_MAX_DIN; ++k) {
-      if (k < p.din) {
-        a.domega[k * p.s + s] += x[k] * dxo;
-        dx[k] = fmaf(dxo, om[(size_t)k * p.s + s], dx[k]);
-      }
-    }
-  }
-
-  const float* il = p.inv_ls + d * p.din;
-  const float* nud = p.nu + (size_t)d * p.m;
-  for (int j = lane; j < p.m; j += 32) {
-    const float* zj = p.z + (size_t)j * p.din;
-    float sq = 0.f;
-    for (int k = 0; k < p.din; ++k) {
-      float t = (x[k] - zj[k]) * il[k];
-      sq = fmaf(t, t, sq);
-    }
-    const float gram = vd * expf(-0.5f * sq);
-    const float dgram = g * nud[j];
-    a.dnu[j] += gram * g;
-    a.dvar_gram += dgram * gram;
-    const float dsq = -0.5f * gram * dgram;
-#pragma unroll
-    for (int k = 0; k < GPODE_MAX_DIN; ++k) {
-      if (k < p.din) {
-        const float diff = x[k] - zj[k];
-        const float ik2 = il[k] * il[k];
-        const float wsq = dsq * diff;
-        dx[k] += 2.f * ik2 * wsq;
-        a.dz[j * p.din + k] += -2.f * ik2 * wsq;
-        a.dls[k] += -2.f * ik2 * il[k] * wsq * diff;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int k = 0; k < GPODE_MAX_DIN; ++k) {
-    if (k < p.din) {
-      const float v = warp_sum(dx[k]);
-      if (lane == 0) dx_out[k] = v;
-    }
-  }
-}
-
-// Write one warp's accumulators as the (block, d) slabs of the partial
-// buffers: part_main (blocks, D, main_slab_floats), part_dz (blocks, D, M*Din).
-__device__ __forceinline__ void vjp_write_partials(const RhsParams& p, VjpAcc& a,
-                                                   int d, int lane, int block,
-                                                   float* part_main,
-                                                   float* part_dz) {
-  __syncwarp();  // lanes now read accumulators that other lanes wrote
-  const int qm = main_slab_floats(p.din, p.m, p.s);
-  float* pm = part_main + ((size_t)block * p.d + d) * qm;
-  const int n_dense = p.din * p.s + 2 * p.s + p.m;  // domega|dphase|dw|dnu
-  for (int i = lane; i < n_dense; i += 32) pm[i] = a.domega[i];
-#pragma unroll
-  for (int k = 0; k < GPODE_MAX_DIN; ++k) {
-    if (k < p.din) {
-      const float v = warp_sum(a.dls[k]);
-      if (lane == 0) pm[n_dense + k] = v;
-    }
-  }
-  const float vd = p.var[d];
-  const float scale = sqrtf(2.f * vd / (float)p.s);
-  const float rff = warp_sum(a.dvar_rff);
-  const float gram = warp_sum(a.dvar_gram);
-  if (lane == 0) pm[n_dense + p.din] = rff * scale / (2.f * vd) + gram / vd;
-  float* pz = part_dz + ((size_t)block * p.d + d) * p.m * p.din;
-  for (int i = lane; i < p.m * p.din; i += 32) pz[i] = a.dz[i];
-}
-
 // ---------------------------------------------------------------------------
-// The row-tile VJP of the segment backward kernels (fused_dopri5.cu,
-// fused_rk4.cu).
+// The row tile of every rhs kernel but the wide ones (fused_rhs.cu,
+// fused_dopri5.cu, fused_rk4.cu).
 //
 // A block is G groups of D warps; warp (grp, d) owns, for the whole kernel,
 // every G-th 32-column unit of dim d's ceil(S/32) feature units and
 // ceil(M/32) inducing-point units, one column per lane (units interleave, so
 // the warps of a dim carry equal shares of sincosf and expf work). One call
-// of `rhs_vjp_tile` handles one stage of a tile of RT rows. Rows past the end
-// are skipped by a warp-uniform test, columns past S or M by zero weights:
-// nothing is padded with values that reach a stored sum.
+// of `rhs_tile` or `rhs_vjp_tile` handles one stage of a tile of RT rows
+// (in fused_rhs.cu: the tile itself). Rows past the end are skipped by a
+// warp-uniform test, columns past S or M by zero weights: nothing is padded
+// with values that reach a stored sum.
 // ---------------------------------------------------------------------------
 
 // Floats rounded up to whole float4s (regions of shared memory stay 16-byte
@@ -455,14 +301,16 @@ __device__ __forceinline__ void tile_load_x0(const float* __restrict__ x0,
 
 // VJP of f_d over the first `rows` rows of a tile. All pointers but those in
 // `p` are shared memory: xt (RT, tile_stride(DP)), zero beyond Din;
-// g[r * Din] the cotangent of f_d at row r; il_s dim d's 1/lengthscale (DP
-// floats, zero beyond Din). Adds the parameter cotangents of this warp's
-// columns to `acc` (dim d's block accumulators, laid out as VjpAcc) and the
-// lanes' lengthscale shares to dls_w[k * 32 + lane] (this warp's DP * 32
-// floats), and writes the warp's dx shares, summed over its lanes, to
-// dx_out[r * DP + k] (32 floats). The variance cotangent needs no sum of its
-// own: it follows from dw and dnu (tile_write_partials).
-template <int DP, int RT>
+// g[r * Din] the cotangent of f_d at row r (g[r * D] with G_BY_D: the rows
+// of an (N, D) cotangent, where Din may differ from D); il_s dim d's
+// 1/lengthscale (DP floats, zero beyond Din). Adds the parameter cotangents
+// of this warp's columns to `acc` (dim d's block accumulators, laid out as
+// vjp_acc_floats lists them) and the lanes' lengthscale shares to
+// dls_w[k * 32 + lane] (this warp's DP * 32 floats), and writes the warp's
+// dx shares, summed over its lanes, to dx_out[r * DP + k] (32 floats). The
+// variance cotangent needs no sum of its own: it follows from dw and dnu
+// (tile_write_partials).
+template <int DP, int RT, bool G_BY_D = false>
 __device__ __forceinline__ void rhs_vjp_tile(const RhsParams& p, const float* xt,
                                              const float* g, int rows, int d,
                                              int grp, int groups, int lane,
@@ -509,7 +357,7 @@ __device__ __forceinline__ void rhs_vjp_tile(const RhsParams& p, const float* xt
         if (r < rows) {
           float x[DP];
           tile_row<DP>(xt + r * XS, x);
-          const float gr = g[r * p.din];
+          const float gr = g[r * (G_BY_D ? p.d : p.din)];
           float xo = 0.f;
 #pragma unroll
           for (int k = 0; k < DP; ++k) xo = fmaf(x[k], om[k], xo);
@@ -551,7 +399,7 @@ __device__ __forceinline__ void rhs_vjp_tile(const RhsParams& p, const float* xt
         if (r < rows) {
           float x[DP], u[DP];
           tile_row<DP>(xt + r * XS, x);
-          const float gr = g[r * p.din];
+          const float gr = g[r * (G_BY_D ? p.d : p.din)];
           float sq = 0.f;
 #pragma unroll
           for (int k = 0; k < DP; ++k) {  // u = (x - z) / lengthscale
@@ -617,7 +465,7 @@ __host__ __device__ constexpr int tile_smem_floats(int dp, int rt, int stages,
 }
 
 // Stage 1/lengthscale (D, Din) as il_s (D, DP) in shared memory, zero padded
-// (D == Din <= DP in the segment kernels).
+// beyond Din <= DP.
 template <int DP>
 __device__ __forceinline__ void tile_load_inv_ls(const RhsParams& p, float* il_s) {
   for (int i = threadIdx.x; i < p.d * DP; i += blockDim.x)

@@ -30,8 +30,10 @@ class SolverConfig:
     `ts_dense_scale - 1` sub-steps per interval; dopri5 ignores it.
     `first_step`: None -> Hairer's heuristic, FIRST_STEP_SPAN -> the whole
     span. `kernels`: None -> the auto rule (dimwise batches of at least 256
-    rows take the fused kernels), False -> plain tensor path everywhere,
-    True -> the kernels for any dimwise batch (the JAX `pallas` override)."""
+    rows take the fused kernels where both directions of the kernel the
+    solve would launch take the shape), False -> plain tensor path
+    everywhere, True -> the kernels for any dimwise batch (the JAX `pallas`
+    override; a shape the kernel refuses raises ValueError)."""
 
     solver: str = "dopri5"
     rtol: float = 1e-6
@@ -46,10 +48,22 @@ class SolverConfig:
         return substeps_from_dense_scale(self.ts_dense_scale)
 
 
+def _kernel_of(cfg: SolverConfig, ts: torch.Tensor) -> str:
+    """The kernel a solve over `ts` launches when it takes the kernels: the
+    rk4 segment or the dopri5 attempt for one-interval shooting segments,
+    else `fused_rhs` at every rhs evaluation."""
+    if ts.shape[0] == 2 and cfg.solver == "rk4":
+        return "rk4_segment"
+    if (ts.shape[0] == 2 and cfg.solver == "dopri5"
+            and cfg.first_step == FIRST_STEP_SPAN):
+        return "dopri5_attempt"
+    return "fused_rhs"
+
+
 def _kernels_active(cfg: SolverConfig, gp_params: gp.SVGPParams,
-                    n_rows: int) -> bool:
+                    n_rows: int, num_features: int, kernel: str) -> bool:
     if cfg.kernels is None:
-        return gp.kernel_rhs_active(gp_params, n_rows)
+        return gp.kernel_rhs_active(gp_params, n_rows, num_features, kernel)
     return cfg.kernels and gp_params.dimwise
 
 
@@ -58,7 +72,9 @@ def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
                  cfg: SolverConfig) -> tuple[torch.Tensor, ODEStats]:
     """Integrate dx/dt = f_draw(x) from x0 (N, D) over ts (T,).
     Returns ((N, T, D), stats)."""
-    use_kernel = _kernels_active(cfg, gp_params, x0.shape[0])
+    kernel = _kernel_of(cfg, ts)
+    use_kernel = _kernels_active(cfg, gp_params, x0.shape[0],
+                                 draw.weights.shape[-2], kernel)
 
     def rhs(t, x):
         del t  # time-invariant ODE
@@ -67,7 +83,7 @@ def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
     # rk4 one-interval shooting segments: one kernel runs all 4 * substeps
     # stage evaluations and combines for every row, and one kernel the
     # reverse sweep of the stage chain.
-    if cfg.solver == "rk4" and ts.shape[0] == 2 and use_kernel:
+    if kernel == "rk4_segment" and use_kernel:
         dt = (ts[1] - ts[0]).detach().reshape(1)
         x1 = fused_rk4_segment(
             x0, dt, gp_params.z, gp_params.kernel.lengthscales,
@@ -82,8 +98,7 @@ def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
     # per call); a rejected attempt falls back to the adaptive solver with
     # the plain rhs, seeded with the controller-shrunk dt. An accepted
     # whole-span attempt IS that solver's first accepted step.
-    if (cfg.solver == "dopri5" and ts.shape[0] == 2
-            and cfg.first_step == FIRST_STEP_SPAN and use_kernel):
+    if kernel == "dopri5_attempt" and use_kernel:
         dt = (ts[1] - ts[0]).detach().reshape(1)
         x5, err_scaled = fused_dopri5_attempt(
             x0, dt, gp_params.z, gp_params.kernel.lengthscales,
@@ -126,7 +141,8 @@ def flow_forward_batched(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
     error norm, so each draw's accuracy is at least what its own controller
     would enforce.
     """
-    use_kernel = _kernels_active(cfg, gp_params, x0.shape[1])
+    use_kernel = _kernels_active(cfg, gp_params, x0.shape[1],
+                                 draws.weights.shape[-2], "fused_rhs")
 
     def rhs(t, x):
         del t  # time-invariant ODE

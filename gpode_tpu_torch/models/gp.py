@@ -19,6 +19,7 @@ Several draws stack on a leading axis (what the JAX package gets from
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import NamedTuple, Optional
 
@@ -26,7 +27,7 @@ import torch
 from torch import nn
 
 from gpode_tpu_torch.ops import math as om
-from gpode_tpu_torch.ops.cuda_kernels import fused_rhs, rbf_gram
+from gpode_tpu_torch.ops.cuda_kernels import fused_rhs, kernel_refusal, rbf_gram
 from gpode_tpu_torch.ops.kernels import (RBFParams, init_rbf, rbf_K, rbf_K_diag,
                                          rbf_sample_freq)
 
@@ -181,10 +182,32 @@ def draw_posterior(params: SVGPParams, weight_normals: torch.Tensor,
 # plain tensor path — the JAX package's `_PALLAS_RHS_MIN_ROWS` rule.
 _KERNEL_RHS_MIN_ROWS = 256
 
+_logger = logging.getLogger(__name__)
+_REFUSALS_LOGGED: set = set()
 
-def kernel_rhs_active(params: SVGPParams, n_rows: int) -> bool:
-    """Would `eval_draw` take the fused kernel at this batch size?"""
-    return params.dimwise and n_rows >= _KERNEL_RHS_MIN_ROWS
+
+def kernel_rhs_active(params: SVGPParams, n_rows: int, num_features: int,
+                      kernel: str = "fused_rhs") -> bool:
+    """Would the solve take `kernel` ("fused_rhs", as `eval_draw` does, or
+    the flow's "rk4_segment" / "dopri5_attempt") for `n_rows` rows of a draw
+    with `num_features` features? A dimwise GP, at least 256 rows, and a
+    shape that both directions of the kernel take
+    (`ops/cuda_kernels.kernel_refusal`): decided from shapes alone, before
+    any launch. A refusal (a width, thread or shared-memory limit of the
+    kernel) is logged once per reason and sends the call to the plain path.
+    """
+    if not (params.dimwise and n_rows >= _KERNEL_RHS_MIN_ROWS):
+        return False
+    reason = kernel_refusal(kernel, n_rows, params.z.shape[1],
+                            params.u_mean.shape[1], params.num_inducing,
+                            num_features)
+    if reason is None:
+        return True
+    if reason not in _REFUSALS_LOGGED:
+        _REFUSALS_LOGGED.add(reason)
+        _logger.warning("the %s kernels refuse this shape (%s): taking the "
+                        "plain path", kernel, reason)
+    return False
 
 
 def kernel_rff_weights(weights: torch.Tensor) -> torch.Tensor:
@@ -203,7 +226,8 @@ def eval_draw(params: SVGPParams, draw: PosteriorDraw, x: torch.Tensor,
     kernel is dimwise-only.
     """
     if use_kernel is None:
-        use_kernel = kernel_rhs_active(params, x.shape[0])
+        use_kernel = kernel_rhs_active(params, x.shape[0],
+                                       draw.weights.shape[-2])
     if use_kernel and params.dimwise:
         return fused_rhs(x, params.z, params.kernel.lengthscales,
                          params.kernel.variance, draw.omega, draw.phase,
@@ -233,7 +257,8 @@ def eval_draws(params: SVGPParams, draws: PosteriorDraw, x: torch.Tensor,
     fused kernel once per draw.
     """
     if use_kernel is None:
-        use_kernel = kernel_rhs_active(params, x.shape[-2])
+        use_kernel = kernel_rhs_active(params, x.shape[-2],
+                                       draws.weights.shape[-2])
     if use_kernel and params.dimwise:
         return torch.stack([
             eval_draw(params, PosteriorDraw(*(leaf[i] for leaf in draws)),

@@ -17,9 +17,15 @@ Counterpart of `gpode_tpu/ops/pallas_kernels.py`:
 
 The wide-layout rhs kernels (`csrc/fused_rhs_wide.cu`) are bound in
 `ops/wide_rhs.py` and share this module's counters and helpers.
-:func:`segment_fwd_geometry` and :func:`segment_bwd_geometry` are the launch
-geometries of the two segment kernels, forward and backward, pure arithmetic
-that the CPU tests reach.
+
+`fused_rhs` and the two segment kernels run on one row tile
+(`csrc/rhs_tile.cuh`). Their launch geometries — :func:`rhs_fwd_geometry`,
+:func:`rhs_bwd_geometry`, :func:`segment_fwd_geometry` and
+:func:`segment_bwd_geometry` — are pure arithmetic that the CPU tests reach;
+each raises ValueError on a shape its kernel does not take, and
+:func:`kernel_refusal` asks both directions of a kernel at once (the
+models' dispatch rule). A differentiable call checks its backward's geometry
+before the forward launches, so a refused shape raises before any launch.
 
 Each public function takes the plain version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises. `LAUNCHES` counts kernel launches
@@ -49,9 +55,10 @@ LAUNCHES = {"fused_rhs_fwd": 0, "fused_rhs_bwd": 0,
             "rbf_gram": 0, "fused_rhs_wide_fwd": 0, "fused_rhs_wide2_fwd": 0,
             "fused_rhs_wide_bwd": 0}
 
-# Kernel limits (csrc/rhs_tile.cuh): Din unrolled up to 16 in registers;
-# 32 * D threads per `fused_rhs` backward block; 227 KB of shared memory per
-# block.
+# Kernel limits (csrc/rhs_tile.cuh): Din unrolled up to 16 in registers; a
+# block holds at least one warp per output dim, so D is bounded by the
+# variant's threads (1024 / 32 at most; the geometries say per variant);
+# 227 KB of shared memory per block.
 MAX_DIN = 16
 MAX_D = 32
 MAX_SMEM_BYTES = 232448
@@ -193,9 +200,10 @@ def _kernel_operands(z, lengthscales, variance, omega, phase, weights, nu):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of csrc/*.cu: tensor pointers, then sizes, then the stream.
 _SIGNATURES = {
-    "fused_rhs": {"gpode_fused_rhs_fwd": [_P] * 9 + [_I] * 7 + [_P],
-                  "gpode_fused_rhs_bwd": [_P] * 14 + [_I] * 6 + [_P],
-                  "gpode_fused_rhs_bwd_occupancy": [_I] * 5 + [_P]},
+    "fused_rhs": {"gpode_fused_rhs_fwd": [_P] * 9 + [_I] * 9 + [_P],
+                  "gpode_fused_rhs_fwd_occupancy": [_I] * 8 + [_P],
+                  "gpode_fused_rhs_bwd": [_P] * 14 + [_I] * 10 + [_P],
+                  "gpode_fused_rhs_bwd_occupancy": [_I] * 8 + [_P]},
     "fused_dopri5": {
         "gpode_dp_attempt_fwd": [_P] * 3 + [_F] * 2 + [_P] * 10 + [_I] * 9 + [_P],
         "gpode_dp_attempt_fwd_occupancy": [_I] * 8 + [_P],
@@ -232,21 +240,8 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _fwd_tiling(d):
-    """`fused_rhs` forward blocks: G groups of D warps, 2 rows per group."""
-    groups = max(1, min(4, 32 // d))
-    return 2 * groups, groups
-
-
 def _sms(dev):
     return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
-def _bwd_rows_per_block(n, dev):
-    """`fused_rhs` backward tile: about three blocks per SM, so the card
-    fills while the per-block partials (and the reduction that reads them)
-    stay small."""
-    return max(1, math.ceil(n / (3 * _sms(dev))))
 
 
 def _acc_floats(din, m, s):
@@ -263,6 +258,19 @@ def _check_smem(nbytes, what):
                          f"block, over the {MAX_SMEM_BYTES}-byte limit")
 
 
+# `fused_rhs` blocks (csrc/fused_rhs.cu): G groups of D warps, about
+# _RHS_*_WARPS warps. The forward takes one tile of RT rows per block; the
+# backward walks tiles of RT rows, at most _RHS_BWD_BLOCKS_PER_SM blocks per
+# SM, so that the slabs (one per block) and the pass that adds them stay
+# small against one VJP per row (PERF.md, PR 6). (dp, rt, maxt) of the
+# instantiated variants, smallest dp first (csrc RHS_FWD_VARIANTS,
+# RHS_BWD_VARIANTS); a shape takes the first with Din <= dp, and D may be
+# at most maxt / 32.
+_RHS_FWD_WARPS = 10
+_RHS_FWD_VARIANTS = ((4, 8, 1024), (5, 8, 1024), (8, 8, 1024), (16, 4, 1024))
+_RHS_BWD_WARPS = 10
+_RHS_BWD_BLOCKS_PER_SM = 1
+_RHS_BWD_VARIANTS = ((4, 4, 640), (5, 6, 640), (8, 4, 512), (16, 1, 512))
 # Segment forward blocks (csrc/rhs_tile.cuh `rhs_tile`): one tile of RT rows
 # per block, about _SEG_FWD_WARPS warps, G groups of D. Measured on an H100
 # at N=3000, Din=D=5 (PERF.md): 8-row tiles in 10-warp blocks capped at 64
@@ -294,12 +302,25 @@ def _align4(floats):
     return (floats + 3) & ~3
 
 
+def _tile_variant(n, din, d, m, s, variants, warps, what):
+    """The (dp, rt, maxt) a row-tile kernel takes for this shape from its
+    `variants`, and G, the groups of D warps of its block: about `warps`
+    warps within the variant's thread bound, at most one group per 32-column
+    unit of a dim. Raises ValueError on a shape the kernel does not take."""
+    if not 1 <= din <= MAX_DIN or min(n, d, m, s) < 1:
+        raise ValueError(f"{what} supports 1 <= Din <= {MAX_DIN} and N, D, M, "
+                         f"S >= 1; got N={n}, Din={din}, D={d}, M={m}, S={s}")
+    dp, rt, maxt = next(v for v in variants if din <= v[0])
+    if 32 * d > maxt:
+        raise ValueError(f"{what} takes D <= {maxt // 32} at Din={din} (a "
+                         f"warp per dim, {maxt} threads per block); got D={d}")
+    units = math.ceil(s / 32) + math.ceil(m / 32)     # 32-column units per dim
+    return dp, rt, maxt, max(1, min(units, min(warps, maxt // 32) // d))
+
+
 def _segment_variant(n, din, d, m, s, stages, variants, warps, what):
-    """The (dp, rt, maxt) a segment kernel takes for this shape from its
-    `variants` by stages, and G, the groups of D warps of its block: about
-    `warps` warps within the variant's thread bound, at most one group per
-    32-column unit of a dim. Raises ValueError on a shape the kernels do not
-    take."""
+    """`_tile_variant` of a segment kernel, which needs Din == D <= 16, from
+    its `variants` by stages."""
     if stages not in (4, 6):
         raise ValueError(f"stages must be 4 (rk4) or 6 (dopri5), got {stages}")
     if din != d:
@@ -307,15 +328,15 @@ def _segment_variant(n, din, d, m, s, stages, variants, warps, what):
     if not 1 <= din <= MAX_DIN or m < 1 or s < 1 or n < 1:
         raise ValueError(f"segment {what} supports 1 <= Din = D <= {MAX_DIN} "
                          f"and N, M, S >= 1; got N={n}, Din={din}, M={m}, S={s}")
-    dp, rt, maxt = next(v for v in variants[stages] if din <= v[0])
-    units = math.ceil(s / 32) + math.ceil(m / 32)     # 32-column units per dim
-    return dp, rt, maxt, max(1, min(units, min(warps, maxt // 32) // d))
+    return _tile_variant(n, din, d, m, s, variants[stages], warps,
+                         f"segment {what}")
 
 
 @dataclasses.dataclass(frozen=True)
-class SegmentFwdGeometry:
-    """Launch geometry of a segment forward kernel (dopri5 attempt: 7
-    evaluations per step; rk4 segment: 4 per substep): one tile per block."""
+class TileFwdGeometry:
+    """Launch geometry of a row-tile forward kernel (`fused_rhs`: one
+    evaluation per row; dopri5 attempt: 7; rk4 segment: 4 per substep): one
+    tile per block."""
     dp: int               # the kernel variant's bound of its loops over Din
     rt: int               # rows per tile and block; 2 * rt <= 32, the fold's width
     groups: int           # G: the block is G groups of D warps
@@ -323,6 +344,71 @@ class SegmentFwdGeometry:
     threads: int
     blocks: int
     smem_bytes: int
+
+
+@dataclasses.dataclass(frozen=True)
+class TileBwdGeometry:
+    """Launch geometry of a row-tile backward kernel (`fused_rhs`: one VJP
+    per row; dopri5 attempt: 6 stages in shared memory; rk4 segment: 4)."""
+    dp: int               # the kernel variant's bound of its loops over Din
+    rt: int               # rows per tile; rt * dp <= 32, the dx fold's width
+    groups: int           # G: the block is G groups of D warps
+    maxt: int             # the variant's thread bound (registers: 65536 / maxt)
+    threads: int
+    rows_per_block: int   # a multiple of rt
+    blocks: int
+    smem_bytes: int
+    part_main_floats: int  # scratch: (blocks, D, main_slab)
+    part_dz_floats: int    # scratch: (blocks, D, M * Din)
+
+
+def _fwd_geometry(n, dp, rt, maxt, groups, d, smem, what):
+    _check_smem(smem, what)
+    return TileFwdGeometry(dp=dp, rt=rt, groups=groups, maxt=maxt,
+                           threads=32 * d * groups, blocks=math.ceil(n / rt),
+                           smem_bytes=smem)
+
+
+def _bwd_geometry(n, din, d, m, s, dp, rt, maxt, groups, max_blocks, smem,
+                  what):
+    """Whole tiles per block, at most `max_blocks` blocks."""
+    _check_smem(smem, what)
+    rows_per_block = rt * math.ceil(math.ceil(n / rt) / max_blocks)
+    blocks = math.ceil(n / rows_per_block)
+    return TileBwdGeometry(
+        dp=dp, rt=rt, groups=groups, maxt=maxt, threads=32 * d * groups,
+        rows_per_block=rows_per_block, blocks=blocks, smem_bytes=smem,
+        part_main_floats=blocks * d * _main_slab(din, m, s),
+        part_dz_floats=blocks * d * m * din)
+
+
+def rhs_fwd_geometry(n, din, d, m, s):
+    """Geometry of the `fused_rhs` forward for N rows (Din may differ from
+    D); raises ValueError on a shape the kernel does not take. Pure
+    arithmetic: no device is touched."""
+    dp, rt, maxt, groups = _tile_variant(n, din, d, m, s, _RHS_FWD_VARIANTS,
+                                         _RHS_FWD_WARPS, "fused_rhs forward")
+    # csrc/fused_rhs.cu rhs_fwd_smem_floats: xt (rt, stride) | il (d, dp) |
+    # red (warps, 32)
+    smem = 4 * (rt * _align4(dp) + _align4(d * dp) + 32 * d * groups)
+    return _fwd_geometry(n, dp, rt, maxt, groups, d, smem, "fused_rhs forward")
+
+
+def rhs_bwd_geometry(n, din, d, m, s, sms):
+    """Geometry of the `fused_rhs` backward for N rows on a card of `sms`
+    multiprocessors (Din may differ from D); raises ValueError on a shape the
+    kernel does not take. Pure arithmetic: no device is touched."""
+    dp, rt, maxt, groups = _tile_variant(n, din, d, m, s, _RHS_BWD_VARIANTS,
+                                         _RHS_BWD_WARPS, "fused_rhs backward")
+    warps = d * groups
+    # csrc/fused_rhs.cu rhs_bwd_smem_floats: xt (rt, stride) | gt (rt, d) |
+    # il (d, dp) | accumulators | dls (warps, dp, 32) | dxw (warps, 32)
+    smem = 4 * (rt * _align4(dp) + _align4(rt * d) + _align4(d * dp)
+                + _align4(d * _acc_floats(din, m, s)) + 32 * dp * warps
+                + 32 * warps)
+    return _bwd_geometry(n, din, d, m, s, dp, rt, maxt, groups,
+                         _RHS_BWD_BLOCKS_PER_SM * sms, smem,
+                         "fused_rhs backward")
 
 
 def segment_fwd_geometry(n, din, d, m, s, stages):
@@ -337,26 +423,7 @@ def segment_fwd_geometry(n, din, d, m, s, stages):
     derivs = 7 if stages == 6 else 4
     smem = 4 * (2 * rt * _align4(dp) + derivs * _align4(rt * dp) + dp * dp
                 + 32 * warps)
-    _check_smem(smem, "segment forward")
-    return SegmentFwdGeometry(dp=dp, rt=rt, groups=groups, maxt=maxt,
-                              threads=32 * warps, blocks=math.ceil(n / rt),
-                              smem_bytes=smem)
-
-
-@dataclasses.dataclass(frozen=True)
-class SegmentBwdGeometry:
-    """Launch geometry of a segment backward kernel (dopri5 attempt: 6
-    stages in shared memory; rk4 segment: 4)."""
-    dp: int               # the kernel variant's bound of its loops over Din
-    rt: int               # rows per tile; rt * dp <= 32, the dx fold's width
-    groups: int           # G: the block is G groups of D warps
-    maxt: int             # the variant's thread bound (registers: 65536 / maxt)
-    threads: int
-    rows_per_block: int   # a multiple of rt
-    blocks: int
-    smem_bytes: int
-    part_main_floats: int  # scratch: (blocks, D, main_slab)
-    part_dz_floats: int    # scratch: (blocks, D, M * Din)
+    return _fwd_geometry(n, dp, rt, maxt, groups, d, smem, "segment forward")
 
 
 def segment_bwd_geometry(n, din, d, m, s, stages, sms):
@@ -367,9 +434,6 @@ def segment_bwd_geometry(n, din, d, m, s, stages, sms):
     dp, rt, maxt, groups = _segment_variant(
         n, din, d, m, s, stages, _SEG_BWD_VARIANTS, _SEG_BWD_WARPS, "backward")
     warps = d * groups
-    tiles = math.ceil(n / rt)
-    rows_per_block = rt * math.ceil(tiles / (_SEG_BWD_BLOCKS_PER_SM * sms))
-    blocks = math.ceil(n / rows_per_block)
     # csrc/rhs_tile.cuh TileSmem: xt (stages, rt, stride) | planes of rt * dp
     # floats (dopri5: gk x 6, gxt; rk4: gx x 4, gt, cot) | il (dp, dp) |
     # accumulators | dls (warps, dp, 32) | dxw (warps, 32)
@@ -377,12 +441,31 @@ def segment_bwd_geometry(n, din, d, m, s, stages, sms):
     smem = 4 * (stages * rt * _align4(dp) + planes * _align4(rt * dp) + dp * dp
                 + _align4(d * _acc_floats(din, m, s)) + 32 * dp * warps
                 + 32 * warps)
-    _check_smem(smem, "segment backward")
-    return SegmentBwdGeometry(
-        dp=dp, rt=rt, groups=groups, maxt=maxt, threads=32 * warps,
-        rows_per_block=rows_per_block, blocks=blocks, smem_bytes=smem,
-        part_main_floats=blocks * d * _main_slab(din, m, s),
-        part_dz_floats=blocks * d * m * din)
+    return _bwd_geometry(n, din, d, m, s, dp, rt, maxt, groups,
+                         _SEG_BWD_BLOCKS_PER_SM * sms, smem, "segment backward")
+
+
+# the kernels that `kernel_refusal` asks, and the stages of the segment ones
+KERNEL_STAGES = {"fused_rhs": None, "rk4_segment": 4, "dopri5_attempt": 6}
+
+
+def kernel_refusal(kernel, n, din, d, m, s):
+    """Why `kernel` (a key of KERNEL_STAGES) would refuse N rows of this
+    shape in either direction — its forward's or its backward's geometry's
+    ValueError message — or None when both take them. Pure arithmetic; one
+    multiprocessor stands in for the card, since the SM count sets only the
+    backward's rows per block, never whether a shape is taken."""
+    stages = KERNEL_STAGES[kernel]
+    try:
+        if stages is None:
+            rhs_fwd_geometry(n, din, d, m, s)
+            rhs_bwd_geometry(n, din, d, m, s, 1)
+        else:
+            segment_fwd_geometry(n, din, d, m, s, stages)
+            segment_bwd_geometry(n, din, d, m, s, stages, 1)
+    except ValueError as exc:
+        return str(exc)
+    return None
 
 
 def _unpack_param_cotangents(out_main, out_dz, din, d, m, s):
@@ -399,16 +482,8 @@ def _unpack_param_cotangents(out_main, out_dz, din, d, m, s):
             dw.T.contiguous(), dnu.contiguous())
 
 
-def _bwd_scratch(n_blocks, din, d, m, s, dev):
-    f32 = dict(dtype=torch.float32, device=dev)
-    qm = _main_slab(din, m, s)
-    return (torch.empty(n_blocks * d * qm, **f32),
-            torch.empty(n_blocks * d * m * din, **f32),
-            torch.empty(d, qm, **f32), torch.empty(m * din, **f32))
-
-
-def _segment_bwd_buffers(geo, n, din, d, m, s, dev):
-    """dx and the scratch of a segment backward at geometry `geo`: one slab
+def _bwd_buffers(geo, n, din, d, m, s, dev):
+    """dx and the scratch of a row-tile backward at geometry `geo`: one slab
     per (block, dim), and the two reduced outputs."""
     f32 = dict(dtype=torch.float32, device=dev)
     return (torch.empty(n, din, **f32),
@@ -421,6 +496,13 @@ def _segment_bwd_buffers(geo, n, din, d, m, s, dev):
 def _raise_on(rc, what):
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _will_backward(*tensors):
+    """Will autograd take a VJP of this call (grad mode on and an operand
+    that requires grad)? Then the backward's geometry is asked before the
+    forward launches."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def require_no_grad(what, *tensors):
@@ -442,12 +524,12 @@ def _launch_rhs_fwd(x, ops, din, d, m, s):
     out = torch.empty(n, d, dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    rows, groups = _fwd_tiling(d)
+    geo = rhs_fwd_geometry(n, din, d, m, s)
     lib = _lib("fused_rhs")
     LAUNCHES["fused_rhs_fwd"] += 1
     rc = lib.gpode_fused_rhs_fwd(
-        _ptr(x), *map(_ptr, ops), _ptr(out), n, din, d, m, s, rows, groups,
-        _stream(dev))
+        _ptr(x), *map(_ptr, ops), _ptr(out), n, din, d, m, s, geo.dp, geo.rt,
+        geo.groups, geo.maxt, _stream(dev))
     _raise_on(rc, "fused_rhs forward")
     return out
 
@@ -457,19 +539,15 @@ def _launch_rhs_bwd_packed(x, g, ops, din, d, m, s):
     (D, main_slab), out_dz (M*Din)), the parameter cotangents still packed."""
     dev = x.device
     n = x.shape[0]
-    rows = _bwd_rows_per_block(n, dev)
-    _check_smem(4 * (d * _acc_floats(din, m, s) + rows * (din + d + d * din)),
-                "fused_rhs backward")
-    n_blocks = math.ceil(n / rows)
-    dx = torch.empty_like(x)
-    part_main, part_dz, out_main, out_dz = _bwd_scratch(n_blocks, din, d, m,
-                                                        s, dev)
+    geo = rhs_bwd_geometry(n, din, d, m, s, _sms(dev))
+    dx, part_main, part_dz, out_main, out_dz = _bwd_buffers(geo, n, din, d, m,
+                                                            s, dev)
     lib = _lib("fused_rhs")
     LAUNCHES["fused_rhs_bwd"] += 1
     rc = lib.gpode_fused_rhs_bwd(
         _ptr(x), _ptr(g), *map(_ptr, ops), _ptr(dx), _ptr(part_main),
-        _ptr(part_dz), _ptr(out_main), _ptr(out_dz), n, din, d, m, s, rows,
-        _stream(dev))
+        _ptr(part_dz), _ptr(out_main), _ptr(out_dz), n, din, d, m, s,
+        geo.rows_per_block, geo.dp, geo.rt, geo.groups, geo.maxt, _stream(dev))
     _raise_on(rc, "fused_rhs backward")
     return dx, out_main, out_dz
 
@@ -481,8 +559,11 @@ def _launch_rhs_bwd(x, g, ops, din, d, m, s):
 
 class _FusedRhsFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, z, lengthscales, variance, omega, phase, weights, nu):
+    def forward(ctx, x, z, lengthscales, variance, omega, phase, weights, nu,
+                will_backward):
         dims = _check(x, z, lengthscales, variance, omega, phase, weights, nu)
+        if will_backward and x.shape[0]:
+            rhs_bwd_geometry(x.shape[0], *dims, _sms(x.device))
         ops = _kernel_operands(z, lengthscales, variance, omega, phase,
                                weights, nu)
         ctx.save_for_backward(x, *ops)
@@ -493,20 +574,22 @@ class _FusedRhsFn(torch.autograd.Function):
     def backward(ctx, g):
         x, *ops = ctx.saved_tensors
         if x.shape[0] == 0:
-            return (None,) * 8
-        return _launch_rhs_bwd(x, g.contiguous(), ops, *ctx.dims)
+            return (None,) * 9
+        return _launch_rhs_bwd(x, g.contiguous(), ops, *ctx.dims) + (None,)
 
 
 def fused_rhs(x, z, lengthscales, variance, omega, phase, weights, nu):
     """Fused dimwise ODE right-hand side: (N, Din) -> (N, D).
 
-    Differentiable in every operand; on CUDA both directions are kernels.
+    Differentiable in every operand; on CUDA both directions are kernels,
+    and a shape that the backward would refuse raises before the forward
+    launches when a gradient will be taken.
     """
     if x.device.type == "cpu":
         return fused_rhs_plain(x, z, lengthscales, variance, omega, phase,
                                weights, nu)
-    return _FusedRhsFn.apply(x, z, lengthscales, variance, omega, phase,
-                             weights, nu)
+    operands = (x, z, lengthscales, variance, omega, phase, weights, nu)
+    return _FusedRhsFn.apply(*operands, _will_backward(*operands))
 
 
 # ---------------------------------------------------------------------------
@@ -572,7 +655,7 @@ def _launch_dp_bwd(xs, g, dt, ops, din, d, m, s):
     dev = xs.device
     n = xs.shape[1]
     geo = segment_bwd_geometry(n, din, d, m, s, 6, _sms(dev))
-    dx, part_main, part_dz, out_main, out_dz = _segment_bwd_buffers(
+    dx, part_main, part_dz, out_main, out_dz = _bwd_buffers(
         geo, n, din, d, m, s, dev)
     lib = _lib("fused_dopri5")
     LAUNCHES["fused_dopri5_attempt_bwd"] += 1
@@ -588,9 +671,11 @@ def _launch_dp_bwd(xs, g, dt, ops, din, d, m, s):
 class _FusedDopri5AttemptFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x0, dt, z, lengthscales, variance, omega, phase, weights,
-                nu, rtol, atol):
+                nu, rtol, atol, will_backward):
         dims, dt = _check_segment(x0, dt, z, lengthscales, variance, omega,
                                   phase, weights, nu, "the dopri5 attempt")
+        if will_backward and x0.shape[0]:
+            segment_bwd_geometry(x0.shape[0], *dims, 6, _sms(x0.device))
         ops = _kernel_operands(z, lengthscales, variance, omega, phase,
                                weights, nu)
         x5, err, xs = _launch_dp_fwd(x0, dt, float(rtol), float(atol), ops,
@@ -604,9 +689,9 @@ class _FusedDopri5AttemptFn(torch.autograd.Function):
     def backward(ctx, g_x5, _g_err):
         xs, dt, *ops = ctx.saved_tensors
         if g_x5 is None or xs.shape[1] == 0:
-            return (None,) * 11
+            return (None,) * 12
         grads = _launch_dp_bwd(xs, g_x5.contiguous(), dt, ops, *ctx.dims)
-        return (grads[0], None) + grads[1:] + (None, None)
+        return (grads[0], None) + grads[1:] + (None, None, None)
 
 
 def fused_dopri5_attempt(x0, dt, z, lengthscales, variance, omega, phase,
@@ -621,8 +706,10 @@ def fused_dopri5_attempt(x0, dt, z, lengthscales, variance, omega, phase,
                                           omega, phase, weights, nu, rtol,
                                           atol)
         return x5, err
-    return _FusedDopri5AttemptFn.apply(x0, dt, z, lengthscales, variance,
-                                       omega, phase, weights, nu, rtol, atol)
+    return _FusedDopri5AttemptFn.apply(
+        x0, dt, z, lengthscales, variance, omega, phase, weights, nu, rtol,
+        atol, _will_backward(x0, z, lengthscales, variance, omega, phase,
+                             weights, nu))
 
 
 # ---------------------------------------------------------------------------
@@ -650,7 +737,7 @@ def _launch_rk4_bwd(xs, g, dt, substeps, ops, din, d, m, s):
     dev = xs.device
     n = xs.shape[1]
     geo = segment_bwd_geometry(n, din, d, m, s, 4, _sms(dev))
-    dx, part_main, part_dz, out_main, out_dz = _segment_bwd_buffers(
+    dx, part_main, part_dz, out_main, out_dz = _bwd_buffers(
         geo, n, din, d, m, s, dev)
     lib = _lib("fused_rk4")
     LAUNCHES["fused_rk4_segment_bwd"] += 1
@@ -666,9 +753,11 @@ def _launch_rk4_bwd(xs, g, dt, substeps, ops, din, d, m, s):
 class _FusedRk4SegmentFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x0, dt, z, lengthscales, variance, omega, phase, weights,
-                nu, substeps):
+                nu, substeps, will_backward):
         dims, dt = _check_segment(x0, dt, z, lengthscales, variance, omega,
                                   phase, weights, nu, "the rk4 segment")
+        if will_backward and x0.shape[0]:
+            segment_bwd_geometry(x0.shape[0], *dims, 4, _sms(x0.device))
         ops = _kernel_operands(z, lengthscales, variance, omega, phase,
                                weights, nu)
         x1, xs = _launch_rk4_fwd(x0, dt, substeps, ops, *dims)
@@ -680,10 +769,10 @@ class _FusedRk4SegmentFn(torch.autograd.Function):
     def backward(ctx, g):
         xs, dt, *ops = ctx.saved_tensors
         if xs.shape[1] == 0:
-            return (None,) * 10
+            return (None,) * 11
         grads = _launch_rk4_bwd(xs, g.contiguous(), dt, ctx.substeps, ops,
                                 *ctx.dims)
-        return (grads[0], None) + grads[1:] + (None,)
+        return (grads[0], None) + grads[1:] + (None, None)
 
 
 def fused_rk4_segment(x0, dt, z, lengthscales, variance, omega, phase,
@@ -699,8 +788,10 @@ def fused_rk4_segment(x0, dt, z, lengthscales, variance, omega, phase,
     if x0.device.type == "cpu":
         return rk4_segment_plain(x0, dt.detach(), z, lengthscales, variance,
                                  omega, phase, weights, nu, substeps)[0]
-    return _FusedRk4SegmentFn.apply(x0, dt, z, lengthscales, variance, omega,
-                                    phase, weights, nu, substeps)
+    return _FusedRk4SegmentFn.apply(
+        x0, dt, z, lengthscales, variance, omega, phase, weights, nu, substeps,
+        _will_backward(x0, z, lengthscales, variance, omega, phase, weights,
+                       nu))
 
 
 # ---------------------------------------------------------------------------
@@ -730,9 +821,13 @@ def kernel_occupancy(lib_name, c_function, entry_key, *int_args):
                 spill_loads=found[0]["spill_loads"])
 
 
-# (library, kernel, occupancy query) of the segment kernels by (direction,
-# stages); a kernel variant's mangled name holds
-# f"{kernel}ILi{dp}ELi{rt}ELi{maxt}EE"
+# (library, kernel, occupancy query) of the row-tile kernels: `fused_rhs`
+# by direction, the segment kernels by (direction, stages); a kernel
+# variant's mangled name holds f"{kernel}ILi{dp}ELi{rt}ELi{maxt}EE"
+RHS_KERNELS = {
+    "fwd": ("fused_rhs", "rhs_fwd_kernel", "gpode_fused_rhs_fwd_occupancy"),
+    "bwd": ("fused_rhs", "rhs_bwd_kernel", "gpode_fused_rhs_bwd_occupancy"),
+}
 SEGMENT_KERNELS = {
     ("fwd", 6): ("fused_dopri5", "dp_attempt_fwd_kernel",
                  "gpode_dp_attempt_fwd_occupancy"),
@@ -741,16 +836,13 @@ SEGMENT_KERNELS = {
     ("fwd", 4): ("fused_rk4", "rk4_fwd_kernel", "gpode_rk4_fwd_occupancy"),
     ("bwd", 4): ("fused_rk4", "rk4_bwd_kernel", "gpode_rk4_bwd_occupancy"),
 }
-# the (dp, rt, maxt) variants each segment kernel instantiates
+# the (dp, rt, maxt) variants each kernel instantiates
+RHS_VARIANTS = {"fwd": _RHS_FWD_VARIANTS, "bwd": _RHS_BWD_VARIANTS}
 SEGMENT_VARIANTS = {("fwd", st): _SEG_FWD_VARIANTS[st] for st in (6, 4)}
 SEGMENT_VARIANTS.update({("bwd", st): _SEG_BWD_VARIANTS[st] for st in (6, 4)})
 
 
-def segment_occupancy(direction, stages, din, d, m, s, geo):
-    """`kernel_occupancy` of the dopri5-attempt (`stages=6`) or rk4-segment
-    (`stages=4`) kernel, forward (`direction="fwd"`) or backward ("bwd"),
-    at geometry `geo`."""
-    lib_name, kernel, fn = SEGMENT_KERNELS[direction, stages]
+def _tile_occupancy(lib_name, kernel, fn, din, d, m, s, geo):
     key = f"{kernel}ILi{geo.dp}ELi{geo.rt}ELi{geo.maxt}EE"
     report = kernel_occupancy(lib_name, fn, key, din, d, m, s, geo.dp, geo.rt,
                               geo.groups, geo.maxt)
@@ -760,11 +852,18 @@ def segment_occupancy(direction, stages, din, d, m, s, geo):
     return report
 
 
-def rhs_bwd_occupancy(n, din, d, m, s, dev):
-    """`kernel_occupancy` of the `fused_rhs` backward for N rows."""
-    return kernel_occupancy("fused_rhs", "gpode_fused_rhs_bwd_occupancy",
-                            "fused_rhs_bwd_kernel", din, d, m, s,
-                            _bwd_rows_per_block(n, dev))
+def rhs_occupancy(direction, din, d, m, s, geo):
+    """`kernel_occupancy` of the `fused_rhs` forward (`direction="fwd"`) or
+    backward ("bwd") at geometry `geo`."""
+    return _tile_occupancy(*RHS_KERNELS[direction], din, d, m, s, geo)
+
+
+def segment_occupancy(direction, stages, din, d, m, s, geo):
+    """`kernel_occupancy` of the dopri5-attempt (`stages=6`) or rk4-segment
+    (`stages=4`) kernel, forward (`direction="fwd"`) or backward ("bwd"),
+    at geometry `geo`."""
+    return _tile_occupancy(*SEGMENT_KERNELS[direction, stages], din, d, m, s,
+                           geo)
 
 
 # ---------------------------------------------------------------------------

@@ -234,6 +234,14 @@ def _fwd_rows_per_block(n, dev):
     return _ROWS * max(1, math.ceil(n / (_ROWS * 6 * sms)))
 
 
+def _bwd_rows_per_block(n, dev):
+    """Backward tile: whole passes of _ROWS rows, about three blocks per SM,
+    so the card fills while the per-block slabs (and the reduction that
+    reads them) stay small."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _ROWS * max(1, math.ceil(max(1, math.ceil(n / (3 * sms))) / _ROWS))
+
+
 def launch_wide_fwd(x, b, phase_w, zn_w, invls2_t, wts, d, sp, mp, dense):
     """One forward launch over packed operands: `wts` is Wblk (W, D) when
     `dense`, else the flat weight row (1, W). Returns f (N, D)."""
@@ -260,7 +268,7 @@ def launch_wide_bwd(x, g, b, phase_w, zn_w, invls2_t, wblk, d, sp, mp):
     n, din = x.shape
     w = d * (sp + mp)
     slab = w * (din + d + 1) + din * d
-    rows = _ROWS * max(1, math.ceil(ck._bwd_rows_per_block(n, dev) / _ROWS))
+    rows = _bwd_rows_per_block(n, dev)
     ck._check_smem(4 * (slab + _ROWS * (din + 3 * d)
                         + _BWD_WARPS * _ROWS * (din + d)),
                    "fused_rhs_wide backward")

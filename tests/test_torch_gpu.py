@@ -315,19 +315,109 @@ def test_fused_rk4_segment_backward_over_shapes(cuda, n, dim, m, s, substeps):
 
 
 def test_segment_backward_raises_on_unsupported_shapes(cuda):
-    """Din = D = 16 needs 404 KB of accumulators: refused before a launch."""
+    """Din = D = 16 needs 404 KB of accumulators: when a gradient will be
+    taken, the call raises before any launch (the forward's included);
+    without one the forward runs."""
     args = _segment_inputs(cuda, 8, 16, 100, 256, seed=23)
     dt = torch.full((1,), 0.01, device=cuda)
-    before = (ck.LAUNCHES["fused_rk4_segment_bwd"],
-              ck.LAUNCHES["fused_dopri5_attempt_bwd"])
-    x1 = ck.fused_rk4_segment(args[0], dt, *args[1:], 1)
+    before = dict(ck.LAUNCHES)
     with pytest.raises(ValueError, match="shared memory"):
-        x1.sum().backward()
-    x5, _ = ck.fused_dopri5_attempt(args[0], dt, *args[1:], 1e-6, 1e-6)
+        ck.fused_rk4_segment(args[0], dt, *args[1:], 1)
     with pytest.raises(ValueError, match="shared memory"):
-        x5.sum().backward()
-    assert before == (ck.LAUNCHES["fused_rk4_segment_bwd"],
-                      ck.LAUNCHES["fused_dopri5_attempt_bwd"])
+        ck.fused_dopri5_attempt(args[0], dt, *args[1:], 1e-6, 1e-6)
+    assert ck.LAUNCHES == before
+    with torch.no_grad():
+        x1 = ck.fused_rk4_segment(args[0], dt, *args[1:], 1)
+        x5, _ = ck.fused_dopri5_attempt(args[0], dt, *args[1:], 1e-6, 1e-6)
+    _assert_close(x1, ck.rk4_segment_plain(args[0], dt, *args[1:], 1)[0], "x1")
+    _assert_close(x5, ck.dopri5_attempt_plain(args[0], dt, *args[1:])[0], "x5")
+    assert ck.LAUNCHES["fused_rk4_segment_fwd"] == before["fused_rk4_segment_fwd"] + 1
+    assert ck.LAUNCHES["fused_rk4_segment_bwd"] == before["fused_rk4_segment_bwd"]
+
+
+# (N, Din, D, M, S): the bench shape, ragged tiles (37, 2995 rows; S=100
+# and M=40 leave ragged 32-column units), one row, M=256, Din != D both
+# ways, and the widest D the backward takes (square at the bench's M and S;
+# Din <= 4 with its 640-thread variant)
+RHS_SHAPES = [(N, DIM, DIM, M, S), (37, DIM, DIM, M, S), (1, DIM, DIM, M, S),
+              (2995, DIM, DIM, M, S), (N, DIM, DIM, 256, S),
+              (203, DIM, DIM, 40, 100), (300, 3, 5, M, S), (300, 8, 2, M, S),
+              (300, 11, 11, M, S), (300, 4, 20, 40, 64)]
+RHS_IDS = ["bench", "ragged_n37", "one_row", "rows2995", "m256",
+           "ragged_units", "din3_d5", "din8_d2", "widest_square_d11",
+           "widest_d20"]
+
+
+@pytest.mark.parametrize("n,din,d,m,s", RHS_SHAPES, ids=RHS_IDS)
+def test_fused_rhs_over_shapes(cuda, n, din, d, m, s):
+    """Both `fused_rhs` kernels against the plain version, one launch per
+    direction per call, and two calls bit-identical (every sum in one fixed
+    order, no atomics)."""
+    args = [a.requires_grad_() for a in _wide_inputs(cuda, n, m, 30, din, d, s)]
+    g = torch.randn(n, d, device=cuda, generator=torch.Generator(cuda).manual_seed(31))
+    before = dict(ck.LAUNCHES)
+    out = ck.fused_rhs(*args)
+    first = _grads(out, args, g)
+    assert ck.LAUNCHES["fused_rhs_fwd"] == before["fused_rhs_fwd"] + 1
+    assert ck.LAUNCHES["fused_rhs_bwd"] == before["fused_rhs_bwd"] + 1
+    ref = ck.fused_rhs_plain(*args)
+    _assert_close(out, ref, "forward")
+    for name, a, b in zip(NAMES, first, _grads(ref, args, g)):
+        _assert_close(a, b, name, fwd=False)
+    again = ck.fused_rhs(*args)
+    assert torch.equal(out, again)
+    for name, a, b in zip(NAMES, first, _grads(again, args, g)):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("din,d,m,s,match", [
+    (4, 21, 40, 64, "D <= 20"), (12, 12, M, S, "shared memory")],
+    ids=["d21_threads", "d12_smem"])
+def test_fused_rhs_refuses_before_any_launch(cuda, din, d, m, s, match):
+    """A shape the backward refuses raises at the call when a gradient will
+    be taken, before the forward launches; without one the forward runs."""
+    args = _wide_inputs(cuda, 300, m, 32, din, d, s)
+    before = dict(ck.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        ck.fused_rhs(args[0].clone().requires_grad_(), *args[1:])
+    assert ck.LAUNCHES == before
+    _assert_close(ck.fused_rhs(*args), ck.fused_rhs_plain(*args), "forward")
+    assert ck.LAUNCHES["fused_rhs_fwd"] == before["fused_rhs_fwd"] + 1
+
+
+@pytest.mark.parametrize("dim", [12, 17])
+@pytest.mark.parametrize("preset", ["official", "fast"])
+def test_wide_shooting_step_takes_the_plain_path(cuda, preset, dim):
+    """A shooting step at D = 12 (the segment backwards' shared memory) and
+    D = 17 (every kernel's width) over 4 x 32 x 5 = 640 segment rows: the
+    auto rule takes the plain path (no launch, no ValueError), so the step-0
+    loss equals kernels=False and a train step runs; forcing the kernels
+    raises ValueError before any launch."""
+    from gpode_tpu_torch.models.shooting import sample_step_noise
+    from gpode_tpu_torch.train.bench_setup import preset_model_args
+    from gpode_tpu_torch.train.builders import build_shooting, shooting_loss_fn
+    from gpode_tpu_torch.train.trainer import default_optimizer, make_train_step
+
+    args = preset_model_args(preset)
+    ys = np.random.default_rng(40).normal(size=(4, 33, dim)).astype(np.float32)
+    params = build_shooting(torch.Generator().manual_seed(0), args, ys,
+                            device=cuda)
+    ys_t = torch.as_tensor(ys, device=cuda)
+    ts = 0.01 * torch.arange(33, dtype=torch.float32, device=cuda)
+    noise = sample_step_noise(params, args.num_features, args.num_samples,
+                              torch.Generator(cuda).manual_seed(41))
+    before = dict(ck.LAUNCHES)
+    with torch.no_grad():
+        loss = float(shooting_loss_fn(args)(params, noise, ys_t, ts)[0])
+        plain = float(shooting_loss_fn(args, kernels=False)(params, noise, ys_t, ts)[0])
+    assert np.isfinite(loss) and abs(loss - plain) <= 1e-4 * abs(plain)
+    step = make_train_step(shooting_loss_fn(args), params,
+                           default_optimizer(params, 5e-3))
+    assert np.isfinite(float(step(noise, ys_t, ts).loss))
+    assert ck.LAUNCHES == before
+    with pytest.raises(ValueError):
+        shooting_loss_fn(args, kernels=True)(params, noise, ys_t, ts)
+    assert ck.LAUNCHES == before
 
 
 def _segment_forward(kind, args, dt, substeps):
