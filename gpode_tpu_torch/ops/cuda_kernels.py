@@ -262,13 +262,15 @@ def _check_smem(nbytes, what):
 # _RHS_*_WARPS warps. The forward takes one tile of RT rows per block; the
 # backward walks tiles of RT rows, at most _RHS_BWD_BLOCKS_PER_SM blocks per
 # SM, so that the slabs (one per block) and the pass that adds them stay
-# small against one VJP per row (PERF.md, PR 6). (dp, rt, maxt) of the
-# instantiated variants, smallest dp first (csrc RHS_FWD_VARIANTS,
-# RHS_BWD_VARIANTS); a shape takes the first with Din <= dp, and D may be
-# at most maxt / 32.
+# small against one VJP per row. Measured on an H100 at N=3000, Din=D=5
+# (the sweep is in PERF.md, PR 6): 10-warp forward blocks beat 5 and 20;
+# one 20-warp backward block per SM beats 5 and 10 warps and 2-4 blocks per
+# SM. (dp, rt, maxt) of the instantiated variants, smallest dp first (csrc
+# RHS_FWD_VARIANTS, RHS_BWD_VARIANTS); a shape takes the first with
+# Din <= dp, and D may be at most maxt / 32.
 _RHS_FWD_WARPS = 10
-_RHS_FWD_VARIANTS = ((4, 8, 1024), (5, 8, 1024), (8, 8, 1024), (16, 4, 1024))
-_RHS_BWD_WARPS = 10
+_RHS_FWD_VARIANTS = ((4, 8, 1024), (5, 8, 1024), (8, 8, 1024), (16, 4, 512))
+_RHS_BWD_WARPS = 20
 _RHS_BWD_BLOCKS_PER_SM = 1
 _RHS_BWD_VARIANTS = ((4, 4, 640), (5, 6, 640), (8, 4, 512), (16, 1, 512))
 # Segment forward blocks (csrc/rhs_tile.cuh `rhs_tile`): one tile of RT rows

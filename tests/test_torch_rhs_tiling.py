@@ -105,14 +105,14 @@ def test_backward_geometry_covers_rows_and_fits_the_card(shape, sms):
 
 
 def test_main_path_geometry():
-    """At the bench shapes: the exact-width variants, 10-warp blocks, 8-row
-    forward tiles (more blocks than SMs) and at most one backward block per
-    SM, each with several tiles."""
+    """At the bench shapes: the exact-width variants, 10-warp forward blocks
+    of 8-row tiles (more blocks than SMs) and at most one 20-warp backward
+    block per SM, each with several tiles."""
     n, din, d, m, s = SHAPES["official"]
     fwd = ck.rhs_fwd_geometry(n, din, d, m, s)
     assert (fwd.dp, fwd.rt, fwd.maxt, fwd.threads, fwd.blocks) == (5, 8, 1024, 320, 375)
     bwd = ck.rhs_bwd_geometry(n, din, d, m, s, SMS)
-    assert (bwd.dp, bwd.rt, bwd.maxt, bwd.threads) == (5, 6, 640, 320)
+    assert (bwd.dp, bwd.rt, bwd.maxt, bwd.threads) == (5, 6, 640, 640)
     assert bwd.blocks <= ck._RHS_BWD_BLOCKS_PER_SM * SMS
     assert bwd.rows_per_block >= 2 * bwd.rt
 
@@ -124,10 +124,10 @@ FWD_REFUSED = [
     ((100, 5, 0, 100, 256), r"N, D, M, S >= 1"),
     ((100, 5, 5, 0, 256), r"N, D, M, S >= 1"),
     ((100, 5, 5, 100, 0), r"N, D, M, S >= 1"),
-    ((100, 16, 33, 16, 32), "D <= 32"),
+    ((100, 4, 33, 16, 32), "D <= 32"),       # the 1024-thread variants
+    ((100, 9, 17, 16, 32), "D <= 16"),       # the 512-thread variant
 ]
-BWD_REFUSED = FWD_REFUSED[:-1] + [
-    ((100, 16, 33, 16, 32), "D <= 16"),      # the 512-thread variant
+BWD_REFUSED = FWD_REFUSED[:-2] + [
     ((100, 4, 21, 40, 64), "D <= 20"),       # the 640-thread variant
     ((100, 8, 17, 40, 64), "D <= 16"),       # the 512-thread variant
     ((100, 12, 12, 100, 256), "shared memory"),
@@ -137,7 +137,8 @@ BWD_REFUSED = FWD_REFUSED[:-1] + [
 
 @pytest.mark.parametrize("args,match", FWD_REFUSED,
                          ids=["din17", "din0", "no_rows", "no_dims",
-                              "no_inducing", "no_features", "d33"])
+                              "no_inducing", "no_features", "din4_d33",
+                              "din9_d17"])
 def test_unsupported_forward_shape_raises_before_any_launch(args, match):
     before = dict(ck.LAUNCHES)
     with pytest.raises(ValueError, match=match):
@@ -147,7 +148,7 @@ def test_unsupported_forward_shape_raises_before_any_launch(args, match):
 
 @pytest.mark.parametrize("args,match", BWD_REFUSED,
                          ids=["din17", "din0", "no_rows", "no_dims",
-                              "no_inducing", "no_features", "d33", "d21",
+                              "no_inducing", "no_features", "din4_d21",
                               "din8_d17", "d12_smem", "m4000_smem"])
 def test_unsupported_backward_shape_raises_before_any_launch(args, match):
     before = dict(ck.LAUNCHES)
@@ -159,8 +160,8 @@ def test_unsupported_backward_shape_raises_before_any_launch(args, match):
 @pytest.mark.parametrize("din,fwd,bwd", [
     (1, (4, 8, 1024), (4, 4, 640)), (4, (4, 8, 1024), (4, 4, 640)),
     (5, (5, 8, 1024), (5, 6, 640)), (6, (8, 8, 1024), (8, 4, 512)),
-    (8, (8, 8, 1024), (8, 4, 512)), (9, (16, 4, 1024), (16, 1, 512)),
-    (16, (16, 4, 1024), (16, 1, 512)),
+    (8, (8, 8, 1024), (8, 4, 512)), (9, (16, 4, 512), (16, 1, 512)),
+    (16, (16, 4, 512), (16, 1, 512)),
 ])
 def test_each_width_takes_the_narrowest_instantiated_variant(din, fwd, bwd):
     """(loop bound over Din, rows per tile, thread bound) by Din, whatever
