@@ -239,7 +239,7 @@ def _bwd_rows_per_block(n, dev):
     so the card fills while the per-block slabs (and the reduction that
     reads them) stay small."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _ROWS * max(1, math.ceil(max(1, math.ceil(n / (3 * sms))) / _ROWS))
+    return _ROWS * max(1, math.ceil(n / (_ROWS * 3 * sms)))
 
 
 def launch_wide_fwd(x, b, phase_w, zn_w, invls2_t, wts, d, sp, mp, dense):
