@@ -131,7 +131,7 @@ REPLACES = {
 # The six redesigned row-tile kernels: device ms per launch before their
 # redesign (`ms`; PERF.md, NVIDIA H100 80GB HBM3, 700.00 W) and the ratio of
 # each to one launch of the yardstick GEMM of the same call, recorded on the
-# kernels of commit 350a559 (`ratio`; PERF.md, PR 6 call 1, GEMM 0.3409 ms).
+# kernels of commit 350a559 (`ratio`; PERF.md, GEMM 0.3409 ms).
 # Held in every call: the ratio now is at most `limit` — 1.25x the recorded
 # ratio for the four segment kernels, and the recorded ratio / 1.5 for the
 # two `fused_rhs` kernels (their redesign is 1.5x faster whatever card the

@@ -263,7 +263,7 @@ def _check_smem(nbytes, what):
 # backward walks tiles of RT rows, at most _RHS_BWD_BLOCKS_PER_SM blocks per
 # SM, so that the slabs (one per block) and the pass that adds them stay
 # small against one VJP per row. Measured on an H100 at N=3000, Din=D=5
-# (the sweep is in PERF.md, PR 6): 10-warp forward blocks beat 5 and 20;
+# (the sweep is in PERF.md): 10-warp forward blocks beat 5 and 20;
 # one 20-warp backward block per SM beats 5 and 10 warps and 2-4 blocks per
 # SM. (dp, rt, maxt) of the instantiated variants, smallest dp first (csrc
 # RHS_FWD_VARIANTS, RHS_BWD_VARIANTS); a shape takes the first with
