@@ -23,21 +23,21 @@ exit code and no result line:
      `m256_fast` shape). `rbf_gram`
      is held at the same N=3000, M=100, at M=256 and at N=77 (a ragged last
      tile); the three wide-layout rhs functions against their plain versions
-     at N=2995 and 3000, M=100 and 256, the wide backward also for
-     bit-identical reruns. Bounds read the function,
-     not the formulation: the wide kernels take the per-dim rhs's counts.
-     The dopri5 attempt's forward and backward are held and timed at M=256
-     too, the rk4 segment's timed at 3 substeps and at M=256, and two
-     launches of each row-tile kernel (`fused_rhs` and the segment kernels)
-     must be bit-identical. For every backward kernel and every row-tile
-     forward it prints registers and spill bytes (the build's ptxas record),
-     block size, dynamic shared memory and resident blocks and warps per SM
-     (the occupancy query); every built variant of the six row-tile kernels
-     must be free of spills and be one the launch geometry selects. The
-     yardstick of their speed is one float32 GEMM (`torch.mm` of two
-     GEMM_N x GEMM_N matrices, TF32 off), which shares no code with any
-     kernel here, timed in the same call: each of the six must stay within
-     the limit of its ratio to that GEMM (EARLIER);
+     at N=2995 and 3000, M=100 and 256, each also for bit-identical reruns.
+     Bounds read the function, not the formulation: the wide kernels take
+     the per-dim rhs's counts. The dopri5 attempt's forward and backward
+     are held and timed at M=256 too, the rk4 segment's timed at 3 substeps
+     and at M=256, and two launches of each row-tile kernel (`fused_rhs` and
+     the segment kernels) must be bit-identical. For each of the nine
+     redesigned kernels (the six row-tile ones and the three wide ones) it
+     prints registers and spill bytes (the build's ptxas record), block
+     size, dynamic shared memory and resident blocks and warps per SM (the
+     occupancy query); every built variant must be free of spills and be
+     one the launch geometry selects. The yardstick of their speed is one
+     float32 GEMM (`torch.mm` of two GEMM_N x GEMM_N matrices, TF32 off),
+     which shares no code with any kernel here, timed in the same call: each
+     of the nine must stay within the limit of its ratio to that GEMM
+     (EARLIER);
   4. train: the official-recipe shooting train step (dopri5, whole-span
      first step, 5 MC draws, no frozen mask as in bench.py): the step-0 loss
      against the same step through the plain path at rtol 1e-4, then 3
@@ -45,7 +45,10 @@ exit code and no result line:
      before them;
   5. reject fallback: `flow_forward` of the bench draw over a span whose
      whole-span attempt is rejected, through the kernels and through the
-     plain path, held equal (rtol 1e-4);
+     plain path, held equal (rtol 1e-4); then the accept test near its
+     threshold: at every span 0.01 * 1.05^k whose float64 plain error RMS
+     lies in [0.5, 2] (not within 1e-3 of 1), the attempt kernel and the
+     float32 plain path must accept or reject alike, spans on both sides;
   5b. official heuristic: the official preset with Hairer's first-step
      heuristic (`first_step=None`, `max_steps=64`: the train scripts'
      defaults), whose generic dopri5 solve launches the `fused_rhs` forward
@@ -128,14 +131,16 @@ REPLACES = {
     "fused_rhs_wide2_fwd": "scripts/proto_wide_rhs.py:168",
     "fused_rhs_wide_bwd": "scripts/proto_wide_rhs.py:305",
 }
-# The six redesigned row-tile kernels: device ms per launch before their
-# redesign (`ms`; PERF.md, NVIDIA H100 80GB HBM3, 700.00 W) and the ratio of
-# each to one launch of the yardstick GEMM of the same call, recorded on the
-# kernels of commit 350a559 (`ratio`; PERF.md, GEMM 0.3409 ms).
+# The nine redesigned kernels (six on the row tile, three wide-layout ones):
+# device ms per launch before their redesign (`ms`; PERF.md, NVIDIA H100
+# 80GB HBM3, 700.00 W) and the ratio of each to one launch of the yardstick
+# GEMM of the same call, recorded on the kernels of commit 350a559 for the
+# row-tile kernels (`ratio`; PERF.md, GEMM 0.3409 ms) and of commit 90e806b
+# for the wide ones (GEMM 0.3406 ms).
 # Held in every call: the ratio now is at most `limit` — 1.25x the recorded
 # ratio for the four segment kernels, and the recorded ratio / 1.5 for the
-# two `fused_rhs` kernels (their redesign is 1.5x faster whatever card the
-# call lands on).
+# two `fused_rhs` kernels and the three wide ones (their redesign is 1.5x
+# faster whatever card the call lands on).
 EARLIER = {
     "fused_rhs_fwd": dict(ms=0.0321, ratio=0.0951, limit=0.0951 / 1.5),
     "fused_rhs_bwd": dict(ms=0.1692, ratio=0.5013, limit=0.5013 / 1.5),
@@ -143,6 +148,9 @@ EARLIER = {
     "fused_dopri5_attempt_bwd": dict(ms=0.8809, ratio=0.5843, limit=1.25 * 0.5843),
     "fused_rk4_segment_fwd": dict(ms=0.1198, ratio=0.1305, limit=1.25 * 0.1305),
     "fused_rk4_segment_bwd": dict(ms=0.5846, ratio=0.4721, limit=1.25 * 0.4721),
+    "fused_rhs_wide_fwd": dict(ms=0.0291, ratio=0.0859, limit=0.0859 / 1.5),
+    "fused_rhs_wide2_fwd": dict(ms=0.0299, ratio=0.0884, limit=0.0884 / 1.5),
+    "fused_rhs_wide_bwd": dict(ms=0.1127, ratio=0.3307, limit=0.3307 / 1.5),
 }
 
 # the kernels each path must launch, and those a train path must not
@@ -626,27 +634,37 @@ TILE = {"fused_rhs_fwd": ("fwd", None), "fused_rhs_bwd": ("bwd", None),
         "fused_rk4_segment_bwd": ("bwd", 4)}
 
 
-def tile_tables(name):
-    """((library, kernel, occupancy query), the instantiated variants) of a
-    row-tile kernel."""
+def variant_table(name):
+    """(library, kernel, the mangled template argument after (dp, rt, maxt),
+    the instantiated (dp, rt, maxt) variants) of a redesigned kernel."""
     from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.ops import wide_rhs as wr
+    if name in wr.WIDE_KERNELS:
+        direction, suffix = wr.WIDE_KERNELS[name]
+        return ("fused_rhs_wide", wr.WIDE_KERNEL_NAMES[direction], suffix,
+                wr.WIDE_VARIANTS[direction])
     direction, stages = TILE[name]
     if stages is None:
-        return ck.RHS_KERNELS[direction], ck.RHS_VARIANTS[direction]
-    return (ck.SEGMENT_KERNELS[direction, stages],
-            ck.SEGMENT_VARIANTS[direction, stages])
+        (lib_name, kernel, _), variants = (ck.RHS_KERNELS[direction],
+                                           ck.RHS_VARIANTS[direction])
+    else:
+        (lib_name, kernel, _), variants = (ck.SEGMENT_KERNELS[direction, stages],
+                                           ck.SEGMENT_VARIANTS[direction, stages])
+    return lib_name, kernel, "", variants
 
 
 def check_variants_free_of_spills(name):
-    """Every instantiated variant of a row-tile kernel (one per range of
-    Din), from the build's ptxas record: the table the launch geometry
-    selects from is what was built, and none of it spills."""
+    """Every instantiated variant of a redesigned kernel (one per range of
+    Din, or of max(Din, D) for the wide kernels), from the build's ptxas
+    record: the table the launch geometry selects from is what was built,
+    and none of it spills."""
     from gpode_tpu_torch.ops import cuda_build
-    (lib_name, kernel, _), variants = tile_tables(name)
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    lib_name, kernel, suffix, variants = variant_table(name)
     built = {k: v for k, v in cuda_build.kernel_resources(lib_name).items()
-             if kernel in k}
+             if kernel in k and f"{suffix}E" in k}
     for dp, rt, maxt in variants:
-        key = f"{kernel}ILi{dp}ELi{rt}ELi{maxt}EE"
+        key = ck.variant_key(kernel, dp, rt, maxt, suffix)
         found = [v for k, v in built.items() if key in k]
         check(len(found) == 1, f"{name}: {len(found)} builds of {key}")
         print(f"  {name} variant <{dp}, {rt}, {maxt}>: {found[0]['registers']} "
@@ -660,23 +678,30 @@ def check_variants_free_of_spills(name):
 
 
 def report_tile_kernel(dev, name, n, dims, out, gemm, **extra):
-    """A redesigned row-tile kernel at N rows of shape `dims` (Din, D, M, S):
-    its resources at the main path's geometry, every built variant free of
-    spills, and its time against its earlier one, one launch of the
-    yardstick GEMM of this call (`gemm` ms) and its bound (`out[name]`: the
-    kernel row). Holds the ratio limit."""
+    """A redesigned kernel (a row-tile kernel, or a wide-layout one) at N
+    rows of shape `dims` (Din, D, M, S): its resources at that geometry,
+    every built variant free of spills, and its time against its earlier
+    one, one launch of the yardstick GEMM of this call (`gemm` ms) and its
+    bound (`out[name]`: the kernel row). Holds the ratio limit."""
     from gpode_tpu_torch.ops import cuda_kernels as ck
-    direction, stages = TILE[name]
-    if stages is None and direction == "fwd":
-        geo = ck.rhs_fwd_geometry(n, *dims)
-    elif stages is None:
-        geo = ck.rhs_bwd_geometry(n, *dims, ck._sms(dev))
-    elif direction == "fwd":
-        geo = ck.segment_fwd_geometry(n, *dims, stages)
+    from gpode_tpu_torch.ops import wide_rhs as wr
+    if name in wr.WIDE_KERNELS:
+        din, d, m, s = dims
+        occupancy, geo = wr.wide_occupancy(
+            name, n, din, d, wr._ceil_to(s, wr.KERNEL_PAD),
+            wr._ceil_to(m, wr.KERNEL_PAD), ck._sms(dev))
     else:
-        geo = ck.segment_bwd_geometry(n, *dims, stages, ck._sms(dev))
-    occupancy = (ck.rhs_occupancy(direction, *dims, geo) if stages is None
-                 else ck.segment_occupancy(direction, stages, *dims, geo))
+        direction, stages = TILE[name]
+        if stages is None and direction == "fwd":
+            geo = ck.rhs_fwd_geometry(n, *dims)
+        elif stages is None:
+            geo = ck.rhs_bwd_geometry(n, *dims, ck._sms(dev))
+        elif direction == "fwd":
+            geo = ck.segment_fwd_geometry(n, *dims, stages)
+        else:
+            geo = ck.segment_bwd_geometry(n, *dims, stages, ck._sms(dev))
+        occupancy = (ck.rhs_occupancy(direction, *dims, geo) if stages is None
+                     else ck.segment_occupancy(direction, stages, *dims, geo))
     report = print_resources(name, occupancy)
     check_variants_free_of_spills(name)
     was = EARLIER[name]
@@ -696,11 +721,13 @@ def report_tile_kernel(dev, name, n, dims, out, gemm, **extra):
                 **report, **extra)
 
 
-def gram_wide_kernel_phase(dev):
+def gram_wide_kernel_phase(dev, gemm):
     """`rbf_gram` and the three wide-layout rhs kernels at the MoCap-09 step's
     inputs (and the M=256 preset's), each against its plain version on the
-    same operands. Times are at N=3000, M=100. Returns the four kernel rows
-    and the wide backward's resource report."""
+    same operands, and each wide kernel twice for bit-identical results.
+    Times are at N=3000, M=100; `gemm`: device ms of the yardstick GEMM of
+    this call. Returns the four kernel rows and the three wide kernels'
+    resource reports."""
     phase("kernels: rbf_gram and the wide layout")
     import torch
     from gpode_tpu_torch.ops import cuda_kernels as ck
@@ -758,9 +785,14 @@ def gram_wide_kernel_phase(dev):
             errs["fused_rhs_wide_fwd"] = max(errs["fused_rhs_wide_fwd"], compare_fwd(
                 f_wide, wr.fused_rhs_wide_plain(xx, *pp),
                 f"fused_rhs_wide_fwd f ({what})"))
+            f_wide2 = wr.fused_rhs_wide2(xx, *pp)
             errs["fused_rhs_wide2_fwd"] = max(errs["fused_rhs_wide2_fwd"], compare_fwd(
-                wr.fused_rhs_wide2(xx, *pp), wr.fused_rhs_wide2_plain(xx, *pp),
+                f_wide2, wr.fused_rhs_wide2_plain(xx, *pp),
                 f"fused_rhs_wide2_fwd f ({what})"))
+            check(torch.equal(f_wide, wr.fused_rhs_wide(xx, *pp)),
+                  f"two fused_rhs_wide forward runs differ ({what})")
+            check(torch.equal(f_wide2, wr.fused_rhs_wide2(xx, *pp)),
+                  f"two fused_rhs_wide2 forward runs differ ({what})")
             compare_fwd(f_wide, ck.fused_rhs_plain(xx, *pp),
                         f"fused_rhs_wide f vs the per-dim plain rhs ({what})")
             got = wr.fused_rhs_wide_bwd(xx, *pp, g)
@@ -772,7 +804,8 @@ def gram_wide_kernel_phase(dev):
                   f"two fused_rhs_wide backward runs differ ({what})")
             if (preset, rows) == ("official", 3000):
                 timed = (xx, g, packed, wblk, flat, sp, mp)
-        print("  fused_rhs_wide_bwd: two runs bit-identical at every shape")
+        print("  fused_rhs_wide_fwd, fused_rhs_wide2_fwd, fused_rhs_wide_bwd: two "
+              "runs bit-identical at every shape")
         xx, g, packed, wblk, flat, sp, mp = timed
         ms = {
             "fused_rhs_wide_fwd": (
@@ -793,8 +826,8 @@ def gram_wide_kernel_phase(dev):
         out[name] = (errs[name], *ms[name],
                      *(bwd_bound if name.endswith("bwd") else fwd_bound))
     print_kernel_rows(out)
-    resources = print_resources(
-        "fused_rhs_wide_bwd", wr.wide_bwd_occupancy(din, d, sp, mp))
+    resources = {name: report_tile_kernel(dev, name, n, (din, d, m, s), out, gemm)
+                 for name in errs}
     return out, resources
 
 
@@ -987,12 +1020,52 @@ def wide_ab_phase():
     return launches
 
 
+def accept_decision_check(x, params, rtol, atol):
+    """The attempt kernel and the plain path near the accept threshold: at
+    every span 0.01 * 1.05^k whose float64 plain error RMS lies in [0.5, 2]
+    and not within 1e-3 of 1, the kernel's RMS and the float32 plain
+    version's must fall on the same side of 1 (the step's accept test).
+    Prints the three RMS values per span; returns them."""
+    import torch
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+
+    def rms(err):
+        return float(err.double().square().mean().sqrt())
+
+    x64, p64 = x.double(), [p.double() for p in params]
+    held = []
+    for k in range(200):
+        span = 0.01 * 1.05 ** k
+        dt = torch.full((1,), span, device=x.device)
+        with torch.no_grad():
+            r64 = rms(ck.dopri5_attempt_plain(x64, dt.double(), *p64, rtol, atol)[1])
+            if r64 > 2.0:
+                break
+            if r64 < 0.5 or abs(r64 - 1.0) < 1e-3:
+                continue
+            r_k = rms(ck.fused_dopri5_attempt(x, dt, *params, rtol, atol)[1])
+            r_p = rms(ck.dopri5_attempt_plain(x, dt, *params, rtol, atol)[1])
+        print(f"  accept test at dt={span:.5g}: error RMS kernel {r_k:.6f}, plain "
+              f"{r_p:.6f}, float64 plain {r64:.6f} -> "
+              f"{'accept' if r_k <= 1.0 else 'reject'} / "
+              f"{'accept' if r_p <= 1.0 else 'reject'}")
+        check((r_k <= 1.0) == (r_p <= 1.0),
+              f"the attempt kernel and the plain path decide differently at "
+              f"dt={span:.5g} (RMS {r_k:.6f} against {r_p:.6f}; float64 {r64:.6f})")
+        held.append(dict(dt=span, rms_kernel=r_k, rms_plain=r_p, rms_float64=r64))
+    check(any(h["rms_float64"] < 1.0 for h in held)
+          and any(h["rms_float64"] > 1.0 for h in held),
+          "no spans on both sides of the accept threshold")
+    return held
+
+
 def reject_phase(dev):
     """A forced reject on the card: `flow_forward` of the bench draw over the
     shortest span (0.01 * 1.25^k) whose whole-span attempt the plain version
     rejects, through the kernels and through the plain path. Both reject,
     take the same number of attempts, and end at the same state (rtol 1e-4,
-    atol 1e-5 * max|ref|)."""
+    atol 1e-5 * max|ref|). Then `accept_decision_check` on the same draw.
+    Returns the end state's max abs error and the accept checks."""
     phase("reject fallback")
     import torch
     from gpode_tpu_torch.models.flow import flow_forward
@@ -1028,7 +1101,8 @@ def reject_phase(dev):
           "the kernel path and the plain path attempt differently")
     check(st_k.num_covered == st_p.num_covered == 2,
           "the fallback did not reach the end of the span")
-    return compare_fwd(x_k, x_p, "reject fallback x(T)")
+    err = compare_fwd(x_k, x_p, "reject fallback x(T)")
+    return err, accept_decision_check(x, params, args.rtol, args.atol)
 
 
 def phase_model_args(name):
@@ -1256,10 +1330,12 @@ def main(argv=None) -> int:
     rk4_rows, rk4_resources = rk4_kernel_phase(dev, gemm)
     kernels.update(rk4_rows)
     resources.update(rk4_resources)
-    wide_rows, resources["fused_rhs_wide_bwd"] = gram_wide_kernel_phase(dev)
+    wide_rows, wide_resources = gram_wide_kernel_phase(dev, gemm)
     kernels.update(wide_rows)
+    resources.update(wide_resources)
     train, launches, _, _ = train_phase(dev, "official", opts.profile_steps)
-    train["reject_fallback_max_abs_err"] = reject_phase(dev)
+    train["reject_fallback_max_abs_err"], train["accept_decisions"] = \
+        reject_phase(dev)
     heuristic, heuristic_launches, _, _ = train_phase(dev, "official_heuristic")
     fast, fast_launches, fast_args, fast_params = train_phase(
         dev, "fast", opts.profile_steps)

@@ -8,7 +8,8 @@
 //   f   = act @ Wblk            Wblk block-diagonal, scales folded  (W, D)
 //
 // (the Gram exponent is the norm expansion |xd - zd|^2 = xn + zn - 2 xd.zd).
-// Three entry points:
+// Dim d's columns are its rff block [d*Sp, (d+1)*Sp) and its Gram block
+// [D*Sp + d*Mp, D*Sp + (d+1)*Mp). Three entry points:
 //   gpode_wide_fwd, dense=1: f = act @ Wblk with the dense (W, D) block
 //     matrix, every column against all D outputs;
 //   gpode_wide_fwd, dense=0: the same t/act, then each column times ONE flat
@@ -22,35 +23,43 @@
 //
 // Bound: arithmetic, as for fused_rhs.cu: W cos/exp and about W*(Din + D)
 // FMAs per row against Din + D floats of traffic; the packed operands (~75 KB
-// at S=256, M=100, D=Din=5) are shared by all rows and stay in L1/L2.
+// at S=256, M=100, D=Din=5) are shared by all rows and stay in L1/L2. What
+// decides the time is how many accurate cosf/sincosf/expf chains are in
+// flight, so both directions run on the row tile of rhs_tile.cuh: a lane
+// takes one packed column of a 32-column unit (units never straddle a dim's
+// block: Sp and Mp are multiples of 32), loads its parameters once per tile
+// of RT rows and runs the RT rows as independent chains, its sums over the
+// tile in registers. All loops over Din and D have the compile-time bound DP
+// >= max(Din, D) (operands zero beyond their width); every product is FFMA
+// in float32 - the exponent is a difference of large terms, which TF32 would
+// not survive.
 //
-// Design. The TPU kernel holds a (256, W) tile of t/act in fast memory; here
-// 7.5 KB per row would not fit, so the tile never exists: a warp takes a
-// group of 32 neighbouring columns (one per lane; groups never straddle a
-// dim's block because Sp and Mp are multiples of 32) for WIDE_R rows at a
-// time, forms t and act in registers, and contracts them at once - into
-// per-lane f accumulators (forward) or into the cotangents (backward). One
-// load of a B column and a Wblk row serves WIDE_R rows. The warps of a block
-// split the W/32 groups; their f / dx / dxn shares meet in shared memory and
-// are added in warp order. All products are FFMA in float32: the exponent is
-// a difference of large terms, which TF32 would not survive.
+// Forward: one tile per block; the block is G groups of D warps, warp
+// (grp, d) takes dim d's units grp, grp + G, ... The dense contraction keeps
+// RT * DP register sums [r * DP + e] (every column feeds all D outputs), the
+// multiply-reduce RT sums [r] (a column feeds only its own dim); one
+// transposing fold per tile sums them over the lanes, and the warps meet in
+// shared memory, added in warp order.
 //
-// Parameter cotangents: the TPU kernel summed them over its sequential grid
-// with `+=`. Here a block keeps one accumulator per (operand row, column) in
-// shared memory - a column belongs to one fixed lane of one fixed warp, so no
-// two threads share an address - over all its rows, writes one slab
-// [db | dwblk | dphase | dzn | dinvls2], and `sum_slabs_kernel` adds the
-// slabs in block order. No float atomics: reruns are bit-identical.
+// Backward: a 2-D grid of (row block, dim) blocks. Block (rb, d) takes dim
+// d's columns only - the warps share its units - and walks its row block in
+// tiles of RT rows. Per tile a lane adds, over the tile's rows, its column's
+// cotangent shares db (Din), dwblk (D) and dt (1) in registers and then into
+// the block's shared-memory accumulators (every address has exactly one
+// owning lane); its dx shares (RT * DP) and dxn shares (RT, the row sums of
+// dte over dim d's Gram block) stay in registers across its units and fold
+// once per tile. So a block's slab covers only its dim's columns, the
+// row-sum dxn never leaves the block, and dx leaves as one share per dim.
+// `wide_reduce_kernel` adds the slabs over row blocks, in block order,
+// straight into the packed layout, and dx's shares over dims, in dim order.
+// No float atomics: reruns are bit-identical.
 //
 // Padded columns contribute exactly 0: padded rff columns have B = 0,
 // phase = 0 and a zero Wblk row; padded Gram columns have zn = 1e30, so
-// exp(-5e29) == 0. Rows past N enter as x = 0, g = 0 and are never stored.
-// Accurate cosf/sincosf/expf (no --use_fast_math).
+// exp(-5e29) == 0. Rows past N are skipped by a warp-uniform row count and
+// never stored. Accurate cosf/sincosf/expf (no --use_fast_math).
 
 #include "rhs_tile.cuh"
-
-#define WIDE_R 4         // rows per warp pass
-#define WIDE_THREADS 256  // most threads a block may have
 
 struct WideParams {
   const float* b;       // (Din, W)
@@ -59,307 +68,6 @@ struct WideParams {
   const float* invls2;  // (Din, D)
   int din, d, sp, mp, w;
 };
-
-// t[r] = sum_k xs[r, k] * B[k, c] for the WIDE_R rows in shared memory.
-__device__ __forceinline__ void wide_t(const WideParams& p, const float* xs, int c,
-                                       float (&t)[WIDE_R]) {
-#pragma unroll
-  for (int r = 0; r < WIDE_R; ++r) t[r] = 0.f;
-  for (int k = 0; k < p.din; ++k) {
-    const float bk = p.b[(size_t)k * p.w + c];
-#pragma unroll
-    for (int r = 0; r < WIDE_R; ++r) t[r] = fmaf(xs[r * p.din + k], bk, t[r]);
-  }
-}
-
-// Load WIDE_R rows of `src` (n, width) from row0 into shared memory, zeros
-// past the last row.
-__device__ __forceinline__ void wide_load_rows(const float* __restrict__ src,
-                                               float* dst, int row0, int rows,
-                                               int width) {
-  for (int i = threadIdx.x; i < WIDE_R * width; i += blockDim.x)
-    dst[i] = (i / width < rows) ? src[(size_t)row0 * width + i] : 0.f;
-}
-
-// xn[r, e] = sum_k xs[r, k]^2 * invls2[k, e].
-__device__ __forceinline__ void wide_xn(const WideParams& p, const float* xs,
-                                        float* xn) {
-  for (int i = threadIdx.x; i < WIDE_R * p.d; i += blockDim.x) {
-    const int r = i / p.d, e = i % p.d;
-    float v = 0.f;
-    for (int k = 0; k < p.din; ++k) {
-      const float xv = xs[r * p.din + k];
-      v = fmaf(xv * xv, p.invls2[k * p.d + e], v);
-    }
-    xn[i] = v;
-  }
-}
-
-// Forward. DENSE: wts is Wblk (W, D); otherwise wts is the flat row (W,).
-template <int DMAX, bool DENSE>
-static __global__ void __launch_bounds__(WIDE_THREADS)
-wide_fwd_kernel(const float* __restrict__ x, WideParams p,
-                const float* __restrict__ wts, float* __restrict__ out, int n,
-                int rows_per_block) {
-  extern __shared__ float smem[];
-  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* xs = smem;                  // (R, Din)
-  float* xn = xs + WIDE_R * p.din;   // (R, D)
-  float* part = xn + WIDE_R * p.d;   // (warps, R, D)
-  const int ngroups = p.w >> 5;
-  const int ds = p.d * p.sp;
-  const int tile0 = blockIdx.x * rows_per_block;
-  const int tile_end = min(n, tile0 + rows_per_block);
-  for (int row0 = tile0; row0 < tile_end; row0 += WIDE_R) {
-    const int rows = min(WIDE_R, n - row0);
-    wide_load_rows(x, xs, row0, rows, p.din);
-    __syncthreads();
-    wide_xn(p, xs, xn);
-    __syncthreads();
-
-    float acc[WIDE_R][DMAX];
-#pragma unroll
-    for (int r = 0; r < WIDE_R; ++r)
-#pragma unroll
-      for (int e = 0; e < DMAX; ++e) acc[r][e] = 0.f;
-
-    for (int grp = warp; grp < ngroups; grp += nw) {
-      const int c = (grp << 5) + lane;
-      float t[WIDE_R], a[WIDE_R];
-      wide_t(p, xs, c, t);
-      int dcol;
-      if (c < ds) {  // warp-uniform: ds is a multiple of 32
-        dcol = c / p.sp;
-        const float ph = p.phase[c];
-#pragma unroll
-        for (int r = 0; r < WIDE_R; ++r) a[r] = cosf(t[r] + ph);
-      } else {
-        const int j = c - ds;
-        dcol = j / p.mp;
-        const float znj = p.zn[j];
-#pragma unroll
-        for (int r = 0; r < WIDE_R; ++r)
-          a[r] = expf(t[r] - 0.5f * (xn[r * p.d + dcol] + znj));
-      }
-      if (DENSE) {
-#pragma unroll
-        for (int e = 0; e < DMAX; ++e) {
-          if (e < p.d) {
-            const float wv = wts[(size_t)c * p.d + e];
-#pragma unroll
-            for (int r = 0; r < WIDE_R; ++r) acc[r][e] = fmaf(a[r], wv, acc[r][e]);
-          }
-        }
-      } else {
-        const float wv = wts[c];
-#pragma unroll
-        for (int e = 0; e < DMAX; ++e) {
-          if (e == dcol) {
-#pragma unroll
-            for (int r = 0; r < WIDE_R; ++r) acc[r][e] = fmaf(a[r], wv, acc[r][e]);
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int e = 0; e < DMAX; ++e) {
-      if (e < p.d) {
-#pragma unroll
-        for (int r = 0; r < WIDE_R; ++r) {
-          const float v = warp_sum(acc[r][e]);
-          if (lane == 0) part[(warp * WIDE_R + r) * p.d + e] = v;
-        }
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * p.d; i += blockDim.x) {
-      const int r = i / p.d, e = i % p.d;
-      float v = 0.f;
-      for (int w = 0; w < nw; ++w) v += part[(w * WIDE_R + r) * p.d + e];
-      out[(size_t)(row0 + r) * p.d + e] = v;
-    }
-    __syncthreads();  // the next pass overwrites xs / xn / part
-  }
-}
-
-// Floats of one block's slab of packed parameter cotangents.
-static inline int wide_slab_floats(int din, int d, int w) {
-  return w * (din + d + 1) + din * d;
-}
-
-// Backward: dx (N, Din) and one slab per block,
-// [db (Din, W) | dwblk (W, D) | dphase (D*Sp) | dzn (D*Mp) | dinvls2 (Din, D)].
-template <int DMAX>
-static __global__ void __launch_bounds__(WIDE_THREADS)
-wide_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                WideParams p, const float* __restrict__ wblk,
-                float* __restrict__ dx, float* __restrict__ part, int n,
-                int rows_per_block) {
-  extern __shared__ float smem[];
-  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int W = p.w;
-  float* acc_db = smem;                       // (Din, W)
-  float* acc_dw = acc_db + p.din * W;         // (D, W): dwblk, transposed
-  float* acc_dc = acc_dw + p.d * W;           // (W): sum over rows of dt
-  float* acc_dinv = acc_dc + W;               // (Din, D)
-  float* xs = acc_dinv + p.din * p.d;         // (R, Din)
-  float* gs = xs + WIDE_R * p.din;            // (R, D)
-  float* xn = gs + WIDE_R * p.d;              // (R, D)
-  float* dxn_s = xn + WIDE_R * p.d;           // (R, D)
-  float* pdx = dxn_s + WIDE_R * p.d;          // (warps, R, Din)
-  float* pdxn = pdx + nw * WIDE_R * p.din;    // (warps, R, D)
-  const int n_acc = W * (p.din + p.d + 1) + p.din * p.d;
-  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) smem[i] = 0.f;
-
-  const int ngroups = W >> 5;
-  const int ds = p.d * p.sp;
-  const int tile0 = blockIdx.x * rows_per_block;
-  const int tile_end = min(n, tile0 + rows_per_block);
-  for (int row0 = tile0; row0 < tile_end; row0 += WIDE_R) {
-    const int rows = min(WIDE_R, n - row0);
-    wide_load_rows(x, xs, row0, rows, p.din);
-    wide_load_rows(g, gs, row0, rows, p.d);
-    __syncthreads();
-    wide_xn(p, xs, xn);
-    __syncthreads();
-
-    float dxacc[WIDE_R][DMAX], dxnacc[WIDE_R][DMAX];
-#pragma unroll
-    for (int r = 0; r < WIDE_R; ++r)
-#pragma unroll
-      for (int e = 0; e < DMAX; ++e) { dxacc[r][e] = 0.f; dxnacc[r][e] = 0.f; }
-
-    for (int grp = warp; grp < ngroups; grp += nw) {
-      const int c = (grp << 5) + lane;
-      float t[WIDE_R], a[WIDE_R], dt[WIDE_R], dact[WIDE_R];
-      wide_t(p, xs, c, t);
-      // dact = g @ Wblk^T, this column
-#pragma unroll
-      for (int r = 0; r < WIDE_R; ++r) dact[r] = 0.f;
-      for (int e = 0; e < p.d; ++e) {
-        const float wv = wblk[(size_t)c * p.d + e];
-#pragma unroll
-        for (int r = 0; r < WIDE_R; ++r) dact[r] = fmaf(gs[r * p.d + e], wv, dact[r]);
-      }
-      if (c < ds) {  // warp-uniform
-        const float ph = p.phase[c];
-#pragma unroll
-        for (int r = 0; r < WIDE_R; ++r) {
-          float sn, cs;
-          sincosf(t[r] + ph, &sn, &cs);
-          a[r] = cs;
-          dt[r] = -sn * dact[r];
-        }
-      } else {
-        const int j = c - ds;
-        const int dcol = j / p.mp;
-        const float znj = p.zn[j];
-#pragma unroll
-        for (int r = 0; r < WIDE_R; ++r) {
-          a[r] = expf(t[r] - 0.5f * (xn[r * p.d + dcol] + znj));
-          dt[r] = a[r] * dact[r];
-        }
-#pragma unroll
-        for (int e = 0; e < DMAX; ++e) {
-          if (e == dcol) {
-#pragma unroll
-            for (int r = 0; r < WIDE_R; ++r) dxnacc[r][e] += dt[r];
-          }
-        }
-      }
-      float sdt = 0.f;
-#pragma unroll
-      for (int r = 0; r < WIDE_R; ++r) sdt += dt[r];
-      acc_dc[c] += sdt;
-      // db[k, c] += x[:, k] . dt ; dx[:, k] += dt * B[k, c]
-#pragma unroll
-      for (int k = 0; k < DMAX; ++k) {
-        if (k < p.din) {
-          const float bk = p.b[(size_t)k * W + c];
-          float sdb = 0.f;
-#pragma unroll
-          for (int r = 0; r < WIDE_R; ++r) {
-            sdb = fmaf(xs[r * p.din + k], dt[r], sdb);
-            dxacc[r][k] = fmaf(dt[r], bk, dxacc[r][k]);
-          }
-          acc_db[k * W + c] += sdb;
-        }
-      }
-      // dwblk[c, e] += act[:, c] . g[:, e]
-      for (int e = 0; e < p.d; ++e) {
-        float sdw = 0.f;
-#pragma unroll
-        for (int r = 0; r < WIDE_R; ++r) sdw = fmaf(a[r], gs[r * p.d + e], sdw);
-        acc_dw[e * W + c] += sdw;
-      }
-    }
-
-#pragma unroll
-    for (int k = 0; k < DMAX; ++k) {
-      if (k < p.din) {
-#pragma unroll
-        for (int r = 0; r < WIDE_R; ++r) {
-          const float v = warp_sum(dxacc[r][k]);
-          if (lane == 0) pdx[(warp * WIDE_R + r) * p.din + k] = v;
-        }
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < DMAX; ++e) {
-      if (e < p.d) {
-#pragma unroll
-        for (int r = 0; r < WIDE_R; ++r) {
-          const float v = warp_sum(dxnacc[r][e]);
-          if (lane == 0) pdxn[(warp * WIDE_R + r) * p.d + e] = v;
-        }
-      }
-    }
-    __syncthreads();
-    // dxn[r, e] = -1/2 * rowsum of dte over dim e's Gram block
-    for (int i = threadIdx.x; i < WIDE_R * p.d; i += blockDim.x) {
-      const int r = i / p.d, e = i % p.d;
-      float v = 0.f;
-      for (int w = 0; w < nw; ++w) v += pdxn[(w * WIDE_R + r) * p.d + e];
-      dxn_s[i] = -0.5f * v;
-    }
-    __syncthreads();
-    // dx = dt @ B^T + 2 x * (dxn @ invls2^T)
-    for (int i = threadIdx.x; i < rows * p.din; i += blockDim.x) {
-      const int r = i / p.din, k = i % p.din;
-      float v = 0.f;
-      for (int w = 0; w < nw; ++w) v += pdx[(w * WIDE_R + r) * p.din + k];
-      float corr = 0.f;
-      for (int e = 0; e < p.d; ++e)
-        corr = fmaf(dxn_s[r * p.d + e], p.invls2[k * p.d + e], corr);
-      dx[(size_t)(row0 + r) * p.din + k] = v + 2.f * xs[r * p.din + k] * corr;
-    }
-    // dinvls2[k, e] += (x^2)[:, k] . dxn[:, e]
-    for (int i = threadIdx.x; i < p.din * p.d; i += blockDim.x) {
-      const int k = i / p.d, e = i % p.d;
-      float v = 0.f;
-#pragma unroll
-      for (int r = 0; r < WIDE_R; ++r) {
-        const float xv = xs[r * p.din + k];
-        v = fmaf(xv * xv, dxn_s[r * p.d + e], v);
-      }
-      acc_dinv[i] += v;
-    }
-    __syncthreads();  // the next pass overwrites xs / gs / the partials
-  }
-
-  __syncthreads();
-  float* slab = part + (size_t)blockIdx.x * n_acc;
-  for (int i = threadIdx.x; i < p.din * W; i += blockDim.x) slab[i] = acc_db[i];
-  slab += p.din * W;
-  for (int i = threadIdx.x; i < W * p.d; i += blockDim.x)
-    slab[i] = acc_dw[(i % p.d) * W + i / p.d];
-  slab += W * p.d;
-  for (int i = threadIdx.x; i < W; i += blockDim.x)
-    slab[i] = (i < ds) ? acc_dc[i] : -0.5f * acc_dc[i];  // dphase | dzn
-  slab += W;
-  for (int i = threadIdx.x; i < p.din * p.d; i += blockDim.x) slab[i] = acc_dinv[i];
-}
 
 static inline WideParams make_wide(const float* b, const float* phase,
                                    const float* zn, const float* invls2, int din,
@@ -370,93 +78,546 @@ static inline WideParams make_wide(const float* b, const float* phase,
   return p;
 }
 
-static inline bool wide_shape_ok(int din, int d, int sp, int mp, int warps) {
-  return din >= 1 && d >= 1 && din <= 16 && d <= 16 && sp % 32 == 0 &&
-         mp % 32 == 0 && sp + mp > 0 && warps >= 1 && 32 * warps <= WIDE_THREADS;
+// Packed column of lane `lane` in unit `unit` of dim d (rff units first).
+__device__ __forceinline__ int wide_column(const WideParams& p, int d, int unit,
+                                           int lane) {
+  const int su = p.sp >> 5;
+  return unit < su ? d * p.sp + (unit << 5) + lane
+                   : p.d * p.sp + d * p.mp + ((unit - su) << 5) + lane;
 }
 
-template <int DMAX>
-static cudaError_t launch_wide_fwd(const float* x, const WideParams& p,
-                                   const float* wts, float* out, int n, int dense,
-                                   int rows_per_block, int warps,
-                                   cudaStream_t stream) {
-  const int blocks = (n + rows_per_block - 1) / rows_per_block;
-  const size_t smem = sizeof(float) * WIDE_R * (p.din + p.d + warps * p.d);
-  if (dense)
-    wide_fwd_kernel<DMAX, true><<<blocks, 32 * warps, smem, stream>>>(
-        x, p, wts, out, n, rows_per_block);
+// The first DP entries of column c of a row-major (rows, width) operand
+// (zero beyond `rows`) and of row c of a (c, width) one (zero beyond
+// `width`).
+template <int DP>
+__device__ __forceinline__ void wide_load_column(const float* src, int rows,
+                                                 int width, int c, float (&v)[DP]) {
+#pragma unroll
+  for (int k = 0; k < DP; ++k) v[k] = (k < rows) ? src[(size_t)k * width + c] : 0.f;
+}
+template <int DP>
+__device__ __forceinline__ void wide_load_row(const float* src, int width, int c,
+                                              float (&v)[DP]) {
+#pragma unroll
+  for (int e = 0; e < DP; ++e) v[e] = (e < width) ? src[(size_t)c * width + e] : 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+
+// Shared memory (floats): xt (RT, tile_stride(DP)) rows of x | xn (RT, D) |
+// red (warps, 32) the warps' folded sums.
+__host__ __device__ constexpr int wide_fwd_smem_floats(int dp, int rt, int d,
+                                                       int warps) {
+  return rt * tile_stride(dp) + align4(rt * d) + 32 * warps;
+}
+
+// One warp's share of f over the first `rows` rows of a tile: the columns
+// of dim d's units grp, grp + groups, ... DENSE: wts is Wblk (W, D), each
+// column's activation times its Wblk row into sums [r * DP + e]; otherwise
+// wts is the flat row (W,), each activation times its weight into sums [r].
+// Writes the sums, each summed over the warp's lanes, to sums_w (32 floats).
+template <int DP, int RT, bool DENSE>
+__device__ __forceinline__ void wide_fwd_tile(const WideParams& p,
+                                              const float* __restrict__ wts,
+                                              const float* xt, const float* xn,
+                                              int rows, int d, int grp, int groups,
+                                              int lane, float* sums_w) {
+  constexpr int XS = tile_stride(DP);
+  constexpr int NV = DENSE ? RT * DP : RT;
+  constexpr int V = fold_width(NV);
+  static_assert(NV <= 32, "a tile's sums must fit one fold");
+  constexpr int NW = DENSE ? DP : 1;
+  const int su = p.sp >> 5, units = su + (p.mp >> 5);
+
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+
+  for (int unit = grp; unit < units; unit += groups) {
+    const int c = wide_column(p, d, unit, lane);
+    float bk[DP], wv[NW];
+    wide_load_column<DP>(p.b, p.din, p.w, c, bk);
+    if constexpr (DENSE)
+      wide_load_row<NW>(wts, p.d, c, wv);
+    else
+      wv[0] = wts[c];
+    if (unit < su) {  // warp-uniform
+      const float ph = p.phase[c];
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        if (r < rows) {
+          float x[DP];
+          tile_row<DP>(xt + r * XS, x);
+          float t = 0.f;
+#pragma unroll
+          for (int k = 0; k < DP; ++k) t = fmaf(x[k], bk[k], t);
+          const float a = cosf(t + ph);
+#pragma unroll
+          for (int e = 0; e < NW; ++e)
+            acc[r * NW + e] = fmaf(a, wv[e], acc[r * NW + e]);
+        }
+      }
+    } else {
+      const float znj = p.zn[c - p.d * p.sp];
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        if (r < rows) {
+          float x[DP];
+          tile_row<DP>(xt + r * XS, x);
+          float t = 0.f;
+#pragma unroll
+          for (int k = 0; k < DP; ++k) t = fmaf(x[k], bk[k], t);
+          const float a = expf(t - 0.5f * (xn[r * p.d + d] + znj));
+#pragma unroll
+          for (int e = 0; e < NW; ++e)
+            acc[r * NW + e] = fmaf(a, wv[e], acc[r * NW + e]);
+        }
+      }
+    }
+  }
+
+  const float total = LaneFold<V, 16>::run(acc, lane);
+  constexpr int SHIFT = fold_shift(NV);
+  if ((lane & ((1 << SHIFT) - 1)) == 0) sums_w[lane >> SHIFT] = total;
+}
+
+template <int DP, int RT, int MAXT, bool DENSE>
+static __global__ void __launch_bounds__(MAXT)
+wide_fwd_kernel(const float* __restrict__ x, WideParams p,
+                const float* __restrict__ wts, float* __restrict__ out, int n,
+                int groups) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int XS = tile_stride(DP);
+  const int D = p.d;
+  float* xt = smem;                      // (RT, XS) rows of x
+  float* xn = xt + RT * XS;              // (RT, D) x^2 @ invls2
+  float* red = xn + align4(RT * D);      // (warps, 32) folded sums
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d = warp % D, grp = warp / D;
+  const int row0 = blockIdx.x * RT;
+  const int rows = min(RT, n - row0);
+
+  tile_load_stages<DP, RT>(x, xt, 1, 0, row0, rows, p.din);
+  __syncthreads();
+  for (int i = threadIdx.x; i < RT * D; i += blockDim.x) {
+    const int r = i / D, e = i % D;
+    float v = 0.f;
+    for (int k = 0; k < p.din; ++k) {
+      const float xv = xt[r * XS + k];
+      v = fmaf(xv * xv, p.invls2[k * D + e], v);
+    }
+    xn[i] = v;
+  }
+  __syncthreads();
+  if (rows == RT)
+    wide_fwd_tile<DP, RT, DENSE>(p, wts, xt, xn, RT, d, grp, groups, lane,
+                                 red + warp * 32);
   else
-    wide_fwd_kernel<DMAX, false><<<blocks, 32 * warps, smem, stream>>>(
-        x, p, wts, out, n, rows_per_block);
+    wide_fwd_tile<DP, RT, DENSE>(p, wts, xt, xn, rows, d, grp, groups, lane,
+                                 red + warp * 32);
+  __syncthreads();
+  const int warps = blockDim.x >> 5;
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+    const int r = i / D, e = i % D;
+    float v = 0.f;
+    if constexpr (DENSE) {  // every warp's columns feed output e
+      for (int w = 0; w < warps; ++w) v += red[w * 32 + r * DP + e];
+    } else {      // only dim e's warps, in group order
+      for (int g = 0; g < groups; ++g) v += red[(g * D + e) * 32 + r];
+    }
+    out[(size_t)row0 * D + i] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
+
+// Shared memory (floats): xt, gt (RT, tile_stride(DP)) the tile's rows of x
+// and g | xn (RT) dim d's x^2 . invls2 | red (warps, 32) the folded dx and dxn
+// shares | dim d's accumulators, per column u of its Sp + Mp: db (Din, cols),
+// dwblk (D, cols), dt (cols).
+__host__ __device__ constexpr int wide_bwd_smem_floats(int dp, int rt, int din,
+                                                       int d, int cols, int warps) {
+  return 2 * rt * tile_stride(dp) + align4(rt) + 32 * warps + (din + d + 1) * cols;
+}
+// Floats of one (row block, dim) slab: db (Din, cols) | dwblk (cols, D) |
+// dphase, dzn (cols) | dinvls2 (Din) of dim d.
+__host__ __device__ constexpr int wide_slab_floats(int din, int d, int cols) {
+  return (din + d + 1) * cols + din;
+}
+
+// One column's VJP over the first `rows` rows of a tile (RFF: the cos
+// activation, its phase in `off`; else the Gram activation, zn in `off`,
+// whose dt also feeds the dxn shares dxa[RT * DP + r]): adds the rows'
+// shares of db (sdb), dwblk (sdw) and dt (sdt), and the dx shares
+// dxa[r * DP + k].
+template <int DP, int RT, int V, bool RFF>
+__device__ __forceinline__ void wide_vjp_rows(const float* xt, const float* gt,
+                                              const float* xn, int rows,
+                                              const float (&bk)[DP],
+                                              const float (&wv)[DP], float off,
+                                              float (&sdb)[DP], float (&sdw)[DP],
+                                              float& sdt, float (&dxa)[V]) {
+  constexpr int XS = tile_stride(DP);
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    if (r < rows) {
+      float x[DP], g[DP];
+      tile_row<DP>(xt + r * XS, x);
+      tile_row<DP>(gt + r * XS, g);
+      float t = 0.f, dact = 0.f;
+#pragma unroll
+      for (int k = 0; k < DP; ++k) {
+        t = fmaf(x[k], bk[k], t);
+        dact = fmaf(g[k], wv[k], dact);
+      }
+      float a, dt;
+      if constexpr (RFF) {
+        float sn;
+        sincosf(t + off, &sn, &a);
+        dt = -sn * dact;
+      } else {
+        a = expf(t - 0.5f * (xn[r] + off));
+        dt = a * dact;
+        dxa[RT * DP + r] += dt;
+      }
+      sdt += dt;
+#pragma unroll
+      for (int k = 0; k < DP; ++k) {
+        sdb[k] = fmaf(x[k], dt, sdb[k]);
+        dxa[r * DP + k] = fmaf(dt, bk[k], dxa[r * DP + k]);
+        sdw[k] = fmaf(a, g[k], sdw[k]);
+      }
+    }
+  }
+}
+
+// VJP of f over the first `rows` rows of a tile, this warp's units of dim d
+// (warp, warp + warps, ...). Adds its columns' cotangent shares to the
+// block's accumulators `acc` (laid out as wide_bwd_smem_floats lists them)
+// and writes its dx shares [r * DP + k] and dxn shares [RT * DP + r] (the
+// sum of dte over its Gram columns), each summed over its lanes, to sums_w.
+template <int DP, int RT>
+__device__ __forceinline__ void wide_vjp_tile(const WideParams& p,
+                                              const float* __restrict__ wblk,
+                                              const float* xt, const float* gt,
+                                              const float* xn, int rows, int d,
+                                              int warp, int warps, int lane,
+                                              float* acc, float* sums_w) {
+  constexpr int NV = RT * (DP + 1);
+  constexpr int V = fold_width(NV);
+  static_assert(NV <= 32, "a tile's dx and dxn shares must fit one fold");
+  const int din = p.din, D = p.d, cols = p.sp + p.mp;
+  const int su = p.sp >> 5, units = su + (p.mp >> 5);
+  float* acc_db = acc;                  // (Din, cols)
+  float* acc_dw = acc_db + din * cols;  // (D, cols)
+  float* acc_dt = acc_dw + D * cols;    // (cols)
+
+  float dxa[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) dxa[i] = 0.f;
+
+  for (int unit = warp; unit < units; unit += warps) {
+    const int c = wide_column(p, d, unit, lane);
+    const int u = (unit << 5) + lane;   // column within dim d
+    float bk[DP], wv[DP], sdb[DP], sdw[DP];
+    wide_load_column<DP>(p.b, din, p.w, c, bk);
+    wide_load_row<DP>(wblk, D, c, wv);
+#pragma unroll
+    for (int k = 0; k < DP; ++k) { sdb[k] = 0.f; sdw[k] = 0.f; }
+    float sdt = 0.f;
+    if (unit < su)  // warp-uniform
+      wide_vjp_rows<DP, RT, V, true>(xt, gt, xn, rows, bk, wv, p.phase[c], sdb,
+                                     sdw, sdt, dxa);
+    else
+      wide_vjp_rows<DP, RT, V, false>(xt, gt, xn, rows, bk, wv,
+                                      p.zn[c - D * p.sp], sdb, sdw, sdt, dxa);
+#pragma unroll
+    for (int k = 0; k < DP; ++k) {
+      if (k < din) acc_db[k * cols + u] += sdb[k];
+      if (k < D) acc_dw[k * cols + u] += sdw[k];
+    }
+    acc_dt[u] += sdt;
+  }
+
+  const float total = LaneFold<V, 16>::run(dxa, lane);
+  constexpr int SHIFT = fold_shift(NV);
+  if ((lane & ((1 << SHIFT) - 1)) == 0) sums_w[lane >> SHIFT] = total;
+}
+
+// Block (rb, d): rows [rb * rows_per_block, ...) of dim d. Writes dim d's dx
+// share dx_part (D, N, Din) and its slab part (row blocks, D, slab).
+template <int DP, int RT, int MAXT>
+static __global__ void __launch_bounds__(MAXT)
+wide_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                WideParams p, const float* __restrict__ wblk,
+                float* __restrict__ dx_part, float* __restrict__ part, int n,
+                int rows_per_block) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int XS = tile_stride(DP);
+  const int din = p.din, D = p.d, cols = p.sp + p.mp;
+  const int d = blockIdx.y;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* xt = smem;                     // (RT, XS) rows of x
+  float* gt = xt + RT * XS;             // (RT, XS) rows of g
+  float* xn = gt + RT * XS;             // (RT) x^2 . invls2[:, d]
+  float* red = xn + align4(RT);         // (warps, 32) folded shares
+  float* acc = red + 32 * warps;        // dim d's column accumulators
+  for (int i = threadIdx.x; i < (din + D + 1) * cols; i += blockDim.x) acc[i] = 0.f;
+  float dinv = 0.f;                     // thread k < Din: dinvls2[k, d]
+
+  const int first = blockIdx.x * rows_per_block;
+  const int tile_end = min(n, first + rows_per_block);
+  for (int row0 = first; row0 < tile_end; row0 += RT) {
+    const int rows = min(RT, tile_end - row0);
+    for (int i = threadIdx.x; i < RT * XS; i += blockDim.x) {
+      const int r = i / XS, k = i % XS;
+      xt[i] = (r < rows && k < din) ? x[(size_t)(row0 + r) * din + k] : 0.f;
+      gt[i] = (r < rows && k < D) ? g[(size_t)(row0 + r) * D + k] : 0.f;
+    }
+    __syncthreads();
+    for (int r = threadIdx.x; r < RT; r += blockDim.x) {
+      float v = 0.f;
+      for (int k = 0; k < din; ++k) {
+        const float xv = xt[r * XS + k];
+        v = fmaf(xv * xv, p.invls2[k * D + d], v);
+      }
+      xn[r] = v;
+    }
+    __syncthreads();
+    if (rows == RT)
+      wide_vjp_tile<DP, RT>(p, wblk, xt, gt, xn, RT, d, warp, warps, lane, acc,
+                            red + warp * 32);
+    else
+      wide_vjp_tile<DP, RT>(p, wblk, xt, gt, xn, rows, d, warp, warps, lane, acc,
+                            red + warp * 32);
+    __syncthreads();
+    // dim d's dx share: dt @ B^T over its columns plus the xn chain
+    // 2 x * dxn * invls2[:, d], dxn = -1/2 * (row sum of dte); both sums over
+    // the warps in warp order
+    for (int i = threadIdx.x; i < rows * din; i += blockDim.x) {
+      const int r = i / din, k = i % din;
+      float v = 0.f, s = 0.f;
+      for (int w = 0; w < warps; ++w) {
+        v += red[w * 32 + r * DP + k];
+        s += red[w * 32 + RT * DP + r];
+      }
+      const float xv = xt[r * XS + k];
+      dx_part[((size_t)d * n + row0 + r) * din + k] =
+          v + 2.f * xv * (-0.5f * s) * p.invls2[k * D + d];
+    }
+    if (threadIdx.x < din) {  // dinvls2[k, d] += (x^2)[:, k] . dxn
+      const int k = threadIdx.x;
+      for (int r = 0; r < rows; ++r) {
+        float s = 0.f;
+        for (int w = 0; w < warps; ++w) s += red[w * 32 + RT * DP + r];
+        const float xv = xt[r * XS + k];
+        dinv = fmaf(xv * xv, -0.5f * s, dinv);
+      }
+    }
+    __syncthreads();  // the next tile overwrites xt, gt, xn and red
+  }
+
+  const float* acc_dw = acc + din * cols;
+  const float* acc_dt = acc_dw + D * cols;
+  float* slab = part + ((size_t)blockIdx.x * D + d) * wide_slab_floats(din, D, cols);
+  for (int i = threadIdx.x; i < din * cols; i += blockDim.x) slab[i] = acc[i];
+  slab += din * cols;
+  for (int i = threadIdx.x; i < cols * D; i += blockDim.x)
+    slab[i] = acc_dw[(i % D) * cols + i / D];
+  slab += cols * D;
+  for (int i = threadIdx.x; i < cols; i += blockDim.x)
+    slab[i] = (i < p.sp) ? acc_dt[i] : -0.5f * acc_dt[i];  // dphase | dzn
+  slab += cols;
+  if (threadIdx.x < din) slab[threadIdx.x] = dinv;
+}
+
+// The packed cotangents from the slabs, out = [db (Din, W) | dwblk (W, D) |
+// dphase (D*Sp) | dzn (D*Mp) | dinvls2 (Din, D)]: each entry the sum over
+// row blocks, in block order, of its (dim, column) slab entry. Then dx
+// (N, Din): the dims' shares added in dim order.
+static __global__ void wide_reduce_kernel(const float* __restrict__ part,
+                                          const float* __restrict__ dx_part,
+                                          float* __restrict__ out,
+                                          float* __restrict__ dx, int row_blocks,
+                                          int n, int din, int D, int sp, int mp) {
+  const int cols = sp + mp, W = D * cols, ds = D * sp;
+  const int slab = wide_slab_floats(din, D, cols);
+  const int n_out = W * (din + D + 1) + din * D;
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < n_out) {
+    const int i = (int)j;
+    int dd, src;  // the dim whose slabs hold entry i, and its offset there
+    if (i >= (din + D + 1) * W) {  // dinvls2[k, e]: dim e's slab
+      const int q = i - (din + D + 1) * W;
+      dd = q % D;
+      src = (din + D + 1) * cols + q / D;
+    } else {
+      int c, base, stride;  // packed column, its entry at base + u * stride
+      if (i < din * W) {                  // db[k, c]
+        c = i % W;
+        base = (i / W) * cols;
+        stride = 1;
+      } else if (i < (din + D) * W) {     // dwblk[c, e]
+        const int q = i - din * W;
+        c = q / D;
+        base = din * cols + q % D;
+        stride = D;
+      } else {                            // dphase | dzn
+        c = i - (din + D) * W;
+        base = (din + D) * cols;
+        stride = 1;
+      }
+      dd = c < ds ? c / sp : (c - ds) / mp;
+      const int u = c < ds ? c % sp : sp + (c - ds) % mp;
+      src = base + u * stride;
+    }
+    float v = 0.f;
+    for (int rb = 0; rb < row_blocks; ++rb)
+      v += part[((size_t)rb * D + dd) * slab + src];
+    out[i] = v;
+  } else if (j < n_out + (long long)n * din) {
+    const size_t i = (size_t)(j - n_out);
+    float v = 0.f;
+    for (int dd = 0; dd < D; ++dd) v += dx_part[(size_t)dd * n * din + i];
+    dx[i] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Entry points
+// ---------------------------------------------------------------------------
+
+// The instantiated variants (DP, RT, MAXT), one per range of max(Din, D): DP
+// bounds the loops over Din and D, RT is the tile's rows (RT * DP sums of
+// the dense forward, RT * (DP + 1) dx and dxn shares of the backward fit
+// one fold), MAXT bounds the block and with it the registers per thread
+// (65536 / MAXT). Every one builds at 0 B of spill (ptxas).
+#define WIDE_FWD_VARIANTS(X) X(4, 8, 640) X(5, 6, 640) X(8, 4, 640) X(16, 2, 512)
+#define WIDE_BWD_VARIANTS(X) X(4, 6, 640) X(5, 5, 640) X(8, 3, 512) X(16, 1, 512)
+
+static inline bool wide_dims_ok(int din, int d, int sp, int mp, int dp) {
+  return din >= 1 && d >= 1 && din <= dp && d <= dp && sp >= 32 && mp >= 32 &&
+         sp % 32 == 0 && mp % 32 == 0;
+}
+
+template <int DP, int RT, int MAXT, bool DENSE>
+static cudaError_t wide_fwd_launch(const float* x, const WideParams& p,
+                                   const float* wts, float* out, int n, int groups,
+                                   int threads, size_t smem, int* occupancy,
+                                   cudaStream_t stream) {
+  cudaError_t e = prepare_kernel(wide_fwd_kernel<DP, RT, MAXT, DENSE>, threads,
+                                 smem, occupancy);
+  if (e != cudaSuccess || occupancy) return e;
+  wide_fwd_kernel<DP, RT, MAXT, DENSE><<<(n + RT - 1) / RT, threads, smem, stream>>>(
+      x, p, wts, out, n, groups);
   return cudaGetLastError();
+}
+
+// The forward kernel on `stream`; with `occupancy` non-null nothing is
+// launched and the kernel's occupancy_report at this geometry is written
+// there instead.
+static int wide_fwd_run(const float* x, const float* b, const float* phase,
+                        const float* zn, const float* invls2, const float* wts,
+                        float* out, int n, int din, int d, int sp, int mp, int dense,
+                        int dp, int rt, int groups, int maxt, int* occupancy,
+                        void* stream) {
+  if (!wide_dims_ok(din, d, sp, mp, dp) || n < 1 || groups < 1 ||
+      32 * d * groups > maxt)
+    return (int)cudaErrorInvalidValue;
+  const WideParams p = make_wide(b, phase, zn, invls2, din, d, sp, mp);
+  const int threads = 32 * d * groups;
+  const size_t smem = sizeof(float) * (size_t)wide_fwd_smem_floats(dp, rt, d, d * groups);
+  cudaError_t e = cudaErrorInvalidValue;
+#define X(DP_, RT_, MAXT_)                                                      \
+  if (dp == DP_ && rt == RT_ && maxt == MAXT_)                                  \
+    e = dense ? wide_fwd_launch<DP_, RT_, MAXT_, true>(x, p, wts, out, n, groups, \
+                                                       threads, smem, occupancy,  \
+                                                       (cudaStream_t)stream)      \
+              : wide_fwd_launch<DP_, RT_, MAXT_, false>(x, p, wts, out, n,        \
+                                                        groups, threads, smem,    \
+                                                        occupancy,                \
+                                                        (cudaStream_t)stream);
+  WIDE_FWD_VARIANTS(X)
+#undef X
+  return (int)e;
 }
 
 extern "C" int gpode_wide_fwd(const float* x, const float* b, const float* phase,
                               const float* zn, const float* invls2,
                               const float* wts, float* out, int n, int din, int d,
-                              int sp, int mp, int dense, int rows_per_block,
-                              int warps, void* stream) {
-  if (!wide_shape_ok(din, d, sp, mp, warps) || rows_per_block < 1)
+                              int sp, int mp, int dense, int dp, int rt, int groups,
+                              int maxt, void* stream) {
+  return wide_fwd_run(x, b, phase, zn, invls2, wts, out, n, din, d, sp, mp, dense,
+                      dp, rt, groups, maxt, nullptr, stream);
+}
+
+// out = {resident blocks per SM, threads, dynamic shared bytes, registers,
+// local bytes} of the forward kernel at this geometry; launches nothing.
+extern "C" int gpode_wide_fwd_occupancy(int din, int d, int sp, int mp, int dense,
+                                        int dp, int rt, int groups, int maxt,
+                                        int* out) {
+  return wide_fwd_run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      rt, din, d, sp, mp, dense, dp, rt, groups, maxt, out, nullptr);
+}
+
+// The backward kernel and its fixed-order reduction on `stream`; with
+// `occupancy` non-null nothing is launched and the kernel's occupancy_report
+// at this geometry is written there instead. dx_part: (D, N, Din) scratch;
+// part: (row blocks, D, slab) scratch; out: the packed cotangents.
+static int wide_bwd_run(const float* x, const float* g, const float* b,
+                        const float* phase, const float* zn, const float* invls2,
+                        const float* wblk, float* dx, float* dx_part, float* part,
+                        float* out, int n, int din, int d, int sp, int mp,
+                        int rows_per_block, int dp, int rt, int warps, int maxt,
+                        int* occupancy, void* stream) {
+  if (!wide_dims_ok(din, d, sp, mp, dp) || n < 1 || warps < 1 || 32 * warps > maxt ||
+      rt < 1 || rows_per_block < rt || rows_per_block % rt != 0)
     return (int)cudaErrorInvalidValue;
   const WideParams p = make_wide(b, phase, zn, invls2, din, d, sp, mp);
-  if (d <= 8)
-    return (int)launch_wide_fwd<8>(x, p, wts, out, n, dense, rows_per_block, warps,
-                                   (cudaStream_t)stream);
-  return (int)launch_wide_fwd<16>(x, p, wts, out, n, dense, rows_per_block, warps,
-                                  (cudaStream_t)stream);
+  const int threads = 32 * warps, cols = sp + mp;
+  const int row_blocks = (n + rows_per_block - 1) / rows_per_block;
+  const size_t smem =
+      sizeof(float) * (size_t)wide_bwd_smem_floats(dp, rt, din, d, cols, warps);
+  cudaError_t e = cudaErrorInvalidValue;
+#define X(DP_, RT_, MAXT_)                                                        \
+  if (dp == DP_ && rt == RT_ && maxt == MAXT_) {                                  \
+    e = prepare_kernel(wide_bwd_kernel<DP_, RT_, MAXT_>, threads, smem, occupancy); \
+    if (e == cudaSuccess && !occupancy) {                                         \
+      wide_bwd_kernel<DP_, RT_, MAXT_>                                            \
+          <<<dim3(row_blocks, d), threads, smem, (cudaStream_t)stream>>>(         \
+              x, g, p, wblk, dx_part, part, n, rows_per_block);                   \
+      e = cudaGetLastError();                                                     \
+    }                                                                             \
+  }
+  WIDE_BWD_VARIANTS(X)
+#undef X
+  if (e != cudaSuccess || occupancy) return (int)e;
+  const long long total = (long long)p.w * (din + d + 1) + din * d + (long long)n * din;
+  wide_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      part, dx_part, out, dx, row_blocks, n, din, d, sp, mp);
+  return (int)cudaGetLastError();
 }
 
-template <int DMAX>
-static cudaError_t launch_wide_bwd(const float* x, const float* g,
-                                   const WideParams& p, const float* wblk,
-                                   float* dx, float* part, int n,
-                                   int rows_per_block, int warps, size_t smem,
-                                   cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      wide_bwd_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const int blocks = (n + rows_per_block - 1) / rows_per_block;
-  wide_bwd_kernel<DMAX><<<blocks, 32 * warps, smem, stream>>>(
-      x, g, p, wblk, dx, part, n, rows_per_block);
-  return cudaGetLastError();
-}
-
-// part: (blocks, slab) scratch; out: (slab,) the summed packed cotangents.
 extern "C" int gpode_wide_bwd(const float* x, const float* g, const float* b,
                               const float* phase, const float* zn,
                               const float* invls2, const float* wblk, float* dx,
-                              float* part, float* out, int n, int din, int d,
-                              int sp, int mp, int rows_per_block, int warps,
-                              void* stream) {
-  if (!wide_shape_ok(din, d, sp, mp, warps) || rows_per_block < 1)
-    return (int)cudaErrorInvalidValue;
-  const WideParams p = make_wide(b, phase, zn, invls2, din, d, sp, mp);
-  const int slab = wide_slab_floats(din, d, p.w);
-  const size_t smem = sizeof(float) * ((size_t)slab + WIDE_R * (din + 3 * d) +
-                                       (size_t)warps * WIDE_R * (din + d));
-  const int blocks = (n + rows_per_block - 1) / rows_per_block;
-  cudaError_t e;
-  if (din <= 8 && d <= 8)
-    e = launch_wide_bwd<8>(x, g, p, wblk, dx, part, n, rows_per_block, warps, smem,
-                           (cudaStream_t)stream);
-  else
-    e = launch_wide_bwd<16>(x, g, p, wblk, dx, part, n, rows_per_block, warps,
-                            smem, (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  sum_slabs_kernel<<<(slab + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      part, out, blocks, slab);
-  return (int)cudaGetLastError();
+                              float* dx_part, float* part, float* out, int n,
+                              int din, int d, int sp, int mp, int rows_per_block,
+                              int dp, int rt, int warps, int maxt, void* stream) {
+  return wide_bwd_run(x, g, b, phase, zn, invls2, wblk, dx, dx_part, part, out, n,
+                      din, d, sp, mp, rows_per_block, dp, rt, warps, maxt, nullptr,
+                      stream);
 }
 
 // out = {resident blocks per SM, threads, dynamic shared bytes, registers,
 // local bytes} of the backward kernel at this geometry; launches nothing.
-extern "C" int gpode_wide_bwd_occupancy(int din, int d, int sp, int mp, int warps,
-                                        int* out) {
-  if (!wide_shape_ok(din, d, sp, mp, warps)) return (int)cudaErrorInvalidValue;
-  const int slab = wide_slab_floats(din, d, d * (sp + mp));
-  const size_t smem = sizeof(float) * ((size_t)slab + WIDE_R * (din + 3 * d) +
-                                       (size_t)warps * WIDE_R * (din + d));
-  if (din <= 8 && d <= 8)
-    return (int)occupancy_report(wide_bwd_kernel<8>, 32 * warps, smem, out);
-  return (int)occupancy_report(wide_bwd_kernel<16>, 32 * warps, smem, out);
+extern "C" int gpode_wide_bwd_occupancy(int din, int d, int sp, int mp, int dp,
+                                        int rt, int warps, int maxt, int* out) {
+  return wide_bwd_run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, nullptr, nullptr, nullptr, rt, din, d, sp, mp, rt, dp,
+                      rt, warps, maxt, out, nullptr);
 }

@@ -214,9 +214,10 @@ _SIGNATURES = {
                   "gpode_rk4_bwd": [_P] * 15 + [_I] * 11 + [_P],
                   "gpode_rk4_bwd_occupancy": [_I] * 8 + [_P]},
     "rbf_gram": {"gpode_rbf_gram": [_P] * 5 + [_I] * 6 + [_P]},
-    "fused_rhs_wide": {"gpode_wide_fwd": [_P] * 7 + [_I] * 8 + [_P],
-                       "gpode_wide_bwd": [_P] * 10 + [_I] * 7 + [_P],
-                       "gpode_wide_bwd_occupancy": [_I] * 5 + [_P]},
+    "fused_rhs_wide": {"gpode_wide_fwd": [_P] * 7 + [_I] * 10 + [_P],
+                       "gpode_wide_fwd_occupancy": [_I] * 9 + [_P],
+                       "gpode_wide_bwd": [_P] * 11 + [_I] * 10 + [_P],
+                       "gpode_wide_bwd_occupancy": [_I] * 8 + [_P]},
 }
 _TYPED: set = set()
 
@@ -825,7 +826,7 @@ def kernel_occupancy(lib_name, c_function, entry_key, *int_args):
 
 # (library, kernel, occupancy query) of the row-tile kernels: `fused_rhs`
 # by direction, the segment kernels by (direction, stages); a kernel
-# variant's mangled name holds f"{kernel}ILi{dp}ELi{rt}ELi{maxt}EE"
+# variant's mangled name holds `variant_key(kernel, dp, rt, maxt)`
 RHS_KERNELS = {
     "fwd": ("fused_rhs", "rhs_fwd_kernel", "gpode_fused_rhs_fwd_occupancy"),
     "bwd": ("fused_rhs", "rhs_bwd_kernel", "gpode_fused_rhs_bwd_occupancy"),
@@ -844,8 +845,14 @@ SEGMENT_VARIANTS = {("fwd", st): _SEG_FWD_VARIANTS[st] for st in (6, 4)}
 SEGMENT_VARIANTS.update({("bwd", st): _SEG_BWD_VARIANTS[st] for st in (6, 4)})
 
 
+def variant_key(kernel, dp, rt, maxt, suffix=""):
+    """What the mangled name of variant (dp, rt, maxt) of `kernel` holds;
+    `suffix`: the mangled template arguments after the three ints."""
+    return f"{kernel}ILi{dp}ELi{rt}ELi{maxt}E{suffix}E"
+
+
 def _tile_occupancy(lib_name, kernel, fn, din, d, m, s, geo):
-    key = f"{kernel}ILi{geo.dp}ELi{geo.rt}ELi{geo.maxt}EE"
+    key = variant_key(kernel, geo.dp, geo.rt, geo.maxt)
     report = kernel_occupancy(lib_name, fn, key, din, d, m, s, geo.dp, geo.rt,
                               geo.groups, geo.maxt)
     if report["smem_bytes"] != geo.smem_bytes:

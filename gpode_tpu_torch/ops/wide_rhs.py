@@ -28,6 +28,7 @@ variance (D,) constrained, omega (Din, S, D), phase (1, S, D), weights
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -36,8 +37,7 @@ from gpode_tpu_torch.ops import cuda_kernels as ck
 
 ZN_PAD = 1e30      # padded Gram columns: exp(-0.5 * ZN_PAD) == 0
 KERNEL_PAD = 32    # the CUDA kernels' column-block multiple (one warp)
-MAX_DIM = 16       # csrc/fused_rhs_wide.cu: Din, D <= 16
-_FWD_WARPS, _BWD_WARPS, _ROWS = 8, 8, 4   # block shapes; _ROWS == WIDE_R
+MAX_DIM = 16       # csrc/fused_rhs_wide.cu: max(Din, D) <= 16, the widest variant
 
 
 def _ceil_to(v: int, multiple: int) -> int:
@@ -210,36 +210,137 @@ def fused_rhs_wide_bwd_plain(x, z, lengthscales, variance, omega, phase,
 
 
 # ---------------------------------------------------------------------------
-# CUDA launches
+# Launch geometry (pure arithmetic) and CUDA launches
 # ---------------------------------------------------------------------------
 
+# Forward blocks (csrc/fused_rhs_wide.cu `wide_fwd_kernel`): one tile of RT
+# rows per block, G groups of D warps, about _FWD_WARPS warps. Backward
+# blocks (`wide_bwd_kernel`): one dim's columns and a block of rows,
+# _BWD_WARPS warps over the dim's 32-column units, about
+# _BWD_BLOCKS_PER_SM blocks per SM over all dims. Measured on an H100 at
+# N=3000, Din=D=5, M=100 and 256, S=256 (the sweep is in PERF.md): 5-warp
+# forward blocks (a warp takes all its dim's units) beat 10, 15 and 20 for
+# the dense contraction and tie for the multiply-reduce; 4-warp backward
+# blocks, five per SM (one wave of 4.5), beat 2, 3, 6 and 12 warps at 1-6
+# blocks per SM.
+_FWD_WARPS = 5
+_BWD_WARPS = 4
+_BWD_BLOCKS_PER_SM = 5
+# (dp, rt, maxt) of the instantiated variants, smallest dp first (csrc
+# WIDE_FWD_VARIANTS, WIDE_BWD_VARIANTS); a shape takes the first with
+# max(Din, D) <= dp. Both forward instantiations (dense and multiply-reduce)
+# share the forward table.
+WIDE_FWD_VARIANTS = ((4, 8, 640), (5, 6, 640), (8, 4, 640), (16, 2, 512))
+WIDE_BWD_VARIANTS = ((4, 6, 640), (5, 5, 640), (8, 3, 512), (16, 1, 512))
+
+
+@dataclasses.dataclass(frozen=True)
+class WideFwdGeometry:
+    """Launch geometry of the wide forward (both instantiations): one tile
+    per block."""
+    dp: int           # the variant's bound of its loops over Din and D
+    rt: int           # rows per tile and block; rt * dp <= 32, the fold's width
+    groups: int       # G: the block is G groups of D warps
+    maxt: int         # the variant's thread bound (registers: 65536 / maxt)
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+@dataclasses.dataclass(frozen=True)
+class WideBwdGeometry:
+    """Launch geometry of the wide backward: a (row_blocks, D) grid, block
+    (rb, d) taking dim d's columns over rows_per_block rows."""
+    dp: int              # the variant's bound of its loops over Din and D
+    rt: int              # rows per tile; rt * (dp + 1) <= 32, the fold's width
+    warps: int           # warps per block, sharing the dim's 32-column units
+    maxt: int            # the variant's thread bound (registers: 65536 / maxt)
+    threads: int
+    rows_per_block: int  # a multiple of rt
+    row_blocks: int
+    blocks: int          # row_blocks * D
+    smem_bytes: int
+    slab_floats: int     # one (row block, dim) slab
+    part_floats: int     # scratch: (row_blocks, D, slab)
+    dx_part_floats: int  # scratch: the dims' dx shares (D, N, Din)
+
+
+def _wide_variant(n, din, d, sp, mp, variants, what):
+    """The (dp, rt, maxt) a wide kernel takes from its `variants` for this
+    shape; raises ValueError on a shape it does not take."""
+    if not (1 <= din <= MAX_DIM and 1 <= d <= MAX_DIM):
+        raise ValueError(f"{what} supports Din, D <= {MAX_DIM}; got Din={din}, "
+                         f"D={d}")
+    if n < 1 or min(sp, mp) < KERNEL_PAD or sp % KERNEL_PAD or mp % KERNEL_PAD:
+        raise ValueError(f"{what} needs N >= 1 and Sp, Mp positive multiples "
+                         f"of {KERNEL_PAD}; got N={n}, Sp={sp}, Mp={mp}")
+    return next(v for v in variants if max(din, d) <= v[0])
+
+
+def wide_fwd_geometry(n, din, d, sp, mp):
+    """Geometry of the wide forward (dense and multiply-reduce) for N rows
+    over Sp features and Mp inducing points per dim, both padded to
+    KERNEL_PAD; raises ValueError on a shape the kernel does not take. Pure
+    arithmetic: no device is touched."""
+    what = "fused_rhs_wide forward"
+    dp, rt, maxt = _wide_variant(n, din, d, sp, mp, WIDE_FWD_VARIANTS, what)
+    units = (sp + mp) // KERNEL_PAD                 # 32-column units per dim
+    groups = max(1, min(units, min(_FWD_WARPS, maxt // 32) // d))
+    # csrc wide_fwd_smem_floats: xt (rt, stride) | xn (rt, d) | red (warps, 32)
+    smem = 4 * (rt * ck._align4(dp) + ck._align4(rt * d) + 32 * d * groups)
+    ck._check_smem(smem, what)
+    return WideFwdGeometry(dp=dp, rt=rt, groups=groups, maxt=maxt,
+                           threads=32 * d * groups, blocks=math.ceil(n / rt),
+                           smem_bytes=smem)
+
+
+def wide_slab_floats(din, d, sp, mp):
+    """Floats of one (row block, dim) slab of the wide backward (csrc
+    wide_slab_floats): db (Din, cols) | dwblk (cols, D) | dphase, dzn (cols)
+    | dinvls2 (Din), cols = Sp + Mp."""
+    return (din + d + 1) * (sp + mp) + din
+
+
+def wide_bwd_geometry(n, din, d, sp, mp, sms):
+    """Geometry of the wide backward for N rows on a card of `sms`
+    multiprocessors; raises ValueError on a shape the kernel does not take.
+    Pure arithmetic: no device is touched."""
+    what = "fused_rhs_wide backward"
+    dp, rt, maxt = _wide_variant(n, din, d, sp, mp, WIDE_BWD_VARIANTS, what)
+    cols = sp + mp
+    warps = max(1, min(cols // KERNEL_PAD, _BWD_WARPS, maxt // 32))
+    # csrc wide_bwd_smem_floats: xt, gt (rt, stride) | xn (rt) | red (warps,
+    # 32) | the dim's accumulators (Din + D + 1, cols)
+    smem = 4 * (2 * rt * ck._align4(dp) + ck._align4(rt) + 32 * warps
+                + (din + d + 1) * cols)
+    ck._check_smem(smem, what)
+    row_blocks_max = max(1, math.ceil(_BWD_BLOCKS_PER_SM * sms / d))
+    rows_per_block = rt * math.ceil(math.ceil(n / rt) / row_blocks_max)
+    row_blocks = math.ceil(n / rows_per_block)
+    slab = wide_slab_floats(din, d, sp, mp)
+    return WideBwdGeometry(
+        dp=dp, rt=rt, warps=warps, maxt=maxt, threads=32 * warps,
+        rows_per_block=rows_per_block, row_blocks=row_blocks,
+        blocks=row_blocks * d, smem_bytes=smem, slab_floats=slab,
+        part_floats=row_blocks * d * slab, dx_part_floats=d * n * din)
+
+
 def _check_wide(x, operands, g=None):
-    """Operand checks shared with `fused_rhs` and the wide kernels' own
-    limits. Returns (din, d, m, s)."""
+    """Operand checks shared with `fused_rhs`, the cotangent's, and the wide
+    kernels' geometry in both directions, so a refused shape raises before
+    anything is packed or launched. Returns (din, d, m, s)."""
     din, d, m, s = ck._check(x, *operands)
-    if din > MAX_DIM or d > MAX_DIM:
-        raise ValueError(f"the wide kernels support Din, D <= {MAX_DIM}; got "
-                         f"Din={din}, D={d}")
     if g is not None and (g.shape != (x.shape[0], d) or g.device != x.device
                           or g.dtype != torch.float32):
         raise ValueError(f"g must be a float32 ({x.shape[0]}, {d}) tensor on "
                          f"{x.device}, got {tuple(g.shape)} {g.dtype} on "
                          f"{g.device}")
+    n, sp, mp = x.shape[0], _ceil_to(s, KERNEL_PAD), _ceil_to(m, KERNEL_PAD)
+    if g is None and n:
+        wide_fwd_geometry(n, din, d, sp, mp)
+    elif g is not None:
+        wide_bwd_geometry(n, din, d, sp, mp, ck._sms(x.device))
     return din, d, m, s
-
-
-def _fwd_rows_per_block(n, dev):
-    """Forward tile: whole passes of _ROWS rows, about six blocks per SM."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _ROWS * max(1, math.ceil(n / (_ROWS * 6 * sms)))
-
-
-def _bwd_rows_per_block(n, dev):
-    """Backward tile: whole passes of _ROWS rows, about three blocks per SM,
-    so the card fills while the per-block slabs (and the reduction that
-    reads them) stay small."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _ROWS * max(1, math.ceil(n / (_ROWS * 3 * sms)))
 
 
 def launch_wide_fwd(x, b, phase_w, zn_w, invls2_t, wts, d, sp, mp, dense):
@@ -250,11 +351,12 @@ def launch_wide_fwd(x, b, phase_w, zn_w, invls2_t, wts, d, sp, mp, dense):
     out = torch.empty(n, d, dtype=torch.float32, device=dev)
     if n == 0:
         return out
+    geo = wide_fwd_geometry(n, din, d, sp, mp)
     lib = ck._lib("fused_rhs_wide")
     ck.LAUNCHES["fused_rhs_wide_fwd" if dense else "fused_rhs_wide2_fwd"] += 1
     rc = lib.gpode_wide_fwd(
         *map(ck._ptr, (x, b, phase_w, zn_w, invls2_t, wts, out)), n, din, d,
-        sp, mp, int(dense), _fwd_rows_per_block(n, dev), _FWD_WARPS,
+        sp, mp, int(dense), geo.dp, geo.rt, geo.groups, geo.maxt,
         ck._stream(dev))
     ck._raise_on(rc, "fused_rhs_wide forward" if dense
                  else "fused_rhs_wide2 forward")
@@ -267,20 +369,19 @@ def launch_wide_bwd(x, g, b, phase_w, zn_w, invls2_t, wblk, d, sp, mp):
     dev = x.device
     n, din = x.shape
     w = d * (sp + mp)
-    slab = w * (din + d + 1) + din * d
-    rows = _bwd_rows_per_block(n, dev)
-    ck._check_smem(4 * (slab + _ROWS * (din + 3 * d)
-                        + _BWD_WARPS * _ROWS * (din + d)),
-                   "fused_rhs_wide backward")
-    n_blocks = math.ceil(n / rows)
-    dx = torch.empty(n, din, dtype=torch.float32, device=dev)
-    part = torch.empty(n_blocks * slab, dtype=torch.float32, device=dev)
-    out = torch.empty(slab, dtype=torch.float32, device=dev)
+    geo = wide_bwd_geometry(n, din, d, sp, mp, ck._sms(dev))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty(n, din, **f32)
+    dx_part = torch.empty(geo.dx_part_floats, **f32)
+    part = torch.empty(geo.part_floats, **f32)
+    out = torch.empty(w * (din + d + 1) + din * d, **f32)
     lib = ck._lib("fused_rhs_wide")
     ck.LAUNCHES["fused_rhs_wide_bwd"] += 1
     rc = lib.gpode_wide_bwd(
-        *map(ck._ptr, (x, g, b, phase_w, zn_w, invls2_t, wblk, dx, part, out)),
-        n, din, d, sp, mp, rows, _BWD_WARPS, ck._stream(dev))
+        *map(ck._ptr, (x, g, b, phase_w, zn_w, invls2_t, wblk, dx, dx_part,
+                       part, out)),
+        n, din, d, sp, mp, geo.rows_per_block, geo.dp, geo.rt, geo.warps,
+        geo.maxt, ck._stream(dev))
     ck._raise_on(rc, "fused_rhs_wide backward")
     o = 0
     db = out[o:o + din * w].reshape(din, w); o += din * w
@@ -291,12 +392,36 @@ def launch_wide_bwd(x, g, b, phase_w, zn_w, invls2_t, wblk, d, sp, mp):
     return dx, db, dwblk, dphase_w, dzn_w, dinvls2_xn
 
 
-def wide_bwd_occupancy(din, d, sp, mp):
-    """`cuda_kernels.kernel_occupancy` of the wide backward."""
-    width = 8 if din <= 8 and d <= 8 else 16
-    return ck.kernel_occupancy("fused_rhs_wide", "gpode_wide_bwd_occupancy",
-                               f"wide_bwd_kernelILi{width}EE", din, d, sp, mp,
-                               _BWD_WARPS)
+# The three wide kernels by launch counter: (direction, the mangled
+# template argument after (dp, rt, maxt): the forward's DENSE flag); variant
+# (dp, rt, maxt) of kernel K mangles to a name that holds
+# `ck.variant_key(K, dp, rt, maxt, suffix)`.
+WIDE_KERNELS = {"fused_rhs_wide_fwd": ("fwd", "Lb1E"),
+                "fused_rhs_wide2_fwd": ("fwd", "Lb0E"),
+                "fused_rhs_wide_bwd": ("bwd", "")}
+WIDE_KERNEL_NAMES = {"fwd": "wide_fwd_kernel", "bwd": "wide_bwd_kernel"}
+WIDE_VARIANTS = {"fwd": WIDE_FWD_VARIANTS, "bwd": WIDE_BWD_VARIANTS}
+
+
+def wide_occupancy(name, n, din, d, sp, mp, sms):
+    """`cuda_kernels.kernel_occupancy` of wide kernel `name` (a key of
+    WIDE_KERNELS) at its geometry for this shape, and that geometry."""
+    direction, suffix = WIDE_KERNELS[name]
+    if direction == "fwd":
+        geo = wide_fwd_geometry(n, din, d, sp, mp)
+        args = (din, d, sp, mp, int(suffix == "Lb1E"), geo.dp, geo.rt,
+                geo.groups, geo.maxt)
+    else:
+        geo = wide_bwd_geometry(n, din, d, sp, mp, sms)
+        args = (din, d, sp, mp, geo.dp, geo.rt, geo.warps, geo.maxt)
+    report = ck.kernel_occupancy(
+        "fused_rhs_wide", f"gpode_wide_{direction}_occupancy",
+        ck.variant_key(WIDE_KERNEL_NAMES[direction], geo.dp, geo.rt, geo.maxt,
+                       suffix), *args)
+    if report["smem_bytes"] != geo.smem_bytes:
+        raise RuntimeError(f"{name} takes {report['smem_bytes']} bytes of "
+                           f"shared memory, the geometry says {geo.smem_bytes}")
+    return report, geo
 
 
 def kernel_pack(z, lengthscales, variance, omega, phase, weights, nu):

@@ -217,31 +217,42 @@ def _wide_inputs(dev, n, m, seed, din=DIM, d=DIM, s=S):
 
 @pytest.mark.parametrize("n,m,din,d,s", [
     (2995, M, DIM, DIM, S), (N, 256, DIM, DIM, S), (37, 27, DIM, DIM, S),
-    (203, 40, 10, 12, 100), (203, 40, 3, 2, S)],
-    ids=["rows2995", "m256", "ragged_padded", "din10_d12_s100", "din3_d2"])
+    (1, M, DIM, DIM, S), (203, 40, 10, 12, 100), (203, 40, 3, 2, S),
+    (203, 40, 2, 8, S), (300, M, 16, 16, S)],
+    ids=["rows2995", "m256", "ragged_padded", "one_row", "din10_d12_s100",
+         "din3_d2", "din2_d8", "widest_d16"])
 def test_wide_kernels_match_plain(cuda, n, m, din, d, s):
-    """The three wide kernels against their plain versions; 2995 rows and
-    (37, M=27) leave a ragged last pass, M=27 and S=100 pad their blocks;
-    Din=10, D=12 takes the kernels' wider register layout (its backward's
-    accumulators fill 212 KB of shared memory), Din != D both ways."""
+    """The three wide kernels against their plain versions, and two runs of
+    each bit-identical (every sum in one fixed order, no atomics); 2995 rows,
+    (37, M=27) and one row leave a ragged last tile, M=27 and S=100 pad
+    their units; Din != D both ways takes the variant of max(Din, D): 5, 8
+    and 16 (Din=10, D=12 and the widest, 16)."""
     args = _wide_inputs(cuda, n, m, seed=11, din=din, d=d, s=s)
     g = torch.randn(n, d, device=cuda, generator=torch.Generator(cuda).manual_seed(12))
     before = dict(ck.LAUNCHES)
-    _assert_close(wr.fused_rhs_wide(*args), wr.fused_rhs_wide_plain(*args), "wide")
-    _assert_close(wr.fused_rhs_wide2(*args), wr.fused_rhs_wide2_plain(*args), "wide2")
-    _assert_close(wr.fused_rhs_wide(*args), ck.fused_rhs_plain(*args), "per-dim plain")
+    f, f2 = wr.fused_rhs_wide(*args), wr.fused_rhs_wide2(*args)
+    _assert_close(f, wr.fused_rhs_wide_plain(*args), "wide")
+    _assert_close(f2, wr.fused_rhs_wide2_plain(*args), "wide2")
+    _assert_close(f, ck.fused_rhs_plain(*args), "per-dim plain")
+    assert torch.equal(f, wr.fused_rhs_wide(*args))
+    assert torch.equal(f2, wr.fused_rhs_wide2(*args))
     got = wr.fused_rhs_wide_bwd(*args, g)
     for name, a, b in zip(NAMES, got, wr.fused_rhs_wide_bwd_plain(*args, g)):
         _assert_close(a, b, name, fwd=False)
     again = wr.fused_rhs_wide_bwd(*args, g)
     for name, a, b in zip(NAMES, got, again):
-        assert torch.equal(a, b), name  # fixed-order reduction, no atomics
+        assert torch.equal(a, b), name
     assert ck.LAUNCHES["fused_rhs_wide_fwd"] == before["fused_rhs_wide_fwd"] + 2
-    assert ck.LAUNCHES["fused_rhs_wide2_fwd"] == before["fused_rhs_wide2_fwd"] + 1
+    assert ck.LAUNCHES["fused_rhs_wide2_fwd"] == before["fused_rhs_wide2_fwd"] + 2
     assert ck.LAUNCHES["fused_rhs_wide_bwd"] == before["fused_rhs_wide_bwd"] + 2
 
 
 def test_wide_wrappers_raise_instead_of_falling_back(cuda):
+    """Wrong operands raise, and so does a shape the geometry refuses, all
+    before any launch. The backward holds one dim's accumulators per block:
+    it takes Din=10, D=12, M=40 (which the whole-axis accumulators of the
+    former backward refused) and refuses Din = D = 16 at M = S = 1024 (33
+    floats for each of a dim's 2048 columns, 270 KB)."""
     args = _wide_inputs(cuda, 64, M, seed=13)
     before = dict(ck.LAUNCHES)
     with pytest.raises(RuntimeError, match="forward only"):
@@ -250,12 +261,18 @@ def test_wide_wrappers_raise_instead_of_falling_back(cuda):
         wr.fused_rhs_wide2(args[0].double(), *args[1:])
     with pytest.raises(ValueError):
         wr.fused_rhs_wide_bwd(*args, torch.ones(64, DIM + 1, device=cuda))
-    big = _wide_inputs(cuda, 64, 40, seed=14, din=10, d=12)  # W = 3840
+    big = _wide_inputs(cuda, 64, 1024, seed=14, din=16, d=16, s=1024)
     with pytest.raises(ValueError, match="shared memory"):
-        wr.fused_rhs_wide_bwd(*big, torch.ones(64, 12, device=cuda))
+        wr.fused_rhs_wide_bwd(*big, torch.ones(64, 16, device=cuda))
     with pytest.raises(ValueError, match="Din, D <= 16"):
         wr.fused_rhs_wide(*_wide_inputs(cuda, 8, 8, seed=15, din=3, d=17, s=32))
     assert ck.LAUNCHES == before
+    taken = _wide_inputs(cuda, 64, 40, seed=14, din=10, d=12)   # W = 3840
+    g = torch.randn(64, 12, device=cuda, generator=torch.Generator(cuda).manual_seed(16))
+    for name, a, b in zip(NAMES, wr.fused_rhs_wide_bwd(*taken, g),
+                          wr.fused_rhs_wide_bwd_plain(*taken, g)):
+        _assert_close(a, b, name, fwd=False)
+    assert ck.LAUNCHES["fused_rhs_wide_bwd"] == before["fused_rhs_wide_bwd"] + 1
 
 
 def _segment_inputs(dev, n, dim, m, s, seed):
