@@ -449,11 +449,11 @@ def kernel_phase(dev, gemm):
         6 * vjp_ops(n, din, d, m, s), 4 * (6 * n * din + n * d + pf + n * din + pf)))
 
     print_kernel_rows(out)
-    resources = {name: report_tile_kernel(dev, name, n, dims, out, gemm)
+    resources = {name: report_redesigned_kernel(dev, name, n, dims, out, gemm)
                  for name in ("fused_rhs_fwd", "fused_rhs_bwd")}
-    resources["fused_dopri5_attempt_fwd"] = report_tile_kernel(
+    resources["fused_dopri5_attempt_fwd"] = report_redesigned_kernel(
         dev, "fused_dopri5_attempt_fwd", n, dims, out, gemm, ms_m256=ms_df256)
-    resources["fused_dopri5_attempt_bwd"] = report_tile_kernel(
+    resources["fused_dopri5_attempt_bwd"] = report_redesigned_kernel(
         dev, "fused_dopri5_attempt_bwd", n, dims, out, gemm, ms_m256=ms_db256)
     return out, e_err_long, resources
 
@@ -596,10 +596,10 @@ def rk4_kernel_phase(dev, gemm):
     }
     print_kernel_rows(out)
     resources = {
-        "fused_rk4_segment_fwd": report_tile_kernel(
+        "fused_rk4_segment_fwd": report_redesigned_kernel(
             dev, "fused_rk4_segment_fwd", n, dims, out, gemm,
             ms_3_substeps=ms_f3, ms_m256=ms_f256),
-        "fused_rk4_segment_bwd": report_tile_kernel(
+        "fused_rk4_segment_bwd": report_redesigned_kernel(
             dev, "fused_rk4_segment_bwd", n, dims, out, gemm,
             ms_3_substeps=ms_b3, ms_m256=ms_b256)}
     return out, resources
@@ -677,7 +677,7 @@ def check_variants_free_of_spills(name):
           f"{len(variants)}")
 
 
-def report_tile_kernel(dev, name, n, dims, out, gemm, **extra):
+def report_redesigned_kernel(dev, name, n, dims, out, gemm, **extra):
     """A redesigned kernel (a row-tile kernel, or a wide-layout one) at N
     rows of shape `dims` (Din, D, M, S): its resources at that geometry,
     every built variant free of spills, and its time against its earlier
@@ -826,7 +826,7 @@ def gram_wide_kernel_phase(dev, gemm):
         out[name] = (errs[name], *ms[name],
                      *(bwd_bound if name.endswith("bwd") else fwd_bound))
     print_kernel_rows(out)
-    resources = {name: report_tile_kernel(dev, name, n, (din, d, m, s), out, gemm)
+    resources = {name: report_redesigned_kernel(dev, name, n, (din, d, m, s), out, gemm)
                  for name in errs}
     return out, resources
 

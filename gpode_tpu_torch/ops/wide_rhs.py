@@ -21,6 +21,11 @@ All three functions are forward computations without an autograd rule (as
 in the JAX prototype, where the backward is a separate function): called
 with grad mode on and an operand that requires grad they raise.
 
+The kernels' launch geometries, :func:`wide_fwd_geometry` and
+:func:`wide_bwd_geometry`, are pure arithmetic that the CPU tests reach;
+each raises ValueError on a shape its kernel does not take, and the public
+functions ask them before anything is packed or launched.
+
 Public layouts as for `fused_rhs`: z (M, Din), lengthscales (D, Din) and
 variance (D,) constrained, omega (Din, S, D), phase (1, S, D), weights
 (S, D), nu (D, M).

@@ -242,8 +242,8 @@ def test_wide_kernel_tables_name_every_kernel_once():
         assert re.search(rf"\b{kernel}\(", text)
         assert f'extern "C" int gpode_wide_{direction}_occupancy(' in text
     # the dense and multiply-reduce forwards are the bool template argument
-    assert "wide_fwd_kernel<DP_, RT_, MAXT_, true>" in text or \
-        "wide_fwd_launch<DP_, RT_, MAXT_, true>" in text
+    for dense in ("true", "false"):
+        assert f"wide_fwd_launch<DP_, RT_, MAXT_, {dense}>" in text
     assert ck.variant_key("wide_fwd_kernel", 5, 6, 640, "Lb1E") == \
         "wide_fwd_kernelILi5ELi6ELi640ELb1EE"
 
