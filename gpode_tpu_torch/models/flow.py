@@ -1,10 +1,11 @@
 """Flow: numerical integration of a sampled GP vector field.
 
 Counterpart of `gpode_tpu/models/flow.py` (`flow_forward`,
-`flow_forward_batched`): `odeint` applied to `eval_draw` of a fixed
-:class:`~gpode_tpu_torch.models.gp.PosteriorDraw`, with the segment kernels
-for one-interval shooting segments (the rk4 segment and the whole-span dopri5
-attempt), and the batched-draw solve of posterior prediction.
+`flow_forward_batched`, `flow_forward_sampled`): `odeint` applied to
+`eval_draw` of a fixed :class:`~gpode_tpu_torch.models.gp.PosteriorDraw`,
+with the segment kernels for one-interval shooting segments (the rk4 segment
+and the whole-span dopri5 attempt), the batched-draw solve of posterior
+prediction, and a solve under a draw built from its noise.
 """
 
 from __future__ import annotations
@@ -153,3 +154,19 @@ def flow_forward_batched(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
                        max_steps=cfg.max_steps, first_step=cfg.first_step,
                        norm=max_rms_over_axis0)
     return torch.movedim(xs, 0, 2), stats
+
+
+def flow_forward_sampled(gp_params: gp.SVGPParams,
+                         weight_normals: torch.Tensor,
+                         freq_normals: torch.Tensor,
+                         phase_uniforms: torch.Tensor,
+                         inducing_normals: torch.Tensor, x0: torch.Tensor,
+                         ts: torch.Tensor, cfg: SolverConfig,
+                         chol_zz: Optional[torch.Tensor] = None
+                         ) -> tuple[torch.Tensor, ODEStats]:
+    """Build one posterior draw from its noise (as `gp.draw_posterior`
+    takes it: no leading draw axis), then integrate from x0 over ts with
+    `flow_forward`. Returns ((N, T, D), stats)."""
+    draw = gp.draw_posterior(gp_params, weight_normals, freq_normals,
+                             phase_uniforms, inducing_normals, chol_zz)
+    return flow_forward(gp_params, draw, x0, ts, cfg)

@@ -1,9 +1,18 @@
-"""Data-driven model initialization. Counterpart of the kernel and inducing
-initializers of `gpode_tpu/models/init.py`.
+"""Data-driven model initialization. Counterpart of `gpode_tpu/models/init.py`
+(all of it but the vanilla model's `initialize_latents_with_data`):
 
-K-means runs on the host (scipy); the ridge regression and whitening solves
-run on the parameters' device. Both functions update the module in place and
-return it.
+  * inducing locations at k-means cluster centers of the observed states,
+    whitened inducing means from a kernel ridge regression onto empirical
+    time-difference gradients;
+  * the initial-state mean by integrating the freshly initialized ODE
+    backward one observation interval from the first observation, averaged
+    over posterior draws; the shooting-state means at the observed values;
+  * observation-noise and kernel hyperparameter setters.
+
+K-means runs on the host (scipy); the solves and the backward integration
+run on the parameters' device. Random numbers are inputs: the backward
+integration takes its draws' noise as a `gpode.PredictNoise`. The
+initializers update the module in place and return it.
 """
 
 from __future__ import annotations
@@ -15,6 +24,8 @@ import torch
 from scipy.cluster.vq import kmeans2
 
 from gpode_tpu_torch.models import gp
+from gpode_tpu_torch.models.flow import SolverConfig, flow_forward_sampled
+from gpode_tpu_torch.models.gpode import PredictNoise
 from gpode_tpu_torch.ops import math as om
 from gpode_tpu_torch.ops.kernels import rbf_K
 
@@ -84,3 +95,53 @@ def initialize_kernel_parameters(gp_params: gp.SVGPParams,
     gp_params.kernel.raw_lengthscales.fill_(float(om.invsoftplus(lengthscale_value)))
     gp_params.kernel.raw_variance.fill_(float(om.invsoftplus(variance_value)))
     return gp_params
+
+
+@torch.no_grad()
+def estimate_x0_backward(gp_params: gp.SVGPParams, noise: PredictNoise,
+                         y_first: torch.Tensor, ts: torch.Tensor,
+                         cfg: SolverConfig) -> torch.Tensor:
+    """x0 estimate: integrate backward one interval from the first
+    observation y_first (N, D) over [ts[1], ts[0]], averaged over the draws
+    of `noise` (its leading axis; its x0 normals are not used). Under the
+    `insert_zero_t0` convention x(0) evolves one interval into y(t_0).
+
+    Each draw is its own solve, as under the JAX package's `vmap`: an
+    adaptive solver then keeps one step controller per draw (the batched
+    solve of `predict` shares one)."""
+    ts_back = torch.stack([ts[1], ts[0]])
+    chol = gp.precompute_chol(gp_params)
+    ends = [flow_forward_sampled(gp_params, noise.rff_weights[i],
+                                 noise.rff_freq[i], noise.rff_phase[i],
+                                 noise.inducing[i], y_first, ts_back, cfg,
+                                 chol)[0][:, -1]
+            for i in range(noise.inducing.shape[0])]
+    return torch.mean(torch.stack(ends), dim=0)
+
+
+@torch.no_grad()
+def initialize_shooting_states_with_data(params, noise: PredictNoise,
+                                         data_ys: np.ndarray,
+                                         data_ts: np.ndarray,
+                                         cfg: SolverConfig):
+    """Shooting init: the x0 mean by backward integration over the draws of
+    `noise` (the JAX package takes 50), the shooting-state means at the
+    observed values y_0 .. y_{T-2}. data_ys (N, T, D), data_ts (T,)."""
+    dev = params.states.mean.device
+    ys = torch.as_tensor(np.asarray(data_ys, np.float32), device=dev)
+    ts = torch.as_tensor(np.asarray(data_ts, np.float32), device=dev)
+    params.states.x0.mean.copy_(
+        estimate_x0_backward(params.gp, noise, ys[:, 0], ts, cfg))
+    params.states.mean.copy_(ys[:, :-1])
+    return params
+
+
+@torch.no_grad()
+def initialize_noisevar(likelihood, init_noisevar):
+    """Set the observation-noise variance (a float or a per-dim array) of a
+    Gaussian likelihood, or of the base of a projected one."""
+    base = getattr(likelihood, "base", likelihood)
+    raw = om.invsoftplus(torch.as_tensor(np.asarray(init_noisevar, np.float32)))
+    base.raw_variance.copy_(raw.to(base.raw_variance.device).expand_as(
+        base.raw_variance))
+    return likelihood
