@@ -28,16 +28,18 @@ exit code and no result line:
      the per-dim rhs's counts. The dopri5 attempt's forward and backward
      are held and timed at M=256 too, the rk4 segment's timed at 3 substeps
      and at M=256, and two launches of each row-tile kernel (`fused_rhs` and
-     the segment kernels) must be bit-identical. For each of the nine
-     redesigned kernels (the six row-tile ones and the three wide ones) it
-     prints registers and spill bytes (the build's ptxas record), block
-     size, dynamic shared memory and resident blocks and warps per SM (the
-     occupancy query); every built variant must be free of spills and be
-     one the launch geometry selects. The yardstick of their speed is one
-     float32 GEMM (`torch.mm` of two GEMM_N x GEMM_N matrices, TF32 off),
-     which shares no code with any kernel here, timed in the same call: each
-     of the nine must stay within the limit of its ratio to that GEMM
-     (EARLIER);
+     the segment kernels) must be bit-identical. For each of the ten
+     redesigned kernels (the six row-tile ones, the three wide ones and
+     `rbf_gram`) it prints registers and spill bytes (the build's ptxas
+     record), block size, dynamic shared memory and resident blocks and
+     warps per SM (the occupancy query); every built variant must be free of
+     spills and be one the launch geometry selects. The yardstick of their
+     speed is one float32 GEMM (`torch.mm` of two GEMM_N x GEMM_N matrices,
+     TF32 off), which shares no code with any kernel here, timed in the same
+     call: each of the ten must stay within the limit of its ratio to that
+     GEMM (EARLIER). `rbf_gram`, which only writes its output, is also
+     printed beside one `fill_` of the same (D, N, M) tensor (the same bytes
+     written by one PyTorch call; printed, not held);
   4. train: the official-recipe shooting train step (dopri5, whole-span
      first step, 5 MC draws, no frozen mask as in bench.py): the step-0 loss
      against the same step through the plain path at rtol 1e-4, then 3
@@ -63,6 +65,17 @@ exit code and no result line:
      MSE in the 50-D data space of the MoCap-09 test split) on the params
      after phase 6, its device metric held against the host metric on the
      same predictions (rtol 1e-4);
+  7b. time to test LL: the time-to-LL driver
+     (`gpode_tpu_torch.scripts.bench_time_to_nll.main`) in-process, `fast`
+     preset, DRIVER_ITERS iterations, tracking evals every 250, 128-draw
+     evals: the data-driven init (backward-integrated x0 over 50 draws,
+     states at the data, noise variance from a 16-draw predict), then the
+     train steps with every launch counter set to 0 just before the driver
+     and read just after. It must return 0, set a finite noise variance
+     > 0, launch each rk4 segment kernel once per step and neither the
+     dopri5 attempt nor `fused_rhs`, and end at a finite 128-draw test LL
+     above phase 7's (read after 23 steps from a random start); prints its
+     init seconds and steps/s;
   8. vdp: vanilla GPODE on Van der Pol at the train script's defaults (25
      observations over T=7, noise variance 0.05, M=16, S=256, dimwise,
      dopri5): the step-0 loss on the card against the same step on the CPU
@@ -107,6 +120,7 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 KERNEL_ITERS = 50
 GEMM_N = 2048
 EVAL_DRAWS, EVAL_REPEATS = 128, 3
+DRIVER_ITERS = 500
 
 NAMES = ("x", "z", "lengthscales", "variance", "omega", "phase", "weights", "nu")
 SOURCES = {"fused_rhs_fwd": "gpode_tpu_torch/csrc/fused_rhs.cu",
@@ -131,16 +145,17 @@ REPLACES = {
     "fused_rhs_wide2_fwd": "scripts/proto_wide_rhs.py:168",
     "fused_rhs_wide_bwd": "scripts/proto_wide_rhs.py:305",
 }
-# The nine redesigned kernels (six on the row tile, three wide-layout ones):
-# device ms per launch before their redesign (`ms`; PERF.md, NVIDIA H100
-# 80GB HBM3, 700.00 W) and the ratio of each to one launch of the yardstick
-# GEMM of the same call, recorded on the kernels of commit 350a559 for the
-# row-tile kernels (`ratio`; PERF.md, GEMM 0.3409 ms) and of commit 90e806b
-# for the wide ones (GEMM 0.3406 ms).
+# The ten redesigned kernels (six on the row tile, three wide-layout ones and
+# `rbf_gram`): device ms per launch before their redesign (`ms`; PERF.md,
+# NVIDIA H100 80GB HBM3, 700.00 W) and the ratio of each to one launch of
+# the yardstick GEMM of the same call, recorded on the kernels of commit
+# 350a559 for the row-tile kernels (`ratio`; PERF.md, GEMM 0.3409 ms), of
+# commit 90e806b for the wide ones (GEMM 0.3406 ms) and of commit c02184e
+# for `rbf_gram` (GEMM 0.3385 ms).
 # Held in every call: the ratio now is at most `limit` — 1.25x the recorded
 # ratio for the four segment kernels, and the recorded ratio / 1.5 for the
-# two `fused_rhs` kernels and the three wide ones (their redesign is 1.5x
-# faster whatever card the call lands on).
+# two `fused_rhs` kernels, the three wide ones and `rbf_gram` (their
+# redesign is 1.5x faster whatever card the call lands on).
 EARLIER = {
     "fused_rhs_fwd": dict(ms=0.0321, ratio=0.0951, limit=0.0951 / 1.5),
     "fused_rhs_bwd": dict(ms=0.1692, ratio=0.5013, limit=0.5013 / 1.5),
@@ -151,6 +166,7 @@ EARLIER = {
     "fused_rhs_wide_fwd": dict(ms=0.0291, ratio=0.0859, limit=0.0859 / 1.5),
     "fused_rhs_wide2_fwd": dict(ms=0.0299, ratio=0.0884, limit=0.0884 / 1.5),
     "fused_rhs_wide_bwd": dict(ms=0.1127, ratio=0.3307, limit=0.3307 / 1.5),
+    "rbf_gram": dict(ms=0.0108, ratio=0.0325, limit=0.0325 / 1.5),
 }
 
 # the kernels each path must launch, and those a train path must not
@@ -158,6 +174,7 @@ MAIN_PATH_KERNELS = {
     "official": ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd"),
     "fast": ("fused_rk4_segment_fwd", "fused_rk4_segment_bwd"),
     "official_heuristic": ("fused_rhs_fwd", "fused_rhs_bwd"),
+    "driver": ("fused_rk4_segment_fwd", "fused_rk4_segment_bwd"),
     "field": ("rbf_gram",),
     "wide_ab": ("fused_rhs_fwd", "fused_rhs_bwd", "fused_rhs_wide_fwd",
                 "fused_rhs_wide2_fwd", "fused_rhs_wide_bwd"),
@@ -635,22 +652,32 @@ TILE = {"fused_rhs_fwd": ("fwd", None), "fused_rhs_bwd": ("bwd", None),
 
 
 def variant_table(name):
-    """(library, kernel, the mangled template argument after (dp, rt, maxt),
-    the instantiated (dp, rt, maxt) variants) of a redesigned kernel."""
+    """(library, kernel, the mangled template argument after the variant's
+    ints, {label: the mangled-name key of each instantiated variant}) of a
+    redesigned kernel: (dp, rt, maxt) variants, or dp alone for `rbf_gram`."""
     from gpode_tpu_torch.ops import cuda_kernels as ck
     from gpode_tpu_torch.ops import wide_rhs as wr
+    if name == "rbf_gram":
+        lib_name, kernel, _ = ck.GRAM_KERNEL
+        return lib_name, kernel, "", {f"<{dp}>": ck.gram_variant_key(dp)
+                                      for dp in ck.GRAM_VARIANTS}
     if name in wr.WIDE_KERNELS:
         direction, suffix = wr.WIDE_KERNELS[name]
-        return ("fused_rhs_wide", wr.WIDE_KERNEL_NAMES[direction], suffix,
-                wr.WIDE_VARIANTS[direction])
-    direction, stages = TILE[name]
-    if stages is None:
-        (lib_name, kernel, _), variants = (ck.RHS_KERNELS[direction],
-                                           ck.RHS_VARIANTS[direction])
+        lib_name, kernel = "fused_rhs_wide", wr.WIDE_KERNEL_NAMES[direction]
+        variants = wr.WIDE_VARIANTS[direction]
     else:
-        (lib_name, kernel, _), variants = (ck.SEGMENT_KERNELS[direction, stages],
-                                           ck.SEGMENT_VARIANTS[direction, stages])
-    return lib_name, kernel, "", variants
+        direction, stages = TILE[name]
+        suffix = ""
+        if stages is None:
+            (lib_name, kernel, _), variants = (ck.RHS_KERNELS[direction],
+                                               ck.RHS_VARIANTS[direction])
+        else:
+            (lib_name, kernel, _), variants = (
+                ck.SEGMENT_KERNELS[direction, stages],
+                ck.SEGMENT_VARIANTS[direction, stages])
+    return lib_name, kernel, suffix, {
+        f"<{dp}, {rt}, {maxt}>": ck.variant_key(kernel, dp, rt, maxt, suffix)
+        for dp, rt, maxt in variants}
 
 
 def check_variants_free_of_spills(name):
@@ -659,33 +686,36 @@ def check_variants_free_of_spills(name):
     record: the table the launch geometry selects from is what was built,
     and none of it spills."""
     from gpode_tpu_torch.ops import cuda_build
-    from gpode_tpu_torch.ops import cuda_kernels as ck
     lib_name, kernel, suffix, variants = variant_table(name)
     built = {k: v for k, v in cuda_build.kernel_resources(lib_name).items()
              if kernel in k and f"{suffix}E" in k}
-    for dp, rt, maxt in variants:
-        key = ck.variant_key(kernel, dp, rt, maxt, suffix)
+    for label, key in variants.items():
         found = [v for k, v in built.items() if key in k]
         check(len(found) == 1, f"{name}: {len(found)} builds of {key}")
-        print(f"  {name} variant <{dp}, {rt}, {maxt}>: {found[0]['registers']} "
+        print(f"  {name} variant {label}: {found[0]['registers']} "
               f"registers, spill {found[0]['spill_stores']} B stores / "
               f"{found[0]['spill_loads']} B loads")
         check(found[0]["spill_stores"] == 0 and found[0]["spill_loads"] == 0,
-              f"{name} variant <{dp}, {rt}, {maxt}> spills registers")
+              f"{name} variant {label} spills registers")
     check(len(built) == len(variants),
           f"{name}: {len(built)} variants built, the geometry selects from "
           f"{len(variants)}")
 
 
 def report_redesigned_kernel(dev, name, n, dims, out, gemm, **extra):
-    """A redesigned kernel (a row-tile kernel, or a wide-layout one) at N
-    rows of shape `dims` (Din, D, M, S): its resources at that geometry,
+    """A redesigned kernel (a row-tile kernel, a wide-layout one or
+    `rbf_gram`) at N rows of shape `dims` (Din, D, M, S): its resources at
+    that geometry,
     every built variant free of spills, and its time against its earlier
     one, one launch of the yardstick GEMM of this call (`gemm` ms) and its
     bound (`out[name]`: the kernel row). Holds the ratio limit."""
     from gpode_tpu_torch.ops import cuda_kernels as ck
     from gpode_tpu_torch.ops import wide_rhs as wr
-    if name in wr.WIDE_KERNELS:
+    if name == "rbf_gram":
+        din, d, m, _ = dims
+        geo = ck.gram_geometry(n, din, d, m, ck._sms(dev))
+        occupancy = ck.gram_occupancy(din, d, m, geo)
+    elif name in wr.WIDE_KERNELS:
         din, d, m, s = dims
         occupancy, geo = wr.wide_occupancy(
             name, n, din, d, wr._ceil_to(s, wr.KERNEL_PAD),
@@ -717,17 +747,17 @@ def report_redesigned_kernel(dev, name, n, dims, out, gemm, **extra):
     return dict(ms=ms, earlier_ms=was["ms"], ratio_to_gemm=ratio,
                 parent_ratio=was["ratio"], limit=was["limit"],
                 bound_share=bound_ms / ms, blocks=geo.blocks,
-                rows_per_block=getattr(geo, "rows_per_block", geo.rt),
+                rows_per_block=(geo.rows_per_block
+                                if hasattr(geo, "rows_per_block") else geo.rt),
                 **report, **extra)
 
 
 def gram_wide_kernel_phase(dev, gemm):
     """`rbf_gram` and the three wide-layout rhs kernels at the MoCap-09 step's
     inputs (and the M=256 preset's), each against its plain version on the
-    same operands, and each wide kernel twice for bit-identical results.
+    same operands, and each twice for bit-identical results.
     Times are at N=3000, M=100; `gemm`: device ms of the yardstick GEMM of
-    this call. Returns the four kernel rows and the three wide kernels'
-    resource reports."""
+    this call. Returns the four kernel rows and their resource reports."""
     phase("kernels: rbf_gram and the wide layout")
     import torch
     from gpode_tpu_torch.ops import cuda_kernels as ck
@@ -759,11 +789,21 @@ def gram_wide_kernel_phase(dev, gemm):
                 f"rbf_gram K ({what})"))
         z, ls, var = params[0], params[1], params[2]
         inv_ls = (1.0 / ls).contiguous()
+        gram = ck._launch_rbf_gram(x, z, inv_ls, var)
+        check(torch.equal(gram, ck._launch_rbf_gram(x, z, inv_ls, var)),
+              "two rbf_gram runs differ")
+        print("  rbf_gram: two runs bit-identical")
         ms_g = cuda_ms(lambda: ck._launch_rbf_gram(x, z, inv_ls, var))
         ms_gp = cuda_ms(lambda: ck.rbf_gram_plain(x, z, ls, var))
+        # the write yardstick: the same (D, N, M) float32 bytes written by
+        # one PyTorch call (printed, not held)
+        ms_fill = cuda_ms(lambda: gram.fill_(1.0))
     out["rbf_gram"] = (e_gram, ms_g, ms_gp, *bound(
         gram_ops(n, din, d, m),
         4 * (n * din + m * din + d * din + d + d * n * m)))
+    print(f"rbf_gram: {ms_g:.4f} ms per launch; fill_ of its (D, N, M) output "
+          f"{ms_fill:.4f} ms (write yardstick: kernel / fill_ "
+          f"{ms_g / ms_fill:.2f})")
 
     # -- the wide layout: kernels against plain versions on packed operands
     errs = {"fused_rhs_wide_fwd": 0.0, "fused_rhs_wide2_fwd": 0.0,
@@ -828,6 +868,8 @@ def gram_wide_kernel_phase(dev, gemm):
     print_kernel_rows(out)
     resources = {name: report_redesigned_kernel(dev, name, n, (din, d, m, s), out, gemm)
                  for name in errs}
+    resources["rbf_gram"] = report_redesigned_kernel(
+        dev, "rbf_gram", n, (din, d, m, s), out, gemm, fill_ms=ms_fill)
     return out, resources
 
 
@@ -1018,6 +1060,42 @@ def wide_ab_phase():
     print(f"proto_wide_rhs returned {rc}; launches {launches}", flush=True)
     check(rc == 0, "the wide A/B entry point reported a mismatch")
     return launches
+
+
+def driver_phase(random_start_ll):
+    """The time-to-LL driver in-process at a short `fast` run (phase 7b);
+    `random_start_ll`: phase 7's test LL. Returns (its JSON's scalars, the
+    launches of its run)."""
+    phase("time to test LL (driver)")
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.scripts import bench_time_to_nll
+    out = os.path.join(ROOT, "chiprun_out", "chip_smoke_time_to_nll.json")
+    ck.reset_launch_counts()                     # main path starts here
+    rc = bench_time_to_nll.main([
+        "--preset", "fast", "--num_iter", str(DRIVER_ITERS), "--eval_every",
+        "250", "--eval_draws", str(EVAL_DRAWS), "--out", out])
+    launches = dict(ck.LAUNCHES)                 # main path ends here
+    check(rc == 0, f"the time-to-LL driver returned {rc}")
+    with open(out) as f:
+        res = json.load(f)
+    noise_var = res["noise_variance"]
+    ll, mse = res["final"]["test_ll"], res["final"]["test_mse"]
+    print(f"init {res['init_seconds']:.2f} s; {res['train_steps_per_sec']:.2f} "
+          f"steps/s over {res['final']['iter']} steps; noise variance "
+          f"{min(noise_var):.4g} .. {max(noise_var):.4g}; final {EVAL_DRAWS}-draw "
+          f"test LL {ll:.6f} MSE {mse:.6f} (random start, phase 7: "
+          f"{random_start_ll:.6f}); crossings {res['crossings']}; launches "
+          f"{launches}", flush=True)
+    check(all(math.isfinite(v) and v > 0.0 for v in noise_var),
+          "the driver's noise variance is not finite and positive")
+    check(math.isfinite(ll) and ll > random_start_ll,
+          "the driver's final test LL is not above the random start's")
+    for name in MAIN_PATH_KERNELS["driver"]:
+        check(launches[name] == DRIVER_ITERS,
+              f"{name} launched {launches[name]} times in {DRIVER_ITERS} steps")
+    for name in OFF_PATH_KERNELS["fast"]:
+        check(launches[name] == 0, f"{name} launched on the driver's path")
+    return {k: v for k, v in res.items() if k != "trace"}, launches
 
 
 def accept_decision_check(x, params, rtol, atol):
@@ -1340,6 +1418,7 @@ def main(argv=None) -> int:
     fast, fast_launches, fast_args, fast_params = train_phase(
         dev, "fast", opts.profile_steps)
     evaluation = eval_phase(dev, fast_args, fast_params)
+    driver, driver_launches = driver_phase(evaluation["ll"])
     vdp, vdp_params, vdp_data = vdp_phase(dev, "default", opts.profile_steps)
     vdp_golden, _, _ = vdp_phase(dev, "golden", opts.profile_steps)
     field, field_launches, e_gram = field_phase(dev, vdp_params, vdp_data,
@@ -1348,6 +1427,7 @@ def main(argv=None) -> int:
                            *kernels["rbf_gram"][1:])
     path_launches = {"official": launches, "fast": fast_launches,
                      "official_heuristic": heuristic_launches,
+                     "driver": driver_launches,
                      "field": field_launches, "wide_ab": wide_ab_phase()}
 
     phase("result")
@@ -1373,7 +1453,8 @@ def main(argv=None) -> int:
                    "kernels": rows, "kernel_resources": resources,
                    "train": train, "train_fast": fast,
                    "train_official_heuristic": heuristic,
-                   "eval_fast": evaluation, "vdp": vdp,
+                   "eval_fast": evaluation, "time_to_nll": driver,
+                   "vdp": vdp,
                    "vdp_golden": vdp_golden, "field": field}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

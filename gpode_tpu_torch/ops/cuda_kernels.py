@@ -213,7 +213,8 @@ _SIGNATURES = {
                   "gpode_rk4_fwd_occupancy": [_I] * 8 + [_P],
                   "gpode_rk4_bwd": [_P] * 15 + [_I] * 11 + [_P],
                   "gpode_rk4_bwd_occupancy": [_I] * 8 + [_P]},
-    "rbf_gram": {"gpode_rbf_gram": [_P] * 5 + [_I] * 6 + [_P]},
+    "rbf_gram": {"gpode_rbf_gram": [_P] * 5 + [_I] * 8 + [_P],
+                 "gpode_rbf_gram_occupancy": [_I] * 7 + [_P]},
     "fused_rhs_wide": {"gpode_wide_fwd": [_P] * 7 + [_I] * 10 + [_P],
                        "gpode_wide_fwd_occupancy": [_I] * 9 + [_P],
                        "gpode_wide_bwd": [_P] * 11 + [_I] * 10 + [_P],
@@ -879,21 +880,117 @@ def segment_occupancy(direction, stages, din, d, m, s, geo):
 # rbf_gram
 # ---------------------------------------------------------------------------
 
-_GRAM_ROWS, _GRAM_THREADS = 32, 256
+# `rbf_gram` blocks (csrc/rbf_gram.cu): a thread takes a group of
+# _GRAM_GROUP adjacent columns of one dim and the rows lane, lane + L, ... of
+# its block's tile; a block is L row lanes times up to _GRAM_BLOCK_GROUPS
+# column groups (M is split into balanced column chunks of at most 64
+# columns). DP of the instantiated variants (csrc GRAM_VARIANTS): a shape
+# takes the narrowest with Din <= DP. Measured on an H100 at N=3000,
+# Din=D=5 (the sweep is in PERF.md): blocks of 13-16 groups and 128-256
+# threads whose lanes walk 4-8 rows beat one block row of all M columns and
+# beat more, smaller blocks.
+GRAM_VARIANTS = (1, 2, 3, 4, 5, 6, 8, 16)
+_GRAM_GROUP = 4
+_GRAM_BLOCK_GROUPS = 16
+_GRAM_THREADS = 256
+_GRAM_MAX_ROWS_PER_LANE = 8
+_GRAM_BLOCKS_PER_SM = 2
+_GRID_YZ_MAX = 65535
+
+
+@dataclasses.dataclass(frozen=True)
+class GramGeometry:
+    """Launch geometry of `rbf_gram`: a (row_blocks, col_chunks, D) grid of
+    blocks of `lanes` row lanes times `groups_per_block` column groups."""
+    dp: int                # the variant's bound of its loops over Din
+    groups_per_block: int  # column groups of _GRAM_GROUP columns per block
+    col_chunks: int        # blocks along the columns: ceil(groups / that)
+    lanes: int             # row lanes; threads = lanes * groups_per_block
+    rows_per_block: int    # a multiple of lanes
+    row_blocks: int
+    threads: int
+    blocks: int            # row_blocks * col_chunks * D
+    smem_bytes: int        # the tile's scaled x rows (rows_per_block, dp)
+    vec: bool              # M % 4 == 0: each row's group is one 16-byte store
+
+
+def gram_geometry(n, din, d, m, sms):
+    """Geometry of `rbf_gram` for K (D, N, M) from x (N, Din) on a card of
+    `sms` multiprocessors; raises ValueError on a shape the kernel does not
+    take. The row lanes of a block are the largest power of two that keeps
+    it within _GRAM_THREADS threads; a lane walks up to
+    _GRAM_MAX_ROWS_PER_LANE rows, fewer until the grid holds
+    _GRAM_BLOCKS_PER_SM blocks per SM, and below one row the block loses
+    lanes, so that a small N still spreads over the card. Pure arithmetic:
+    no device is touched."""
+    if (not 1 <= din <= GRAM_VARIANTS[-1] or not 1 <= d <= _GRID_YZ_MAX
+            or n < 1 or m < 1):
+        raise ValueError(f"rbf_gram supports 1 <= Din <= {GRAM_VARIANTS[-1]}, "
+                         f"1 <= D <= {_GRID_YZ_MAX} and N, M >= 1; got N={n}, "
+                         f"Din={din}, D={d}, M={m}")
+    dp = next(v for v in GRAM_VARIANTS if din <= v)
+    groups = math.ceil(m / _GRAM_GROUP)
+    chunks = math.ceil(groups / _GRAM_BLOCK_GROUPS)
+    if chunks > _GRID_YZ_MAX:
+        raise ValueError(f"rbf_gram supports M <= "
+                         f"{_GRID_YZ_MAX * _GRAM_BLOCK_GROUPS * _GRAM_GROUP}; "
+                         f"got M={m}")
+    per_block = math.ceil(groups / chunks)
+    target = _GRAM_BLOCKS_PER_SM * sms
+
+    def blocks(rows_per_block):
+        return math.ceil(n / rows_per_block) * chunks * d
+
+    lanes = 1 << ((_GRAM_THREADS // per_block).bit_length() - 1)
+    per_lane = _GRAM_MAX_ROWS_PER_LANE
+    while blocks(lanes * per_lane) < target and lanes * per_lane > 1:
+        if per_lane > 1:
+            per_lane //= 2
+        else:
+            lanes //= 2
+    rows = lanes * per_lane
+    # at most 2048 rows of 16 floats: 128 KB, within the card's 227 KB
+    return GramGeometry(dp=dp, groups_per_block=per_block, col_chunks=chunks,
+                        lanes=lanes, rows_per_block=rows,
+                        row_blocks=math.ceil(n / rows),
+                        threads=lanes * per_block, blocks=blocks(rows),
+                        smem_bytes=4 * rows * dp, vec=m % _GRAM_GROUP == 0)
+
+
+# (library, kernel, occupancy query) of `rbf_gram`; variant DP's mangled
+# name holds `gram_variant_key(dp)`
+GRAM_KERNEL = ("rbf_gram", "rbf_gram_kernel", "gpode_rbf_gram_occupancy")
+
+
+def gram_variant_key(dp):
+    return f"{GRAM_KERNEL[1]}ILi{dp}EE"
+
+
+def gram_occupancy(din, d, m, geo):
+    """`kernel_occupancy` of `rbf_gram` at geometry `geo`."""
+    lib_name, _, fn = GRAM_KERNEL
+    report = kernel_occupancy(lib_name, fn, gram_variant_key(geo.dp), din, d, m,
+                              geo.dp, geo.rows_per_block, geo.lanes,
+                              geo.groups_per_block)
+    if report["smem_bytes"] != geo.smem_bytes:
+        raise RuntimeError(f"rbf_gram takes {report['smem_bytes']} bytes of "
+                           f"shared memory, the geometry says {geo.smem_bytes}")
+    return report
 
 
 def _launch_rbf_gram(x, z, inv_ls, variance):
     """One launch on contiguous CUDA operands; inv_ls (D, Din) = 1 / ls."""
     dev = x.device
     (n, din), m, d = x.shape, z.shape[0], inv_ls.shape[0]
-    out = torch.empty(d, n, m, dtype=torch.float32, device=dev)
     if n == 0 or m == 0:
-        return out
+        return torch.empty(d, n, m, dtype=torch.float32, device=dev)
+    geo = gram_geometry(n, din, d, m, _sms(dev))   # raises before any launch
+    out = torch.empty(d, n, m, dtype=torch.float32, device=dev)
     lib = _lib("rbf_gram")
     LAUNCHES["rbf_gram"] += 1
     rc = lib.gpode_rbf_gram(_ptr(x), _ptr(z), _ptr(inv_ls), _ptr(variance),
-                            _ptr(out), n, din, d, m, _GRAM_ROWS,
-                            _GRAM_THREADS, _stream(dev))
+                            _ptr(out), n, din, d, m, geo.dp, geo.rows_per_block,
+                            geo.lanes, geo.groups_per_block, _stream(dev))
     _raise_on(rc, "rbf_gram")
     return out
 
@@ -925,9 +1022,6 @@ def rbf_gram(x, z, lengthscales, variance):
             f"shapes disagree: x {tuple(x.shape)}, z {tuple(z.shape)}, "
             f"lengthscales {tuple(lengthscales.shape)}, variance "
             f"{tuple(variance.shape)}")
-    if not 1 <= d <= 65535:
-        raise ValueError(f"rbf_gram supports 1 <= D <= 65535, got {d}")
-    _check_smem(4 * (z.shape[0] + _GRAM_ROWS) * din, "rbf_gram")
     with torch.no_grad():
         return _launch_rbf_gram(x.contiguous(), z.contiguous(),
                                 (1.0 / lengthscales).contiguous(),

@@ -5,7 +5,8 @@ Needs an NVIDIA GPU with nvcc: `pytest -m gpu tests/test_torch_gpu.py`.
 Without a card every test here skips (the check runs inside a fixture).
 Tolerances: forward rtol 1e-4 (atol 1e-5 * max|ref|); cotangents atol
 1e-3 * max|g| (the kernels sum features, inducing points and blocks in
-another order than the plain version).
+another order than the plain version). Also the time-to-LL driver's init
+on the card against the same init on the CPU.
 """
 
 import numpy as np
@@ -203,6 +204,26 @@ def test_rbf_gram_matches_plain(cuda, n, m):
     with pytest.raises(ValueError):
         ck.rbf_gram(x, z.cpu(), ls, var)
     assert ck.LAUNCHES["rbf_gram"] == before + 1
+
+
+@pytest.mark.parametrize("d", [1, 2, 5])
+@pytest.mark.parametrize("din", [2, 5])
+@pytest.mark.parametrize("m", [16, 17, 100, 256])
+@pytest.mark.parametrize("n", [1, 77, 900, N])
+def test_rbf_gram_over_shapes(cuda, n, m, din, d):
+    """One launch per call, the plain version's values (M % 4 != 0 takes the
+    scalar stores), and a rerun bit-identical."""
+    rng = np.random.default_rng(n + 7 * m + 31 * din + 101 * d)
+    f32 = np.float32
+    x, z, ls, var = (torch.tensor(np.asarray(a, f32), device=cuda) for a in (
+        rng.normal(size=(n, din)), rng.normal(size=(m, din)),
+        rng.uniform(0.8, 1.6, size=(d, din)), rng.uniform(0.3, 0.8, size=(d,))))
+    before = ck.LAUNCHES["rbf_gram"]
+    got = ck.rbf_gram(x, z, ls, var)
+    assert ck.LAUNCHES["rbf_gram"] == before + 1
+    assert got.shape == (d, n, m)
+    _assert_close(got, ck.rbf_gram_plain(x, z, ls, var), f"gram {n}x{m}")
+    assert torch.equal(got, ck.rbf_gram(x, z, ls, var))
 
 
 def _wide_inputs(dev, n, m, seed, din=DIM, d=DIM, s=S):
@@ -474,3 +495,49 @@ def test_segment_forward_over_shapes(cuda, n, dim, m, s, kind, substeps):
     for a, b in zip(got, again):
         assert torch.equal(a, b)  # every (row, dim) sum in one fixed order
     assert ck.LAUNCHES[key] == before + 2
+
+
+@pytest.mark.parametrize("preset", ["fast", "official"])
+def test_time_to_nll_init_on_the_card_matches_the_cpu(cuda, preset):
+    """The time-to-LL driver's init at a preset on the card against the same
+    on the CPU. The kernel and inducing init (`build_model`): atol 1e-4 *
+    max|ref|, since the whitening solve with chol(K(Z,Z) + 1e-6 I) at the
+    k-means centers amplifies float32 rounding (as in
+    tests/test_torch_eval.py). Then from the same parameters and the same
+    noise the states and noise init (`init_states_and_noise`: the x0 mean by
+    backward integration over 50 draws under the eval solver, the states at
+    the data, the noise variance from a 16-draw predict): every parameter
+    rtol 1e-4, atol 1e-5 * max|ref|."""
+    import copy
+
+    from gpode_tpu_torch.models.gpode import PredictNoise, sample_predict_noise
+    from gpode_tpu_torch.scripts import bench_time_to_nll as ttn
+    from gpode_tpu_torch.train.bench_setup import preset_model_args
+
+    margs = preset_model_args(preset)
+    data_pca, data_full = ttn.load_bench_data()
+    cpu = ttn.build_model(margs, data_pca, data_full, 121, "cpu")
+    want = dict(cpu.named_parameters())
+    for name, got in ttn.build_model(margs, data_pca, data_full, 121,
+                                     cuda).named_parameters():
+        torch.testing.assert_close(
+            got.detach().cpu(), want[name].detach(), rtol=1e-4,
+            atol=1e-4 * float(want[name].detach().abs().max()), msg=name)
+
+    params = {"cpu": cpu, cuda: copy.deepcopy(cpu).to(cuda)}
+    gen = torch.Generator().manual_seed(0)
+    f = margs.num_features
+    noise = (sample_predict_noise(ttn.view(cpu), f, ttn.X0_DRAWS, gen,
+                                  sample_x0=False),
+             sample_predict_noise(ttn.view(cpu), f, ttn.NOISEVAR_DRAWS, gen))
+
+    def on(dev, n):
+        return PredictNoise(*(None if t is None else t.to(dev) for t in (
+            n.rff_weights, n.rff_freq, n.rff_phase, n.inducing, n.x0)))
+
+    for dev, p in params.items():
+        ttn.init_states_and_noise(p, margs, data_pca, data_full,
+                                  *(on(dev, n) for n in noise))
+    want = dict(params["cpu"].named_parameters())
+    for name, got in params[cuda].named_parameters():
+        _assert_close(got.cpu(), want[name], name)
