@@ -37,7 +37,6 @@
 #include "rhs_tile.cuh"  // prepare_kernel / occupancy_report
 
 #define GRAM_GROUP 4
-#define GRAM_MAX_GROUPS 256
 #define GRAM_MAX_THREADS 256
 
 // The instantiated variants: DP >= Din, the narrowest taken. Every one
@@ -68,7 +67,7 @@ static __global__ void __launch_bounds__(GRAM_MAX_THREADS)
   const int group = threadIdx.x % groups_per_block;
   const int lane = threadIdx.x / groups_per_block;
   const int col0 = (blockIdx.y * groups_per_block + group) * GRAM_GROUP;
-  if (lane >= lanes || col0 >= m) return;
+  if (col0 >= m) return;  // threads = lanes * groups_per_block: lane < lanes
   const int ncols = min(GRAM_GROUP, m - col0);
   // this group's z / ls_d; a ragged group's missing columns repeat its
   // last one and are never stored
@@ -117,8 +116,7 @@ static int rbf_gram_run(const float* x, const float* z, const float* inv_ls,
                         int* occupancy, void* stream) {
   const int threads = lanes * groups_per_block;
   if (n < 1 || m < 1 || d < 1 || d > 65535 || din < 1 || din > dp || lanes < 1 ||
-      groups_per_block < 1 || groups_per_block > GRAM_MAX_GROUPS ||
-      threads > GRAM_MAX_THREADS || rows_per_block < lanes)
+      groups_per_block < 1 || threads > GRAM_MAX_THREADS || rows_per_block < lanes)
     return (int)cudaErrorInvalidValue;
   const int groups = (m + GRAM_GROUP - 1) / GRAM_GROUP;
   const dim3 grid((n + rows_per_block - 1) / rows_per_block,

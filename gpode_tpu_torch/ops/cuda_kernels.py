@@ -957,6 +957,18 @@ def gram_geometry(n, din, d, m, sms):
                         smem_bytes=4 * rows * dp, vec=m % _GRAM_GROUP == 0)
 
 
+def gram_refusal(n, din, d, m):
+    """Why `rbf_gram` would refuse this shape (`gram_geometry`'s ValueError
+    message), or None when it takes it. Pure arithmetic; one multiprocessor
+    stands in for the card, since the SM count sets only the rows per
+    block, never whether a shape is taken."""
+    try:
+        gram_geometry(n, din, d, m, 1)
+    except ValueError as exc:
+        return str(exc)
+    return None
+
+
 # (library, kernel, occupancy query) of `rbf_gram`; variant DP's mangled
 # name holds `gram_variant_key(dp)`
 GRAM_KERNEL = ("rbf_gram", "rbf_gram_kernel", "gpode_rbf_gram_occupancy")

@@ -66,7 +66,7 @@ def _replay(n, din, d, m, geo):
             for t in range(geo.threads):
                 group, lane = t % geo.groups_per_block, t // geo.groups_per_block
                 col0 = (by * geo.groups_per_block + group) * 4
-                if lane >= geo.lanes or col0 >= m:
+                if col0 >= m:
                     continue
                 cols = slice(col0, min(col0 + 4, m))
                 for r in range(lane, rows, geo.lanes):
@@ -86,11 +86,9 @@ def test_every_output_element_is_written_once(shape):
 def test_geometry_fits_the_source_limits(shape):
     n, din, d, m = (SMOKE_SHAPES | REPLAYED)[shape]
     geo = ck.gram_geometry(n, din, d, m, SMS)
-    group, max_groups = _define("GRAM_GROUP"), _define("GRAM_MAX_GROUPS")
-    assert group == ck._GRAM_GROUP
-    groups = math.ceil(m / group)
-    assert 1 <= geo.groups_per_block <= min(groups, ck._GRAM_BLOCK_GROUPS,
-                                            max_groups)
+    assert _define("GRAM_GROUP") == ck._GRAM_GROUP
+    groups = math.ceil(m / ck._GRAM_GROUP)
+    assert 1 <= geo.groups_per_block <= min(groups, ck._GRAM_BLOCK_GROUPS)
     # balanced chunks: none is more than one group short of the others
     assert geo.col_chunks == math.ceil(groups / geo.groups_per_block)
     assert groups > (geo.col_chunks - 1) * geo.groups_per_block
@@ -169,3 +167,29 @@ def _c_parameters(fn):
 def test_ctypes_signatures_match_the_c_entry_points(fn):
     want = [ck._P if "*" in p else ck._I for p in _c_parameters(fn)]
     assert ck._SIGNATURES["rbf_gram"][fn] == want
+
+
+@pytest.mark.parametrize("din,takes_kernel", [(5, True), (16, True), (17, False)])
+def test_cross_gram_takes_rbf_gram_only_where_its_geometry_does(
+        monkeypatch, caplog, din, takes_kernel):
+    """`gp.cross_gram` without gradients takes `rbf_gram` where the kernel
+    takes the shape; a refused width (Din > 16) takes `rbf_K`, logged once,
+    instead of raising on the card. The two routes agree."""
+    import torch
+
+    from gpode_tpu_torch.models import gp
+
+    calls = []
+    real = gp.rbf_gram
+    monkeypatch.setattr(gp, "rbf_gram",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    params = gp.init_svgp(torch.Generator().manual_seed(0), din, din, 6)
+    x = torch.randn(9, din, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        got = gp.cross_gram(params, x)
+    assert len(calls) == int(takes_kernel)
+    assert got.shape == (din, 6, 9)
+    torch.testing.assert_close(got, gp.rbf_K(params.kernel, params.z, x),
+                               rtol=1e-5, atol=1e-6)
+    refusals = [r for r in caplog.records if "rbf_gram" in r.getMessage()]
+    assert len(refusals) <= int(not takes_kernel)
