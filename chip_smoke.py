@@ -21,8 +21,8 @@ exit code and no result line:
      plain version and the least time the card could take. The rk4 segment
      is held at 1 substep (the fast step), at 3 and at M=256 (the
      `m256_fast` shape). `rbf_gram`
-     is held at the same N=3000, M=100, at M=256 and at N=77 (a ragged last
-     tile); the three wide-layout rhs functions against their plain versions
+     is held at the same N=3000, M=100, at M=256, at N=77 (a ragged last
+     tile) and at Din=17 (its runtime-Din variant, off the main path); the three wide-layout rhs functions against their plain versions
      at N=2995 and 3000, M=100 and 256, each also for bit-identical reruns.
      Bounds read the function, not the formulation: the wide kernels take
      the per-dim rhs's counts. The dopri5 attempt's forward and backward
@@ -787,6 +787,18 @@ def gram_wide_kernel_phase(dev, gemm):
             e_gram = max(e_gram, compare_fwd(
                 ck.rbf_gram(xx, z, ls, var), ck.rbf_gram_plain(xx, z, ls, var),
                 f"rbf_gram K ({what})"))
+        # a Din past the exact variants: the runtime-Din variant, which no
+        # MoCap or VDP path reaches
+        gen = torch.Generator(dev).manual_seed(17)
+        wide = (torch.randn(n, 17, device=dev, generator=gen),
+                torch.randn(m, 17, device=dev, generator=gen),
+                3.0 + torch.rand(d, 17, device=dev, generator=gen),
+                0.3 + torch.rand(d, device=dev, generator=gen))
+        check(ck.gram_geometry(n, 17, d, m, ck._sms(dev)).dp == ck.GRAM_ANY_DIN,
+              "Din=17 does not take the runtime-Din variant")
+        e_gram = max(e_gram, compare_fwd(
+            ck.rbf_gram(*wide), ck.rbf_gram_plain(*wide),
+            "rbf_gram K (N=3000 Din=17 M=100, runtime-Din variant)"))
         z, ls, var = params[0], params[1], params[2]
         inv_ls = (1.0 / ls).contiguous()
         gram = ck._launch_rbf_gram(x, z, inv_ls, var)

@@ -28,6 +28,11 @@
 //   Din; an operand beyond Din is 0, which adds fmaf(0, 0, s) = s, so every
 //   variant gives the same bits. The Din terms are summed in k order, as the
 //   plain version does.
+// * Any wider Din: the variant DP = 0 keeps its chunk's scaled z rows in
+//   shared memory beside the tile's x rows, as one float4 of a group's four
+//   columns per k (zs4[k * G_b + group]), and bounds its loop by the runtime
+//   Din. It forms the same products in the same order as the exact-Din
+//   variants, so it gives their bits at any Din they take.
 //
 // Rows past N are masked by the tile's row count, never padded. Accurate
 // expf (no --use_fast_math); no atomics, so reruns are bit-identical. The
@@ -39,9 +44,28 @@
 #define GRAM_GROUP 4
 #define GRAM_MAX_THREADS 256
 
-// The instantiated variants: DP >= Din, the narrowest taken. Every one
-// builds at 0 B of spill (ptxas).
-#define GRAM_VARIANTS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(16)
+// The instantiated variants: DP >= Din, the narrowest taken; DP = 0 for a
+// Din above 16. Every one builds at 0 B of spill (ptxas).
+#define GRAM_VARIANTS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(16) X(0)
+
+extern __shared__ float4 gram_smem[];
+
+// K[d] at one row of a group: var_d exp(-sq / 2), one 16-byte store when
+// every row starts 16-byte aligned (M % 4 == 0), else the columns below M.
+static __device__ __forceinline__ void store_group(float* orow,
+                                                   const float (&sq)[GRAM_GROUP],
+                                                   float vd, bool vec, int ncols) {
+  float v[GRAM_GROUP];
+#pragma unroll
+  for (int c = 0; c < GRAM_GROUP; ++c) v[c] = vd * expf(-0.5f * sq[c]);
+  if (vec) {
+    *reinterpret_cast<float4*>(orow) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < GRAM_GROUP; ++c)
+      if (c < ncols) orow[c] = v[c];
+  }
+}
 
 template <int DP>
 static __global__ void __launch_bounds__(GRAM_MAX_THREADS)
@@ -49,63 +73,98 @@ static __global__ void __launch_bounds__(GRAM_MAX_THREADS)
                     const float* __restrict__ inv_ls, const float* __restrict__ var,
                     float* __restrict__ out, int n, int din, int m,
                     int rows_per_block, int lanes, int groups_per_block) {
-  extern __shared__ float xs[];  // (rows_per_block, DP): x / ls_d, 0 beyond Din
   const int d = blockIdx.z;
   const int row0 = blockIdx.x * rows_per_block;
   const int rows = min(rows_per_block, n - row0);
   const float* il = inv_ls + (size_t)d * din;
-  float ild[DP];
+  const int chunk0 = blockIdx.y * groups_per_block * GRAM_GROUP;  // first column
+  // DP > 0: (rows_per_block, DP) x / ls_d, 0 beyond Din. DP = 0: the chunk's
+  // (Din, G_b) float4 groups of z / ls_d, then (rows_per_block, Din) x / ls_d.
+  float4* zs4 = gram_smem;
+  float* xs = reinterpret_cast<float*>(
+      DP ? gram_smem : gram_smem + (size_t)din * groups_per_block);
+  float ild[DP ? DP : 1];
+  if constexpr (DP > 0) {
 #pragma unroll
-  for (int k = 0; k < DP; ++k) ild[k] = k < din ? il[k] : 0.f;
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    const float* xr = x + (size_t)(row0 + r) * din;
+    for (int k = 0; k < DP; ++k) ild[k] = k < din ? il[k] : 0.f;
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+      const float* xr = x + (size_t)(row0 + r) * din;
 #pragma unroll
-    for (int k = 0; k < DP; ++k) xs[r * DP + k] = k < din ? xr[k] * ild[k] : 0.f;
+      for (int k = 0; k < DP; ++k) xs[r * DP + k] = k < din ? xr[k] * ild[k] : 0.f;
+    }
+  } else {
+    // column j of the chunk; a ragged group's missing columns repeat the
+    // last column and are never stored
+    const int width = groups_per_block * GRAM_GROUP;
+    float* zsf = reinterpret_cast<float*>(zs4);
+    for (int i = threadIdx.x; i < din * width; i += blockDim.x) {
+      const int k = i / width, j = i - k * width;
+      zsf[i] = z[(size_t)min(chunk0 + j, m - 1) * din + k] * il[k];
+    }
+    const float* xt = x + (size_t)row0 * din;
+    for (int i = threadIdx.x; i < rows * din; i += blockDim.x)
+      xs[i] = xt[i] * il[i % din];
   }
   __syncthreads();
 
   const int group = threadIdx.x % groups_per_block;
   const int lane = threadIdx.x / groups_per_block;
-  const int col0 = (blockIdx.y * groups_per_block + group) * GRAM_GROUP;
+  const int col0 = chunk0 + group * GRAM_GROUP;
   if (col0 >= m) return;  // threads = lanes * groups_per_block: lane < lanes
   const int ncols = min(GRAM_GROUP, m - col0);
-  // this group's z / ls_d; a ragged group's missing columns repeat its
-  // last one and are never stored
-  float zs[GRAM_GROUP][DP];
-#pragma unroll
-  for (int c = 0; c < GRAM_GROUP; ++c) {
-    const float* zr = z + (size_t)(col0 + min(c, ncols - 1)) * din;
-#pragma unroll
-    for (int k = 0; k < DP; ++k) zs[c][k] = k < din ? zr[k] * ild[k] : 0.f;
-  }
   const float vd = var[d];
   const bool vec = (m & (GRAM_GROUP - 1)) == 0;  // rows start 16-byte aligned
   float* o = out + ((size_t)d * n + row0) * m + col0;
-  for (int r = lane; r < rows; r += lanes) {
-    float sq[GRAM_GROUP];
+  if constexpr (DP > 0) {
+    // this group's z / ls_d in registers
+    float zs[GRAM_GROUP][DP];
 #pragma unroll
-    for (int c = 0; c < GRAM_GROUP; ++c) sq[c] = 0.f;
+    for (int c = 0; c < GRAM_GROUP; ++c) {
+      const float* zr = z + (size_t)(col0 + min(c, ncols - 1)) * din;
 #pragma unroll
-    for (int k = 0; k < DP; ++k) {
-      const float xk = xs[r * DP + k];
-#pragma unroll
-      for (int c = 0; c < GRAM_GROUP; ++c) {
-        const float diff = xk - zs[c][k];
-        sq[c] = fmaf(diff, diff, sq[c]);
-      }
+      for (int k = 0; k < DP; ++k) zs[c][k] = k < din ? zr[k] * ild[k] : 0.f;
     }
-    float v[GRAM_GROUP];
+    for (int r = lane; r < rows; r += lanes) {
+      float sq[GRAM_GROUP];
 #pragma unroll
-    for (int c = 0; c < GRAM_GROUP; ++c) v[c] = vd * expf(-0.5f * sq[c]);
-    float* orow = o + (size_t)r * m;
-    if (vec) {
-      *reinterpret_cast<float4*>(orow) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
+      for (int c = 0; c < GRAM_GROUP; ++c) sq[c] = 0.f;
 #pragma unroll
-      for (int c = 0; c < GRAM_GROUP; ++c)
-        if (c < ncols) orow[c] = v[c];
+      for (int k = 0; k < DP; ++k) {
+        const float xk = xs[r * DP + k];
+#pragma unroll
+        for (int c = 0; c < GRAM_GROUP; ++c) {
+          const float diff = xk - zs[c][k];
+          sq[c] = fmaf(diff, diff, sq[c]);
+        }
+      }
+      store_group(o + (size_t)r * m, sq, vd, vec, ncols);
+    }
+  } else {
+    const float4* zg = zs4 + group;
+    for (int r = lane; r < rows; r += lanes) {
+      const float* xr = xs + r * din;
+      float sq[GRAM_GROUP] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < din; ++k) {
+        const float xk = xr[k];
+        const float4 zk = zg[k * groups_per_block];
+        const float zc[GRAM_GROUP] = {zk.x, zk.y, zk.z, zk.w};
+#pragma unroll
+        for (int c = 0; c < GRAM_GROUP; ++c) {
+          const float diff = xk - zc[c];
+          sq[c] = fmaf(diff, diff, sq[c]);
+        }
+      }
+      store_group(o + (size_t)r * m, sq, vd, vec, ncols);
     }
   }
+}
+
+// Dynamic shared memory of a block: the tile's scaled x rows, and for DP = 0
+// also its chunk's scaled z rows. `gram_geometry` computes the same.
+static size_t gram_smem_bytes(int din, int dp, int rows_per_block,
+                              int groups_per_block) {
+  if (dp) return sizeof(float) * (size_t)rows_per_block * dp;
+  return sizeof(float) * (size_t)din * (rows_per_block + GRAM_GROUP * groups_per_block);
 }
 
 // The kernel on `stream`; with `occupancy` non-null nothing is launched and
@@ -115,13 +174,14 @@ static int rbf_gram_run(const float* x, const float* z, const float* inv_ls,
                         int dp, int rows_per_block, int lanes, int groups_per_block,
                         int* occupancy, void* stream) {
   const int threads = lanes * groups_per_block;
-  if (n < 1 || m < 1 || d < 1 || d > 65535 || din < 1 || din > dp || lanes < 1 ||
-      groups_per_block < 1 || threads > GRAM_MAX_THREADS || rows_per_block < lanes)
+  if (n < 1 || m < 1 || d < 1 || d > 65535 || din < 1 || lanes < 1 ||
+      groups_per_block < 1 || threads > GRAM_MAX_THREADS || rows_per_block < lanes ||
+      (dp && din > dp))
     return (int)cudaErrorInvalidValue;
   const int groups = (m + GRAM_GROUP - 1) / GRAM_GROUP;
   const dim3 grid((n + rows_per_block - 1) / rows_per_block,
                   (groups + groups_per_block - 1) / groups_per_block, d);
-  const size_t smem = sizeof(float) * (size_t)rows_per_block * dp;
+  const size_t smem = gram_smem_bytes(din, dp, rows_per_block, groups_per_block);
   cudaError_t e = cudaErrorInvalidValue;
 #define X(DP_)                                                                    \
   if (dp == DP_) {                                                                \

@@ -27,8 +27,7 @@ import torch
 from torch import nn
 
 from gpode_tpu_torch.ops import math as om
-from gpode_tpu_torch.ops.cuda_kernels import (fused_rhs, gram_refusal,
-                                              kernel_refusal, rbf_gram)
+from gpode_tpu_torch.ops.cuda_kernels import fused_rhs, kernel_refusal, rbf_gram
 from gpode_tpu_torch.ops.kernels import (RBFParams, init_rbf, rbf_K, rbf_K_diag,
                                          rbf_sample_freq)
 
@@ -199,14 +198,9 @@ def kernel_rhs_active(params: SVGPParams, n_rows: int, num_features: int,
     """
     if not (params.dimwise and n_rows >= _KERNEL_RHS_MIN_ROWS):
         return False
-    return _taken(kernel, kernel_refusal(
-        kernel, n_rows, params.z.shape[1], params.u_mean.shape[1],
-        params.num_inducing, num_features))
-
-
-def _taken(kernel: str, reason: Optional[str]) -> bool:
-    """True when `reason` (a kernel's refusal) is None; else log the refusal
-    once per reason and send the call to the plain path."""
+    reason = kernel_refusal(kernel, n_rows, params.z.shape[1],
+                            params.u_mean.shape[1], params.num_inducing,
+                            num_features)
     if reason is None:
         return True
     if reason not in _REFUSALS_LOGGED:
@@ -284,15 +278,11 @@ def cross_gram(params: SVGPParams, x: torch.Tensor) -> torch.Tensor:
     """K(Z, x): (M, N) or dimwise (D, M, N).
 
     Dispatch rule: a dimwise GP whose Gram needs no gradient (grad mode off,
-    or neither x, Z nor a kernel hyperparameter requires grad) and whose
-    shape the kernel takes (`ops/cuda_kernels.gram_refusal`: Din <= 16)
-    takes the forward-only `rbf_gram` kernel, transposed to (D, M, N);
-    every other case takes `rbf_K`, which autograd can differentiate.
-    Nothing catches a failed launch."""
-    if (params.dimwise and not _needs_grad(params, x)
-            and _taken("rbf_gram", gram_refusal(
-                x.shape[0], x.shape[1], params.u_mean.shape[1],
-                params.num_inducing))):
+    or neither x, Z nor a kernel hyperparameter requires grad) takes the
+    forward-only `rbf_gram` kernel, transposed to (D, M, N); every other
+    case takes `rbf_K`, which autograd can differentiate. A shape the kernel
+    refuses raises before any launch; nothing catches a failed launch."""
+    if params.dimwise and not _needs_grad(params, x):
         return rbf_gram(x, params.z, params.kernel.lengthscales,
                         params.kernel.variance).mT
     return rbf_K(params.kernel, params.z, x)

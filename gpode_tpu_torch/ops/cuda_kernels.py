@@ -885,24 +885,28 @@ def segment_occupancy(direction, stages, din, d, m, s, geo):
 # its block's tile; a block is L row lanes times up to _GRAM_BLOCK_GROUPS
 # column groups (M is split into balanced column chunks of at most 64
 # columns). DP of the instantiated variants (csrc GRAM_VARIANTS): a shape
-# takes the narrowest with Din <= DP. Measured on an H100 at N=3000,
-# Din=D=5 (the sweep is in PERF.md): blocks of 13-16 groups and 128-256
-# threads whose lanes walk 4-8 rows beat one block row of all M columns and
-# beat more, smaller blocks.
-GRAM_VARIANTS = (1, 2, 3, 4, 5, 6, 8, 16)
+# takes the narrowest with Din <= DP, and a wider Din the variant
+# GRAM_ANY_DIN, which keeps its chunk's scaled z rows in shared memory.
+# Measured on an H100 at N=3000, Din=D=5 (the sweep is in PERF.md): blocks
+# of 13-16 groups and 128-256 threads whose lanes walk 4-8 rows beat one
+# block row of all M columns and beat more, smaller blocks.
+GRAM_ANY_DIN = 0
+GRAM_VARIANTS = (1, 2, 3, 4, 5, 6, 8, 16, GRAM_ANY_DIN)
 _GRAM_GROUP = 4
 _GRAM_BLOCK_GROUPS = 16
 _GRAM_THREADS = 256
 _GRAM_MAX_ROWS_PER_LANE = 8
 _GRAM_BLOCKS_PER_SM = 2
 _GRID_YZ_MAX = 65535
+# the widest Din the kernel takes: one row and one group in shared memory
+GRAM_MAX_DIN = MAX_SMEM_BYTES // (4 * (1 + _GRAM_GROUP))
 
 
 @dataclasses.dataclass(frozen=True)
 class GramGeometry:
     """Launch geometry of `rbf_gram`: a (row_blocks, col_chunks, D) grid of
     blocks of `lanes` row lanes times `groups_per_block` column groups."""
-    dp: int                # the variant's bound of its loops over Din
+    dp: int                # the variant's bound of its loops over Din (0: Din)
     groups_per_block: int  # column groups of _GRAM_GROUP columns per block
     col_chunks: int        # blocks along the columns: ceil(groups / that)
     lanes: int             # row lanes; threads = lanes * groups_per_block
@@ -910,8 +914,17 @@ class GramGeometry:
     row_blocks: int
     threads: int
     blocks: int            # row_blocks * col_chunks * D
-    smem_bytes: int        # the tile's scaled x rows (rows_per_block, dp)
+    smem_bytes: int        # gram_smem_bytes of the block
     vec: bool              # M % 4 == 0: each row's group is one 16-byte store
+
+
+def gram_smem_bytes(din, dp, rows_per_block, groups_per_block):
+    """Dynamic shared memory of an `rbf_gram` block (csrc `gram_smem_bytes`):
+    the tile's scaled x rows (rows_per_block, DP), and for GRAM_ANY_DIN the
+    tile's (rows_per_block, Din) and its chunk's scaled z rows."""
+    if dp:
+        return 4 * rows_per_block * dp
+    return 4 * din * (rows_per_block + _GRAM_GROUP * groups_per_block)
 
 
 def gram_geometry(n, din, d, m, sms):
@@ -921,20 +934,17 @@ def gram_geometry(n, din, d, m, sms):
     it within _GRAM_THREADS threads; a lane walks up to
     _GRAM_MAX_ROWS_PER_LANE rows, fewer until the grid holds
     _GRAM_BLOCKS_PER_SM blocks per SM, and below one row the block loses
-    lanes, so that a small N still spreads over the card. Pure arithmetic:
-    no device is touched."""
-    if (not 1 <= din <= GRAM_VARIANTS[-1] or not 1 <= d <= _GRID_YZ_MAX
+    lanes, so that a small N still spreads over the card. A block over the
+    shared-memory limit (only GRAM_ANY_DIN's can be) loses rows, then
+    lanes, then column groups. Pure arithmetic: no device is touched."""
+    if (not 1 <= din <= GRAM_MAX_DIN or not 1 <= d <= _GRID_YZ_MAX
             or n < 1 or m < 1):
-        raise ValueError(f"rbf_gram supports 1 <= Din <= {GRAM_VARIANTS[-1]}, "
+        raise ValueError(f"rbf_gram supports 1 <= Din <= {GRAM_MAX_DIN}, "
                          f"1 <= D <= {_GRID_YZ_MAX} and N, M >= 1; got N={n}, "
                          f"Din={din}, D={d}, M={m}")
-    dp = next(v for v in GRAM_VARIANTS if din <= v)
+    dp = next((v for v in GRAM_VARIANTS if din <= v), GRAM_ANY_DIN)
     groups = math.ceil(m / _GRAM_GROUP)
     chunks = math.ceil(groups / _GRAM_BLOCK_GROUPS)
-    if chunks > _GRID_YZ_MAX:
-        raise ValueError(f"rbf_gram supports M <= "
-                         f"{_GRID_YZ_MAX * _GRAM_BLOCK_GROUPS * _GRAM_GROUP}; "
-                         f"got M={m}")
     per_block = math.ceil(groups / chunks)
     target = _GRAM_BLOCKS_PER_SM * sms
 
@@ -948,25 +958,27 @@ def gram_geometry(n, din, d, m, sms):
             per_lane //= 2
         else:
             lanes //= 2
+    # at Din <= 16 at most 2048 rows of 16 floats: 128 KB, within the limit;
+    # at GRAM_MAX_DIN one row and one group fit
+    while gram_smem_bytes(din, dp, lanes * per_lane, per_block) > MAX_SMEM_BYTES:
+        if per_lane > 1:
+            per_lane //= 2
+        elif lanes > 1:
+            lanes //= 2
+        else:
+            per_block = math.ceil(per_block / 2)
+            chunks = math.ceil(groups / per_block)
+    if chunks > _GRID_YZ_MAX:
+        raise ValueError(f"rbf_gram supports M <= "
+                         f"{_GRID_YZ_MAX * per_block * _GRAM_GROUP} at Din="
+                         f"{din}; got M={m}")
     rows = lanes * per_lane
-    # at most 2048 rows of 16 floats: 128 KB, within the card's 227 KB
     return GramGeometry(dp=dp, groups_per_block=per_block, col_chunks=chunks,
                         lanes=lanes, rows_per_block=rows,
                         row_blocks=math.ceil(n / rows),
                         threads=lanes * per_block, blocks=blocks(rows),
-                        smem_bytes=4 * rows * dp, vec=m % _GRAM_GROUP == 0)
-
-
-def gram_refusal(n, din, d, m):
-    """Why `rbf_gram` would refuse this shape (`gram_geometry`'s ValueError
-    message), or None when it takes it. Pure arithmetic; one multiprocessor
-    stands in for the card, since the SM count sets only the rows per
-    block, never whether a shape is taken."""
-    try:
-        gram_geometry(n, din, d, m, 1)
-    except ValueError as exc:
-        return str(exc)
-    return None
+                        smem_bytes=gram_smem_bytes(din, dp, rows, per_block),
+                        vec=m % _GRAM_GROUP == 0)
 
 
 # (library, kernel, occupancy query) of `rbf_gram`; variant DP's mangled

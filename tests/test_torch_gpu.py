@@ -207,12 +207,13 @@ def test_rbf_gram_matches_plain(cuda, n, m):
 
 
 @pytest.mark.parametrize("d", [1, 2, 5])
-@pytest.mark.parametrize("din", [2, 5])
+@pytest.mark.parametrize("din", [2, 5, 17, 40])
 @pytest.mark.parametrize("m", [16, 17, 100, 256])
 @pytest.mark.parametrize("n", [1, 77, 900, N])
 def test_rbf_gram_over_shapes(cuda, n, m, din, d):
     """One launch per call, the plain version's values (M % 4 != 0 takes the
-    scalar stores), and a rerun bit-identical."""
+    scalar stores; Din 17 and 40 the runtime-Din variant), and a rerun
+    bit-identical."""
     rng = np.random.default_rng(n + 7 * m + 31 * din + 101 * d)
     f32 = np.float32
     x, z, ls, var = (torch.tensor(np.asarray(a, f32), device=cuda) for a in (
@@ -225,6 +226,52 @@ def test_rbf_gram_over_shapes(cuda, n, m, din, d):
     _assert_close(got, ck.rbf_gram_plain(x, z, ls, var), f"gram {n}x{m}")
     assert torch.equal(got, ck.rbf_gram(x, z, ls, var))
 
+
+
+@pytest.mark.parametrize("n,m,din", [(N, M, DIM), (77, 17, 2), (900, 16, 16)],
+                         ids=["bench", "ragged", "din16"])
+def test_rbf_gram_any_din_variant_gives_the_exact_variants_bits(cuda, n, m, din):
+    """The runtime-Din variant (z rows in shared memory) launched at the
+    geometry of a Din the exact variants take gives their bits."""
+    rng = np.random.default_rng(n + m + din)
+    f32 = np.float32
+    x, z, ls, var = (torch.tensor(np.asarray(a, f32), device=cuda) for a in (
+        rng.normal(size=(n, din)), rng.normal(size=(m, din)),
+        rng.uniform(0.8, 1.6, size=(DIM, din)), rng.uniform(0.3, 0.8, size=(DIM,))))
+    exact = ck.rbf_gram(x, z, ls, var)
+    geo = ck.gram_geometry(n, din, DIM, m, ck._sms(cuda))
+    assert geo.dp != ck.GRAM_ANY_DIN
+    out = torch.empty_like(exact)
+    inv_ls = (1.0 / ls).contiguous()
+    rc = ck._lib("rbf_gram").gpode_rbf_gram(
+        ck._ptr(x), ck._ptr(z), ck._ptr(inv_ls), ck._ptr(var), ck._ptr(out),
+        n, din, DIM, m, ck.GRAM_ANY_DIN, geo.rows_per_block, geo.lanes,
+        geo.groups_per_block, ck._stream(cuda))
+    assert rc == 0
+    assert torch.equal(out, exact)
+
+
+@pytest.mark.parametrize("din", [17, 40])
+def test_cross_gram_takes_rbf_gram_past_din_16(cuda, din):
+    """`gp.cross_gram` without gradients launches `rbf_gram` once at a Din
+    above the exact variants and agrees with the `rbf_K` route; a Din over
+    the kernel's shared-memory limit raises before any launch."""
+    from gpode_tpu_torch.models import gp
+    params = gp.init_svgp(torch.Generator().manual_seed(0), din, din, M,
+                          device=cuda)
+    x = torch.randn(N, din, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = ck.LAUNCHES["rbf_gram"]
+    with torch.no_grad():
+        got = gp.cross_gram(params, x)
+        want = gp.rbf_K(params.kernel, params.z, x)
+    assert ck.LAUNCHES["rbf_gram"] == before + 1
+    _assert_close(got, want, f"cross_gram Din={din}")
+    wide = ck.GRAM_MAX_DIN + 1
+    with pytest.raises(ValueError, match="Din <="):
+        ck.rbf_gram(torch.zeros(3, wide, device=cuda),
+                    torch.zeros(4, wide, device=cuda),
+                    torch.ones(1, wide, device=cuda), torch.ones(1, device=cuda))
+    assert ck.LAUNCHES["rbf_gram"] == before + 1
 
 def _wide_inputs(dev, n, m, seed, din=DIM, d=DIM, s=S):
     rng = np.random.default_rng(seed)

@@ -4,8 +4,9 @@
 on the CPU against the limits the source states: the blocks' row tiles and
 column groups cover every output element of K (D, N, M) exactly once (the
 thread-to-element map of the source is replayed here), a block stays within
-the source's thread and group bounds, each Din takes the narrowest variant
-the source instantiates, 16-byte stores only where M % 4 == 0, at least two
+the source's thread, group and shared-memory bounds, each Din up to 16
+takes the narrowest variant the source instantiates and a wider one the
+runtime-Din variant, 16-byte stores only where M % 4 == 0, at least two
 blocks per SM at every shape `chip_smoke.py` gives the kernel, and a shape
 the kernel does not take raises before anything is launched. The ctypes
 signatures are held against the source's C entry points.
@@ -31,8 +32,9 @@ SMOKE_SHAPES = {
     "vdp_grid": (900, 2, 2, 16),
 }
 # small shapes whose every element is replayed: one row, ragged groups
-# (M % 4 != 0), a ragged last row block, Din up to the widest variant,
-# several column chunks
+# (M % 4 != 0), a ragged last row block, Din up to the widest exact variant
+# and past it (the runtime-Din variant; at the widest Din its blocks lose
+# rows, lanes and column groups to fit shared memory), several column chunks
 REPLAYED = {
     "one_row": (1, 5, 5, 16),
     "m17": (77, 2, 3, 17),
@@ -41,6 +43,9 @@ REPLAYED = {
     "din16": (40, 16, 2, 6),
     "din7": (50, 7, 1, 33),
     "two_chunks": (3, 2, 2, 1030),
+    "din17": (77, 17, 3, 17),
+    "din40": (301, 40, 2, 100),
+    "din_max": (5, ck.GRAM_MAX_DIN, 1, 9),
 }
 
 
@@ -99,8 +104,12 @@ def test_geometry_fits_the_source_limits(shape):
     assert geo.rows_per_block // geo.lanes <= ck._GRAM_MAX_ROWS_PER_LANE
     assert (geo.row_blocks - 1) * geo.rows_per_block < n
     assert n <= geo.row_blocks * geo.rows_per_block
-    # the tile's scaled x rows, and the 16-byte store only on aligned rows
-    assert geo.smem_bytes == 4 * geo.rows_per_block * geo.dp
+    # the tile's scaled x rows (and for the runtime-Din variant the chunk's
+    # z rows) within the card's limit; the 16-byte store on aligned rows
+    assert geo.smem_bytes == (
+        4 * geo.rows_per_block * geo.dp if geo.dp else
+        4 * din * (geo.rows_per_block + 4 * geo.groups_per_block))
+    assert geo.smem_bytes <= ck.MAX_SMEM_BYTES
     assert geo.vec == (m % 4 == 0)
 
 
@@ -123,10 +132,12 @@ def test_the_mocap_shape_geometry():
             geo.rows_per_block, geo.blocks) == (16, 4, 16, 128, 480)
 
 
-@pytest.mark.parametrize("din", range(1, 17))
+@pytest.mark.parametrize("din", [*range(1, 18), 40, ck.GRAM_MAX_DIN])
 def test_each_din_takes_the_narrowest_instantiated_variant(din):
     geo = ck.gram_geometry(100, din, 3, 40, SMS)
-    assert geo.dp == min(v for v in ck.GRAM_VARIANTS if v >= din)
+    assert geo.dp == min((v for v in ck.GRAM_VARIANTS if v >= din),
+                         default=ck.GRAM_ANY_DIN)
+    assert (geo.dp == ck.GRAM_ANY_DIN) == (din > 16)
 
 
 def test_source_instantiates_the_variants_the_geometry_selects():
@@ -134,12 +145,13 @@ def test_source_instantiates_the_variants_the_geometry_selects():
     built = tuple(int(v) for v in re.findall(r"X\((\d+)\)", line))
     assert built == ck.GRAM_VARIANTS
     assert ck.gram_variant_key(5) == "rbf_gram_kernelILi5EE"
+    assert ck.gram_variant_key(ck.GRAM_ANY_DIN) == "rbf_gram_kernelILi0EE"
     assert re.search(r"\brbf_gram_kernel\(", _source())
 
 
 REFUSED = [
-    ((10, 17, 2, 8), "Din <= 16"),
-    ((10, 0, 2, 8), "Din <= 16"),
+    ((10, ck.GRAM_MAX_DIN + 1, 2, 8), "Din <= 11622"),
+    ((10, 0, 2, 8), "Din <= 11622"),
     ((10, 2, 0, 8), "D <= 65535"),
     ((10, 2, 65536, 8), "D <= 65535"),
     ((0, 2, 2, 8), "N, M >= 1"),
@@ -149,7 +161,7 @@ REFUSED = [
 
 
 @pytest.mark.parametrize("args,match", REFUSED,
-                         ids=["din17", "din0", "d0", "d65536", "no_rows",
+                         ids=["din_over_smem", "din0", "d0", "d65536", "no_rows",
                               "no_columns", "m_over_the_grid"])
 def test_unsupported_shape_raises_before_any_launch(args, match):
     before = dict(ck.LAUNCHES)
@@ -169,16 +181,17 @@ def test_ctypes_signatures_match_the_c_entry_points(fn):
     assert ck._SIGNATURES["rbf_gram"][fn] == want
 
 
-@pytest.mark.parametrize("din,takes_kernel", [(5, True), (16, True), (17, False)])
+@pytest.mark.parametrize("din", [5, 16, 17, 40])
 def test_cross_gram_takes_rbf_gram_only_where_its_geometry_does(
-        monkeypatch, caplog, din, takes_kernel):
-    """`gp.cross_gram` without gradients takes `rbf_gram` where the kernel
-    takes the shape; a refused width (Din > 16) takes `rbf_K`, logged once,
-    instead of raising on the card. The two routes agree."""
+        monkeypatch, caplog, din):
+    """`gp.cross_gram` without gradients takes `rbf_gram` at every Din its
+    geometry takes, the runtime-Din variant's too, and logs no refusal;
+    the kernel's route agrees with `rbf_K`."""
     import torch
 
     from gpode_tpu_torch.models import gp
 
+    ck.gram_geometry(9, din, din, 6, SMS)   # the kernel takes the shape
     calls = []
     real = gp.rbf_gram
     monkeypatch.setattr(gp, "rbf_gram",
@@ -187,9 +200,8 @@ def test_cross_gram_takes_rbf_gram_only_where_its_geometry_does(
     x = torch.randn(9, din, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         got = gp.cross_gram(params, x)
-    assert len(calls) == int(takes_kernel)
+    assert calls == [(9, din)]
     assert got.shape == (din, 6, 9)
     torch.testing.assert_close(got, gp.rbf_K(params.kernel, params.z, x),
                                rtol=1e-5, atol=1e-6)
-    refusals = [r for r in caplog.records if "rbf_gram" in r.getMessage()]
-    assert len(refusals) <= int(not takes_kernel)
+    assert not [r for r in caplog.records if "rbf_gram" in r.getMessage()]

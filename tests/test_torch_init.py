@@ -3,8 +3,9 @@
 eval solver of the time-to-LL driver, over a decreasing time grid),
 `initialize_shooting_states_with_data` and `initialize_noisevar`, on a
 reduced MoCap-09 shooting problem built by the JAX package (M=16, 32
-features, 4 draws); then the port's time-to-LL driver end to end at a tiny
-run.
+features, 4 draws); the port's training from that init against the JAX
+package's on shared step noise; then the port's time-to-LL driver end to end
+at a tiny run.
 
 The noise the JAX functions draw from their keys is rebuilt with the same
 splits and fed to the port: `split(key, S)`, then each key straight into
@@ -29,15 +30,19 @@ from gpode_tpu.models import init as jinit
 from gpode_tpu.models.flow import SolverConfig as JSolverConfig
 from gpode_tpu.models.flow import flow_forward_sampled as j_flow_sampled
 from gpode_tpu.train import builders as jb
+from gpode_tpu.train.trainer import (build_frozen_mask, default_optimizer,
+                                     make_train_step)
 from gpode_tpu.utils import native
 
 from gpode_tpu_torch.convert import params_from_numpy
 from gpode_tpu_torch.models import gpode
 from gpode_tpu_torch.models import init as tinit
 from gpode_tpu_torch.models.flow import SolverConfig, flow_forward_sampled
+from gpode_tpu_torch.models.shooting import StepNoise
 from gpode_tpu_torch.ops import cuda_kernels as ck
 from gpode_tpu_torch.scripts import bench_time_to_nll
 from gpode_tpu_torch.train import builders as tb
+from gpode_tpu_torch.train import trainer as tt
 
 torch.set_num_threads(1)
 
@@ -191,6 +196,57 @@ def test_initialize_noisevar_matches_jax(problem, value):
     _close(tparams.likelihood.base.raw_variance, want.base.raw_variance)
     np.testing.assert_allclose(tparams.likelihood.variance.detach().numpy(),
                                np.broadcast_to(v, (50,)), rtol=1e-5)
+
+
+def _step_noise(sub, jparams):
+    """The noise `shooting.elbo_loss(sub, ...)` draws, as a StepNoise."""
+    k_draw, k_ss = jax.random.split(sub)
+    k0, ks = jax.random.split(k_ss)
+    n, t1, d = jparams.states.mean.shape
+    w, om, ph, u = _draw_noise(k_draw, jparams.gp)
+    s = ARGS["num_samples"]
+    return StepNoise(rff_weights=w, rff_freq=om, rff_phase=ph, inducing=u,
+                     x0=_t(jax.random.normal(k0, (s, n, d))),
+                     states=_t(jax.random.normal(ks, (s, n, t1, d))))
+
+
+TRAJECTORY_STEPS = 50
+
+
+def test_training_from_the_data_driven_init_tracks_jax(problem):
+    """From the data-driven init (states at the data, x0 by backward
+    integration) both packages take TRAJECTORY_STEPS Adam steps (lr 5e-3,
+    the constraint frozen, as the time-to-LL drivers train) on the same
+    step noise: every step's loss agrees within 1e-4 relative."""
+    jparams, _, ys, ts = problem
+    jparams = jinit.initialize_shooting_states_with_data(
+        jax.random.PRNGKey(7), jparams, ys, ts, JSolverConfig(**SOLVERS["rk4"]),
+        NUM_FEATURES, num_samples=NUM_DRAWS)
+    ys_full = JMocapDataset(data_path=DATA_DIR, subject="09", pca_components=-1,
+                            data_normalize=False, pca_normalize=False,
+                            seqlen=SEQLEN).trn.ys[:N_SEQ]
+    jargs, targs = jb.ModelArgs(**ARGS), tb.ModelArgs(**ARGS)
+    jstep = make_train_step(
+        jb.shooting_loss_fn(jargs), default_optimizer(5e-3),
+        frozen_mask=build_frozen_mask(jparams,
+                                      jb.default_frozen_predicate(jargs)))
+    opt_state = default_optimizer(5e-3).init(jparams)
+    tparams = _port(jparams)
+    tstep = tt.make_train_step(
+        tb.shooting_loss_fn(targs), tparams,
+        tt.default_optimizer(tparams, 5e-3,
+                             frozen_predicate=tb.default_frozen_predicate(targs)))
+    jys, jts = jnp.asarray(ys_full), jnp.asarray(ts)
+    key = jax.random.PRNGKey(11)
+    worst = 0.0
+    for _ in range(TRAJECTORY_STEPS):
+        sub = jax.random.split(key)[1]   # the sub-key the JAX step will use
+        terms = tstep(_step_noise(sub, jparams), _t(jys), _t(jts))
+        jparams, opt_state, key, jterms = jstep(jparams, opt_state, key, jys,
+                                                jts)
+        got, want = float(terms.loss.detach()), float(jterms.loss)
+        worst = max(worst, abs(got - want) / abs(want))
+    assert worst < 1e-4
 
 
 DRIVER_KEYS = {"metric", "card", "device", "preset", "config", "seed",
