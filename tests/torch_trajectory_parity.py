@@ -1,41 +1,64 @@
-"""Training-trajectory parity of the port's shooting step with the JAX
-package's, at the full MoCap-09 bench problem on the CPU.
+"""Long-horizon training parity of the port's shooting step with the JAX
+package's, from the time-to-LL driver's data-driven init, on the CPU.
 
-    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_trajectory_parity.py [--preset fast]
-        [--steps 300] [--every 25]
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_trajectory_parity.py
+        [--preset fast] [--steps 3000] [--every 250] [--sequences 2]
+        [--seed 121] [--eval_draws 16] [--control]
 
-The JAX package builds the preset's model with its kernel and inducing init
-(seed 0); the port takes the same parameters (`convert.params_from_numpy`).
-Both then take `--steps` Adam steps (lr 5e-3, the constraint frozen, as the
-time-to-LL drivers train) on the same step noise: each step's key is split
-as the JAX step splits it and the noise `shooting.elbo_loss` draws from it is
-handed to the port as a `StepNoise`. Every `--every` steps it prints both
-losses, their relative difference and the relative differences of the
-three parameter leaves that differ most (each against the leaf's largest
-magnitude); at the end the largest relative loss difference over all
-steps. Not a pytest module: a
-step of the JAX package at this size takes about a second on one core.
+The problem is MoCap-09 at the preset's widths (5 PCA latents, likelihood in
+the 50-D data space, M, S and MC draws of the preset) with its training split
+cut to the first `--sequences` sequences of 100 steps; the test split is
+whole. The JAX package runs the init of `scripts/_init_mocap_cpu.py` at
+`--seed` (kernel 1.25 / 0.5, k-means inducing points, x0 by backward
+integration over 50 draws, the states at the data, the noise variance from a
+16-draw predict); the port takes the same parameters. Both then take
+`--steps` Adam steps (lr 5e-3, the constraint frozen, as the time-to-LL
+drivers train) on the same step noise: each step's key is split as the JAX
+step splits it and the noise `shooting.elbo_loss` draws from it is handed to
+the port as a `StepNoise`.
+
+Every `--every` steps it prints both sides' mean loss over the window and
+its relative difference, the three parameter leaves that differ most
+(relative to each leaf's largest magnitude), and both sides' test LL and MSE
+of an `--eval_draws`-draw posterior predictive on shared noise (the key the
+JAX driver folds from its iteration). `--control` runs the JAX package in
+place of the port from the init scaled by 1 + 2^-23, which shows how far
+float32 rounding alone moves two runs apart. Not a pytest module: a step of each
+package at this size takes a fraction of a second on one core, and the
+window means are only worth reading over thousands of steps.
 """
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
+from gpode_tpu.data.mocap import MocapDataset, latent_to_data_projector
+from gpode_tpu.models import gpode as jgpode
+from gpode_tpu.models import init as jinit
+from gpode_tpu.models.likelihoods import project
 from gpode_tpu.train import bench_setup as jbench
 from gpode_tpu.train import builders as jb
+from gpode_tpu.train.evaluation import make_projected_scorer as j_scorer
 from gpode_tpu.train.trainer import (build_frozen_mask, default_optimizer,
                                      make_train_step)
+from gpode_tpu.utils import native
 
 from gpode_tpu_torch.convert import params_from_numpy, params_to_numpy
+from gpode_tpu_torch.data.mocap import ProjectorArrays
+from gpode_tpu_torch.models import gpode as tgpode
 from gpode_tpu_torch.models.shooting import StepNoise
+from gpode_tpu_torch.scripts.bench_time_to_nll import eval_config
 from gpode_tpu_torch.train import bench_setup as tbench
 from gpode_tpu_torch.train import builders as tb
 from gpode_tpu_torch.train import trainer as tt
+from gpode_tpu_torch.train.evaluation import make_projected_scorer as t_scorer
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -49,67 +72,189 @@ def _flat(tree) -> dict:
             for path, leaf in leaves}
 
 
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _draw_noise(k, m, din, d, num_features):
+    """The noise `gp.draw_posterior(k, ...)` draws."""
+    k_w, k_omega, k_phase, k_u = jax.random.split(k, 4)
+    return (jax.random.normal(k_w, (num_features, d)),
+            jax.random.normal(k_omega, (din, num_features, d)),
+            jax.random.uniform(k_phase, (1, num_features, d)),
+            jax.random.normal(k_u, (m, d)))
+
+
 def _step_noise(sub, params, num_samples, num_features) -> StepNoise:
     """The noise `shooting.elbo_loss(sub, ...)` draws, as tensors."""
     k_draw, k_ss = jax.random.split(sub)
     k0, ks = jax.random.split(k_ss)
     n, t1, d = params.states.mean.shape
     m, din = params.gp.z.shape
-    k_w, k_omega, k_phase, k_u = jax.random.split(k_draw, 4)
+    w, om, ph, u = map(_t, _draw_noise(k_draw, m, din, d, num_features))
+    return StepNoise(rff_weights=w, rff_freq=om, rff_phase=ph, inducing=u,
+                     x0=_t(jax.random.normal(k0, (num_samples, n, d))),
+                     states=_t(jax.random.normal(ks, (num_samples, n, t1, d))))
 
-    def t(a):
-        return torch.tensor(np.asarray(a))
 
-    return StepNoise(
-        rff_weights=t(jax.random.normal(k_w, (num_features, d))),
-        rff_freq=t(jax.random.normal(k_omega, (din, num_features, d))),
-        rff_phase=t(jax.random.uniform(k_phase, (1, num_features, d))),
-        inducing=t(jax.random.normal(k_u, (m, d))),
-        x0=t(jax.random.normal(k0, (num_samples, n, d))),
-        states=t(jax.random.normal(ks, (num_samples, n, t1, d))))
+def _predict_noise(key, params, num_draws, num_features):
+    """The noise `gpode.predict(key, ...)` draws with x0 given."""
+    m, d = params.gp.u_mean.shape
+    din = params.gp.z.shape[1]
+    keys = jax.random.split(key, num_draws)
+    draw_keys = jax.vmap(lambda k: jax.random.split(k)[0])(keys)
+    leaves = jax.vmap(lambda k: _draw_noise(k, m, din, d, num_features))(
+        draw_keys)
+    return tgpode.PredictNoise(*map(_t, leaves), None)
+
+
+def driver_init(margs, data_pca, data_full, ys_pca, seed):
+    """The init of `scripts/_init_mocap_cpu.py` on the training latents
+    `ys_pca`: JAX parameters."""
+    cfg = margs.solver_config()
+    eval_cfg = dataclasses.replace(cfg, max_steps=max(512, cfg.max_steps),
+                                   first_step=None)
+    k_build, k_init, k_noise, _, _ = jax.random.split(
+        jax.random.PRNGKey(seed), 5)
+    projector = latent_to_data_projector(data_pca)
+    params = jb.build_shooting(k_build, margs, ys_pca, projector=projector,
+                               full_dim=data_full.trn.ys.shape[-1])
+    params = params._replace(gp=jinit.initialize_kernel_parameters(
+        params.gp, lengthscale_value=1.25, variance_value=0.5))
+    native.available = lambda: False     # scipy's k-means, as the port's
+    params = params._replace(gp=jinit.initialize_inducing(
+        params.gp, ys_pca, float(data_pca.trn.ts.max()), 1e0,
+        rng=np.random.RandomState(seed)))
+    params = jinit.initialize_shooting_states_with_data(
+        k_init, params, ys_pca, data_pca.trn.ts, eval_cfg, margs.num_features)
+    vparams = jgpode.GPODEParams(gp=params.gp, x0=params.states.x0,
+                                 likelihood=params.likelihood)
+    init_zs = jgpode.predict(k_noise, vparams, jnp.asarray(data_pca.trn.ts),
+                             eval_cfg, margs.num_features, num_draws=16)
+    ys_full = data_full.trn.ys[:ys_pca.shape[0]]
+    resid = (ys_full[None] - np.asarray(project(projector, init_zs))).var(
+        axis=(0, 1, 2)) + 1e-4
+    params = params._replace(likelihood=jinit.initialize_noisevar(
+        params.likelihood, 1.5 * resid))
+    return params, eval_cfg
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--preset", default="fast", choices=tbench.PRESETS)
-    ap.add_argument("--steps", type=int, default=300)
-    ap.add_argument("--every", type=int, default=25)
+    ap.add_argument("--steps", type=int, default=3000)
+    ap.add_argument("--every", type=int, default=250)
+    ap.add_argument("--sequences", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=121)
+    ap.add_argument("--eval_draws", type=int, default=16)
+    ap.add_argument("--control", action="store_true",
+                    help="hold the JAX package against itself from an init "
+                         "one float32 ulp away, in place of the port")
     a = ap.parse_args(argv)
     torch.set_num_threads(1)
 
     jargs = jbench.preset_model_args(a.preset)
     targs = tbench.preset_model_args(a.preset)
-    _, params, ys, ts = jbench.build_bench_problem(args=jargs, data_dir=DATA_DIR)
+    kw = dict(data_path=DATA_DIR, subject="09", data_normalize=False,
+              seqlen=100)
+    data_pca = MocapDataset(pca_components=5, pca_normalize=True, **kw)
+    data_full = MocapDataset(pca_components=-1, pca_normalize=False, **kw)
+    ys_pca = data_pca.trn.ys[:a.sequences]
+    params, eval_cfg = driver_init(jargs, data_pca, data_full, ys_pca, a.seed)
+    print(f"{a.preset}, seed {a.seed}: {ys_pca.shape[0]} training sequences "
+          f"x {ys_pca.shape[1]} steps; noise variance "
+          f"{float(params.likelihood.variance.min()):.4g} .. "
+          f"{float(params.likelihood.variance.max()):.4g}", flush=True)
+
     jstep = make_train_step(
         jb.shooting_loss_fn(jargs), default_optimizer(5e-3),
         frozen_mask=build_frozen_mask(params, jb.default_frozen_predicate(jargs)))
     opt_state = default_optimizer(5e-3).init(params)
-    tparams = params_from_numpy(_flat(params), targs, device="cpu")
-    tstep = tt.make_train_step(
-        tb.shooting_loss_fn(targs), tparams,
-        tt.default_optimizer(tparams, 5e-3,
-                             frozen_predicate=tb.default_frozen_predicate(targs)))
-    tys, tts = torch.tensor(np.asarray(ys)), torch.tensor(np.asarray(ts))
-    key = jax.random.PRNGKey(11)
-    worst_loss, t0 = 0.0, time.perf_counter()
+    ys = jnp.asarray(data_full.trn.ys[:a.sequences])
+    ts = jnp.asarray(data_pca.trn.ts)
+    proj = latent_to_data_projector(data_pca)
+    x0_tst = data_pca.tst.ys[:, 0]
+    jscore = j_scorer(eval_cfg, jargs.num_features, proj, data_full.tst.ys,
+                      data_pca.tst.ts, x0_tst, num_draws=a.eval_draws)
+
+    def view(p):
+        return jgpode.GPODEParams(gp=p.gp, x0=p.states.x0,
+                                  likelihood=p.likelihood)
+
+    # side B: the port, or (--control) the JAX package again from the init
+    # scaled by 1 + 2^-23 (one float32 ulp on every nonzero entry)
+    if a.control:
+        b_side = dict(params=jax.tree_util.tree_map(
+            lambda v: v * np.float32(1 + 2.0 ** -23), params),
+            opt=default_optimizer(5e-3).init(params))
+
+        def b_step(key, sub):
+            b_side["params"], b_side["opt"], _, terms = jstep(
+                b_side["params"], b_side["opt"], key, ys, ts)
+            return float(terms.loss)
+
+        def b_leaves():
+            return _flat(b_side["params"])
+
+        def b_score(ek):
+            return jscore(view(b_side["params"]), ek)
+    else:
+        tparams = params_from_numpy(_flat(params), targs, device="cpu")
+        tstep = tt.make_train_step(
+            tb.shooting_loss_fn(targs), tparams,
+            tt.default_optimizer(
+                tparams, 5e-3,
+                frozen_predicate=tb.default_frozen_predicate(targs)))
+        tys, tts = _t(ys), _t(ts)
+        tscore = t_scorer(eval_config(targs),
+                          ProjectorArrays(*map(np.asarray, proj)),
+                          data_full.tst.ys, data_pca.tst.ts, x0_tst,
+                          device="cpu")
+
+        def b_step(key, sub):
+            terms = tstep(_step_noise(sub, params, jargs.num_samples,
+                                      jargs.num_features), tys, tts)
+            return float(terms.loss.detach())
+
+        def b_leaves():
+            return params_to_numpy(tparams)
+
+        def b_score(ek):
+            with torch.no_grad():
+                return tscore(tgpode.GPODEParams(
+                    tparams.gp, tparams.states.x0, tparams.likelihood),
+                    _predict_noise(ek, view(params), a.eval_draws,
+                                   jargs.num_features))
+
+    name = "JAX+ulp" if a.control else "port"
+    k_eval = jax.random.split(jax.random.PRNGKey(a.seed), 5)[4]
+    key = jax.random.split(jax.random.PRNGKey(a.seed), 5)[3]
+    wb = wj = 0.0
+    t0 = time.perf_counter()
     for i in range(a.steps):
         sub = jax.random.split(key)[1]   # the sub-key the JAX step will use
-        terms = tstep(_step_noise(sub, params, jargs.num_samples,
-                                  jargs.num_features), tys, tts)
+        wb += b_step(key, sub)
         params, opt_state, key, jterms = jstep(params, opt_state, key, ys, ts)
-        lt, lj = float(terms.loss.detach()), float(jterms.loss)
-        worst_loss = max(worst_loss, abs(lt - lj) / abs(lj))
-        if (i + 1) % a.every == 0 or i + 1 == a.steps:
-            got = params_to_numpy(tparams)
-            rel = sorted(((float(np.max(np.abs(got[k] - w))
-                                 / max(np.max(np.abs(w)), 1e-30)), k)
-                          for k, w in _flat(params).items()), reverse=True)
-            print(f"step {i + 1}: loss port {lt:.6f} JAX {lj:.6f} (rel diff "
-                  f"{abs(lt - lj) / abs(lj):.2e}); leaf rel diffs, largest "
-                  f"first: {', '.join(f'{k} {v:.1e}' for v, k in rel[:3])}; "
-                  f"{time.perf_counter() - t0:.0f} s", flush=True)
-    print(f"largest relative loss difference over {a.steps} steps: "
-          f"{worst_loss:.2e}")
+        wj += float(jterms.loss)
+        itr = i + 1
+        if itr % a.every and itr != a.steps:
+            continue
+        n = itr % a.every or a.every
+        mb, mj = wb / n, wj / n
+        wb = wj = 0.0
+        got = b_leaves()
+        rel = sorted(((float(np.max(np.abs(got[k] - w))
+                             / max(np.max(np.abs(w)), 1e-30)), k)
+                      for k, w in _flat(params).items()), reverse=True)
+        ek = jax.random.fold_in(k_eval, itr)
+        llj, msej = (float(v) for v in jscore(view(params), ek))
+        llb, mseb = (float(v) for v in b_score(ek))
+        print(f"step {itr}: window mean loss {name} {mb:.6f} JAX {mj:.6f} "
+              f"(rel diff {(mb - mj) / abs(mj):+.2e}); test LL {name} "
+              f"{llb:.4f} JAX {llj:.4f}, MSE {name} {mseb:.3f} JAX "
+              f"{msej:.3f}; leaf rel diffs, largest first: "
+              f"{', '.join(f'{k} {v:.1e}' for v, k in rel[:3])}; "
+              f"{time.perf_counter() - t0:.0f} s", flush=True)
     return 0
 
 
