@@ -4,8 +4,9 @@ eval solver of the time-to-LL driver, over a decreasing time grid),
 `initialize_shooting_states_with_data` and `initialize_noisevar`, on a
 reduced MoCap-09 shooting problem built by the JAX package (M=16, 32
 features, 4 draws); the port's training from that init against the JAX
-package's on shared step noise; then the port's time-to-LL driver end to end
-at a tiny run.
+package's on shared step noise, and its ELBO and gradients against the JAX
+package's in float64; then the port's time-to-LL driver end to end at a
+tiny run.
 
 The noise the JAX functions draw from their keys is rebuilt with the same
 splits and fed to the port: `split(key, S)`, then each key straight into
@@ -198,26 +199,27 @@ def test_initialize_noisevar_matches_jax(problem, value):
                                np.broadcast_to(v, (50,)), rtol=1e-5)
 
 
-def _step_noise(sub, jparams):
+def _step_noise(sub, jparams, to=_t):
     """The noise `shooting.elbo_loss(sub, ...)` draws, as a StepNoise."""
     k_draw, k_ss = jax.random.split(sub)
     k0, ks = jax.random.split(k_ss)
     n, t1, d = jparams.states.mean.shape
-    w, om, ph, u = _draw_noise(k_draw, jparams.gp)
+    m, din = jparams.gp.z.shape
+    k_w, k_omega, k_phase, k_u = jax.random.split(k_draw, 4)
     s = ARGS["num_samples"]
-    return StepNoise(rff_weights=w, rff_freq=om, rff_phase=ph, inducing=u,
-                     x0=_t(jax.random.normal(k0, (s, n, d))),
-                     states=_t(jax.random.normal(ks, (s, n, t1, d))))
+    return StepNoise(
+        rff_weights=to(jax.random.normal(k_w, (NUM_FEATURES, d))),
+        rff_freq=to(jax.random.normal(k_omega, (din, NUM_FEATURES, d))),
+        rff_phase=to(jax.random.uniform(k_phase, (1, NUM_FEATURES, d))),
+        inducing=to(jax.random.normal(k_u, (m, d))),
+        x0=to(jax.random.normal(k0, (s, n, d))),
+        states=to(jax.random.normal(ks, (s, n, t1, d))))
 
 
-TRAJECTORY_STEPS = 50
-
-
-def test_training_from_the_data_driven_init_tracks_jax(problem):
-    """From the data-driven init (states at the data, x0 by backward
-    integration) both packages take TRAJECTORY_STEPS Adam steps (lr 5e-3,
-    the constraint frozen, as the time-to-LL drivers train) on the same
-    step noise: every step's loss agrees within 1e-4 relative."""
+@pytest.fixture(scope="module")
+def data_init(problem):
+    """The problem's JAX parameters after the data-driven state init, and
+    the training data in the 50-D data space: (JAX params, ys, ts)."""
     jparams, _, ys, ts = problem
     jparams = jinit.initialize_shooting_states_with_data(
         jax.random.PRNGKey(7), jparams, ys, ts, JSolverConfig(**SOLVERS["rk4"]),
@@ -225,6 +227,18 @@ def test_training_from_the_data_driven_init_tracks_jax(problem):
     ys_full = JMocapDataset(data_path=DATA_DIR, subject="09", pca_components=-1,
                             data_normalize=False, pca_normalize=False,
                             seqlen=SEQLEN).trn.ys[:N_SEQ]
+    return jparams, ys_full, ts
+
+
+TRAJECTORY_STEPS = 50
+
+
+def test_training_from_the_data_driven_init_tracks_jax(data_init):
+    """From the data-driven init (states at the data, x0 by backward
+    integration) both packages take TRAJECTORY_STEPS Adam steps (lr 5e-3,
+    the constraint frozen, as the time-to-LL drivers train) on the same
+    step noise: every step's loss agrees within 1e-4 relative."""
+    jparams, ys_full, ts = data_init
     jargs, targs = jb.ModelArgs(**ARGS), tb.ModelArgs(**ARGS)
     jstep = make_train_step(
         jb.shooting_loss_fn(jargs), default_optimizer(5e-3),
@@ -247,6 +261,46 @@ def test_training_from_the_data_driven_init_tracks_jax(problem):
         got, want = float(terms.loss.detach()), float(jterms.loss)
         worst = max(worst, abs(got - want) / abs(want))
     assert worst < 1e-4
+
+
+@pytest.mark.parametrize("solver", ["rk4", "dopri5_whole_span"])
+def test_elbo_and_gradients_equal_jax_in_float64(data_init, solver):
+    """The port's shooting ELBO is the JAX package's formula, not only its
+    float32 result: in float64 from the data-driven init on shared step
+    noise the loss agrees within 1e-12 relative and every gradient leaf
+    within 1e-9 of its largest magnitude. What moves two float32 training
+    runs apart is then rounding (another order of the same operations)."""
+    jparams, ys_full, ts = data_init
+    kw = (dict(solver="dopri5", first_step=-1.0) if solver != "rk4" else {})
+    jargs = dataclasses.replace(jb.ModelArgs(**ARGS), **kw)
+    targs = dataclasses.replace(tb.ModelArgs(**ARGS), **kw)
+    key = jax.random.PRNGKey(13)
+    tparams = _port(jparams).double()
+    jax.config.update("jax_enable_x64", True)
+    try:
+        j64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
+                                     jparams)
+        (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+            lambda p: jb.shooting_loss_fn(jargs)(
+                p, key, jnp.asarray(ys_full, jnp.float64),
+                jnp.asarray(ts, jnp.float64)), has_aux=True))(j64)
+        assert jloss.dtype == jnp.float64
+        noise = _step_noise(
+            key, j64, lambda a: torch.tensor(np.asarray(a, np.float64)))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    loss, _ = tb.shooting_loss_fn(targs)(
+        tparams, noise, torch.tensor(ys_full, dtype=torch.float64),
+        torch.tensor(ts, dtype=torch.float64))
+    loss.backward()
+    assert loss.dtype == torch.float64
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-12)
+    want = _flat(jgrads)
+    for name, p in tparams.named_parameters():
+        w = want[name]
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=0,
+                                   atol=1e-9 * float(np.max(np.abs(w))),
+                                   err_msg=name)
 
 
 DRIVER_KEYS = {"metric", "card", "device", "preset", "config", "seed",
