@@ -22,8 +22,9 @@ exit code and no result line:
      is held at 1 substep (the fast step), at 3 and at M=256 (the
      `m256_fast` shape). `rbf_gram`
      is held at the same N=3000, M=100, at M=256, at N=77 (a ragged last
-     tile) and at Din=17 (its runtime-Din variant, off the main path); the three wide-layout rhs functions against their plain versions
-     at N=2995 and 3000, M=100 and 256, each also for bit-identical reruns.
+     tile) and at Din=17 (its runtime-Din variant, off the main path); the
+     three wide-layout rhs functions against their plain versions at
+     N=2995 and 3000, M=100 and 256, each also for bit-identical reruns.
      Bounds read the function, not the formulation: the wide kernels take
      the per-dim rhs's counts. The dopri5 attempt's forward and backward
      are held and timed at M=256 too, the rk4 segment's timed at 3 substeps
