@@ -77,6 +77,23 @@ exit code and no result line:
      dopri5 attempt nor `fused_rhs`, and end at a finite 128-draw test LL
      above phase 7's (read after 23 steps from a random start); prints its
      init seconds and steps/s;
+  7c. experiments: the CLI twins in-process (`run(argv)` of
+     `gpode_tpu_torch/scripts/train_*.py`) into a temporary directory, on
+     the card by default, with `--no_plots`. The MoCap shooting twin's
+     default recipe (MoCap-09 at full width: M=100, S=256, 5 draws, 6 x 100
+     steps, 5 latents, the 50-D likelihood) for EXPERIMENT_ITERS steps,
+     validation and checkpoints every 100: its artifacts with the JAX
+     driver's keys and shapes, finite losses and final LL/MSE, the dopri5
+     attempt forward and backward once per step (counters set to 0 just
+     before, read just after); `--eval_only` on `checkpt_best.npz` must give
+     the logged best-val test LL (rtol 1e-6); RESUME_ITERS steps in one go
+     against half of them and `--resume` (losses of the second half and the
+     final parameters, rtol 1e-6; bit-equality printed); `--solver rk4`
+     (the rk4 segment kernels once per step); `--segment_minibatch 16` with
+     `--constraint_anneal_iters` (the attempt kernel at 480 rows, the
+     annealed scale at the horizon the initial scale); the vanilla MoCap
+     and both VDP twins for TINY_ITERS steps (finite losses); prints
+     steps/s, the final LL/MSE, calibration and the best-val iteration;
   8. vdp: vanilla GPODE on Van der Pol at the train script's defaults (25
      observations over T=7, noise variance 0.05, M=16, S=256, dimwise,
      dopri5): the step-0 loss on the card against the same step on the CPU
@@ -108,6 +125,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -177,6 +195,8 @@ MAIN_PATH_KERNELS = {
     "official_heuristic": ("fused_rhs_fwd", "fused_rhs_bwd"),
     "driver": ("fused_rk4_segment_fwd", "fused_rk4_segment_bwd"),
     "field": ("rbf_gram",),
+    "experiments": ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd"),
+    "experiments_rk4": ("fused_rk4_segment_fwd", "fused_rk4_segment_bwd"),
     "wide_ab": ("fused_rhs_fwd", "fused_rhs_bwd", "fused_rhs_wide_fwd",
                 "fused_rhs_wide2_fwd", "fused_rhs_wide_bwd"),
 }
@@ -1111,6 +1131,243 @@ def driver_phase(random_start_ll):
     return {k: v for k, v in res.items() if k != "trace"}, launches
 
 
+EXPERIMENT_ITERS, RESUME_ITERS, SHORT_ITERS, TINY_ITERS = 300, 200, 50, 20
+# the JAX driver's artifacts of a MoCap-09 run (6 x 100 train, 2 x 120 test,
+# 5 latents, 50-D data space) at EVAL_DRAWS draws
+MOCAP_PREDICTIONS = {"train_pred_zs": (EVAL_DRAWS, 6, 100, 5),
+                     "train_pred_ys": (EVAL_DRAWS, 6, 100, 50),
+                     "test_pred_zs": (EVAL_DRAWS, 2, 120, 5),
+                     "test_pred_ys": (EVAL_DRAWS, 2, 120, 50),
+                     "obs_noisevar": (50,)}
+MOCAP_TRACE_KEYS = {"loss", "observ_nll", "state_kl", "x0_kl", "inducing_kl",
+                    "step_time", "val_ll", "val_mse"}
+
+
+class _Recorder:
+    """Wraps the functions a run goes through, to read what the CLI does not
+    print: each `Trainer.train` call's iterations and seconds, the rows of
+    each `fused_dopri5_attempt` call, and each ELBO's loss (detached, read
+    after the run) and annealed constraint scale."""
+
+    def __init__(self):
+        from gpode_tpu_torch.models import flow, gpode, shooting
+        from gpode_tpu_torch.train import trainer
+        self.targets = [(trainer.Trainer, "train"),
+                        (flow, "fused_dopri5_attempt"),
+                        (gpode, "elbo_loss"), (shooting, "elbo_loss")]
+        self.saved = [getattr(o, n) for o, n in self.targets]
+        self.reset()
+        rec, (train, attempt, v_elbo, s_elbo) = self, self.saved
+
+        def train_w(trainer_self, params, gen, *batch, start_iter=1,
+                    opt_state=None):
+            t0 = time.perf_counter()
+            out = train(trainer_self, params, gen, *batch,
+                        start_iter=start_iter, opt_state=opt_state)
+            rec.trains.append((trainer_self.cfg.num_iter - start_iter + 1,
+                               time.perf_counter() - t0))
+            return out
+
+        def attempt_w(x0, *a, **k):
+            rec.rows.add(x0.shape[0])
+            return attempt(x0, *a, **k)
+
+        def v_elbo_w(*a, **k):
+            loss, terms = v_elbo(*a, **k)
+            rec.losses.append(loss.detach())
+            return loss, terms
+
+        def s_elbo_w(*a, constraint_raw_scale=None, **k):
+            loss, terms = s_elbo(*a, constraint_raw_scale=constraint_raw_scale,
+                                 **k)
+            rec.losses.append(loss.detach())
+            rec.raw_scale = constraint_raw_scale
+            return loss, terms
+
+        for (o, n), w in zip(self.targets, (train_w, attempt_w, v_elbo_w,
+                                            s_elbo_w)):
+            setattr(o, n, w)
+
+    def reset(self):
+        self.trains, self.rows, self.losses, self.raw_scale = [], set(), [], None
+
+    def restore(self):
+        for (o, n), f in zip(self.targets, self.saved):
+            setattr(o, n, f)
+
+    def steps_per_sec(self):
+        iters = sum(n for n, _ in self.trains)
+        return iters / sum(s for _, s in self.trains)
+
+    def all_losses_finite(self):
+        import torch
+        return bool(torch.all(torch.isfinite(torch.stack(self.losses))))
+
+
+def _checkpoint_params(path):
+    from gpode_tpu_torch.utils.checkpoint import load_checkpoint
+    return load_checkpoint(path)["params"]
+
+
+def experiments_phase(tmp):
+    """The CLI twins in-process into `tmp` at MoCap-09 full width (phase
+    7c); returns (results, the default run's launches, the rk4 run's)."""
+    phase("experiments (CLI twins)")
+    import numpy as np
+    import torch
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.ops.math import softplus
+    from gpode_tpu_torch.scripts import (train_mocap_gpode,
+                                         train_mocap_gpode_shooting,
+                                         train_vdp_gpode,
+                                         train_vdp_gpode_shooting)
+    shoot = train_mocap_gpode_shooting.run
+    data = ["--no_plots", "--data_path", os.path.join(ROOT, "data", "mocap")]
+    out, rec = {}, _Recorder()
+    try:
+        # -- the default recipe, 300 steps
+        d1 = os.path.join(tmp, "default")
+        rec.reset()
+        ck.reset_launch_counts()                 # main path starts here
+        _, trainer, m = shoot(data + [
+            "--num_iter", str(EXPERIMENT_ITERS), "--val_freq", "100",
+            "--checkpoint_every", "100", "--log_freq", "50", "--save", d1])
+        launches = dict(ck.LAUNCHES)             # main path ends here
+        with open(os.path.join(d1, "optimization_trace.json")) as f:
+            trace = json.load(f)
+        with open(os.path.join(d1, "train_args.json")) as f:
+            train_args = json.load(f)
+        with np.load(os.path.join(d1, "model_predictions.npz")) as z:
+            shapes = {k: z[k].shape for k in z.files}
+        sps = 1.0 / float(np.mean(trace["step_time"]["vals"]))
+        print(f"default: {sps:.2f} steps/s (Trainer); final test LL "
+              f"{m['test_ll']:.6f} MSE {m['test_mse']:.6f}; best-val iter "
+              f"{m['bestval_iter']} test LL {m['test_ll_bestval']:.6f}; cal "
+              f"{m['calibration']['coverage']}; launches {launches}",
+              flush=True)
+        for name in ("checkpt.npz", "checkpt_best.npz"):
+            check(os.path.exists(os.path.join(d1, name)), f"no {name}")
+        check(shapes == MOCAP_PREDICTIONS,
+              f"model_predictions.npz keys/shapes {shapes}")
+        check(set(trace) == MOCAP_TRACE_KEYS, f"trace keys {sorted(trace)}")
+        check(train_args["num_inducing"] == 100 and train_args["max_steps"] == 8
+              and train_args["plots"] is False, "train_args.json")
+        check(trace["loss"]["iters"][0] == 101
+              and trace["loss"]["iters"][-1] == EXPERIMENT_ITERS,
+              "the trace's loss iterations")
+        check(all(math.isfinite(v) for v in trace["loss"]["vals"])
+              and math.isfinite(m["test_ll"]) and math.isfinite(m["test_mse"]),
+              "a non-finite loss or final metric")
+        for name in MAIN_PATH_KERNELS["official"]:
+            check(launches[name] == EXPERIMENT_ITERS,
+                  f"{name} launched {launches[name]} times in "
+                  f"{EXPERIMENT_ITERS} steps of the shooting twin")
+        for name in ("fused_rk4_segment_fwd", "fused_rk4_segment_bwd",
+                     "fused_rhs_fwd", "fused_rhs_bwd"):
+            check(launches[name] == 0, f"{name} launched on the dopri5 twin")
+        out["default"] = dict(steps_per_sec=sps, test_ll=m["test_ll"],
+                              test_mse=m["test_mse"],
+                              bestval_iter=m["bestval_iter"],
+                              test_ll_bestval=m["test_ll_bestval"],
+                              calibration=m["calibration"]["coverage"])
+
+        # -- --eval_only on the best-val checkpoint
+        _, _, me = shoot(data + ["--save", d1, "--eval_only",
+                                 "--eval_checkpoint", "checkpt_best.npz"])
+        diff = abs(me["test_ll"] - m["test_ll_bestval"])
+        print(f"eval_only: test LL {me['test_ll']:.9f} against the run's "
+              f"best-val {m['test_ll_bestval']:.9f} (|diff| {diff:.3e})",
+              flush=True)
+        check(diff <= 1e-6 * abs(m["test_ll_bestval"]),
+              "--eval_only does not reproduce the best-val test LL")
+        out["eval_only_abs_diff"] = diff
+
+        # -- resume: 200 in one go against 100 + --resume to 200
+        args = ["--val_freq", "100", "--checkpoint_every", "100",
+                "--log_freq", "50"]
+        d2, d3 = os.path.join(tmp, "one_go"), os.path.join(tmp, "resumed")
+        shoot(data + args + ["--num_iter", str(RESUME_ITERS), "--save", d2])
+        shoot(data + args + ["--num_iter", str(RESUME_ITERS // 2),
+                             "--save", d3])
+        shoot(data + args + ["--num_iter", str(RESUME_ITERS), "--save", d3,
+                             "--resume"])
+        traces = []
+        for d in (d2, d3):
+            with open(os.path.join(d, "optimization_trace.json")) as f:
+                t = json.load(f)["loss"]
+            traces.append(dict(zip(t["iters"], t["vals"])))
+        tail = range(RESUME_ITERS // 2 + 1, RESUME_ITERS + 1)
+        check(all(i in traces[1] for i in tail),
+              "the resumed run's trace lacks iterations")
+        loss_diff = max(abs(traces[0][i] - traces[1][i]) / abs(traces[0][i])
+                        for i in tail)
+        p2, p3 = (_checkpoint_params(os.path.join(d, "checkpt.npz"))
+                  for d in (d2, d3))
+        param_diff = max(float(np.max(np.abs(p2[k] - p3[k])
+                                      / (np.abs(p2[k]) + 1e-30)))
+                         for k in p2)
+        bits = all(np.array_equal(p2[k], p3[k]) for k in p2)
+        print(f"resume: iterations {tail.start}-{tail.stop - 1}: largest "
+              f"relative loss difference {loss_diff:.3e}; final parameters "
+              f"largest relative difference {param_diff:.3e} "
+              f"(bit-equal: {bits})", flush=True)
+        check(loss_diff <= 1e-6 and param_diff <= 1e-6,
+              "the resumed run differs from the run in one go")
+        out["resume"] = dict(max_rel_loss_diff=loss_diff,
+                             max_rel_param_diff=param_diff, bit_equal=bits)
+
+        # -- --solver rk4
+        ck.reset_launch_counts()                 # main path starts here
+        shoot(data + ["--solver", "rk4", "--num_iter", str(SHORT_ITERS),
+                      "--val_freq", "0", "--save", os.path.join(tmp, "rk4")])
+        rk4_launches = dict(ck.LAUNCHES)         # main path ends here
+        print(f"rk4: launches {rk4_launches}", flush=True)
+        for name in MAIN_PATH_KERNELS["fast"]:
+            check(rk4_launches[name] == SHORT_ITERS,
+                  f"{name} launched {rk4_launches[name]} times in "
+                  f"{SHORT_ITERS} steps of the rk4 twin")
+        for name in OFF_PATH_KERNELS["fast"]:
+            check(rk4_launches[name] == 0, f"{name} launched on the rk4 twin")
+
+        # -- segment minibatching with constraint annealing
+        rec.reset()
+        ck.reset_launch_counts()
+        shoot(data + ["--segment_minibatch", "16", "--constraint_anneal_iters",
+                      str(SHORT_ITERS), "--num_iter", str(SHORT_ITERS),
+                      "--val_freq", "0", "--save", os.path.join(tmp, "mb")])
+        scale = float(softplus(rec.raw_scale).max())
+        print(f"minibatch: attempt rows {sorted(rec.rows)}, attempt launches "
+              f"{ck.LAUNCHES['fused_dopri5_attempt_fwd']}; annealed scale at "
+              f"iteration {SHORT_ITERS} {scale:.9g}", flush=True)
+        check(rec.rows == {5 * 6 * 16}, f"attempt rows {rec.rows}, not 480")
+        check(ck.LAUNCHES["fused_dopri5_attempt_fwd"] == SHORT_ITERS,
+              "the minibatched step did not launch the attempt kernel")
+        check(abs(scale - 1e-3) <= 1e-6 * 1e-3 and rec.all_losses_finite(),
+              "the annealed scale at its horizon is not the initial scale")
+        out["minibatch"] = dict(rows=sorted(rec.rows), annealed_scale=scale)
+
+        # -- vanilla MoCap and both VDP twins
+        for name, run, extra in (
+                ("mocap_vanilla", train_mocap_gpode.run, data),
+                ("vdp", train_vdp_gpode.run, ["--no_plots"]),
+                ("vdp_shooting", train_vdp_gpode_shooting.run, ["--no_plots"])):
+            rec.reset()
+            _, _, mv = run(extra + ["--num_iter", str(TINY_ITERS),
+                                    "--save", os.path.join(tmp, name)])
+            sps = rec.steps_per_sec()
+            print(f"{name}: {sps:.3f} steps/s over {TINY_ITERS} steps; test "
+                  f"LL {mv['test_ll']:.4f} MSE {mv['test_mse']:.4f}",
+                  flush=True)
+            check(len(rec.losses) == TINY_ITERS and rec.all_losses_finite()
+                  and math.isfinite(mv["test_ll"]),
+                  f"{name}: non-finite loss or test LL")
+            out[name] = dict(steps_per_sec=sps, test_ll=mv["test_ll"],
+                             test_mse=mv["test_mse"])
+    finally:
+        rec.restore()
+    return out, launches, rk4_launches
+
+
 def accept_decision_check(x, params, rtol, atol):
     """The attempt kernel and the plain path near the accept threshold: at
     every span 0.01 * 1.05^k whose float64 plain error RMS lies in [0.5, 2]
@@ -1432,6 +1689,8 @@ def main(argv=None) -> int:
         dev, "fast", opts.profile_steps)
     evaluation = eval_phase(dev, fast_args, fast_params)
     driver, driver_launches = driver_phase(evaluation["ll"])
+    with tempfile.TemporaryDirectory() as tmp:
+        experiments, exp_launches, exp_rk4_launches = experiments_phase(tmp)
     vdp, vdp_params, vdp_data = vdp_phase(dev, "default", opts.profile_steps)
     vdp_golden, _, _ = vdp_phase(dev, "golden", opts.profile_steps)
     field, field_launches, e_gram = field_phase(dev, vdp_params, vdp_data,
@@ -1441,6 +1700,8 @@ def main(argv=None) -> int:
     path_launches = {"official": launches, "fast": fast_launches,
                      "official_heuristic": heuristic_launches,
                      "driver": driver_launches,
+                     "experiments": exp_launches,
+                     "experiments_rk4": exp_rk4_launches,
                      "field": field_launches, "wide_ab": wide_ab_phase()}
 
     phase("result")
@@ -1467,6 +1728,7 @@ def main(argv=None) -> int:
                    "train": train, "train_fast": fast,
                    "train_official_heuristic": heuristic,
                    "eval_fast": evaluation, "time_to_nll": driver,
+                   "experiments": experiments,
                    "vdp": vdp,
                    "vdp_golden": vdp_golden, "field": field}, f, indent=1)
     print(json.dumps({"kernels": rows}))

@@ -89,6 +89,28 @@ def gpode_params_from_numpy(flat: dict[str, np.ndarray],
     return params
 
 
+def params_like(template: torch.nn.Module, flat: dict[str, np.ndarray],
+                args=None) -> torch.nn.Module:
+    """Parameters of `template`'s model (`ShootingParams`, whose constraint
+    family `args.constraint_type` names, or `GPODEParams`) from
+    {dotted path: array}, on the template's device: how a checkpoint's
+    parameters load (`utils/checkpoint.load_checkpoint`), the port's or a
+    JAX one's flattened. Every name and shape must be the template's, so a
+    checkpoint from a run with other model or data flags fails loudly."""
+    want = {n: tuple(p.shape) for n, p in template.named_parameters()}
+    got = {n: tuple(np.shape(a)) for n, a in flat.items()}
+    if want != got:
+        diff = sorted(n for n in set(want) | set(got)
+                      if want.get(n) != got.get(n))
+        raise ValueError("the arrays do not match the model's parameters "
+                         f"(name: model shape, array shape): "
+                         f"{[(n, want.get(n), got.get(n)) for n in diff]}")
+    device = next(template.parameters()).device
+    if isinstance(template, shooting.ShootingParams):
+        return params_from_numpy(flat, args, device)
+    return gpode_params_from_numpy(flat, device)
+
+
 def params_to_numpy(params: torch.nn.Module) -> dict[str, np.ndarray]:
     """{dotted path: float32 array} of every parameter."""
     return {name: p.detach().cpu().numpy()

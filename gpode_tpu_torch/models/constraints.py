@@ -36,8 +36,10 @@ def init_constraint(kind: str, d: int = 1, scale: float = 1.0, device=None):
     raise ValueError("invalid constraint kind; options are gauss/laplace")
 
 
-def constraint_log_prob(c, loc, y) -> torch.Tensor:
-    """Elementwise log p(y; loc, scale)."""
+def constraint_log_prob(c, loc, y, raw_scale=None) -> torch.Tensor:
+    """Elementwise log p(y; loc, scale); `raw_scale` replaces the
+    constraint's own (an annealed scale)."""
+    scale = c.scale if raw_scale is None else om.softplus(raw_scale)
     if isinstance(c, LaplaceConstraint):
-        return om.laplace_logpdf(y, loc, c.scale)
-    return om.gaussian_logpdf(y, loc, torch.square(c.scale))
+        return om.laplace_logpdf(y, loc, scale)
+    return om.gaussian_logpdf(y, loc, torch.square(scale))

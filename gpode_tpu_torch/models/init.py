@@ -1,12 +1,12 @@
-"""Data-driven model initialization. Counterpart of `gpode_tpu/models/init.py`
-(all of it but the vanilla model's `initialize_latents_with_data`):
+"""Data-driven model initialization. Counterpart of `gpode_tpu/models/init.py`:
 
   * inducing locations at k-means cluster centers of the observed states,
     whitened inducing means from a kernel ridge regression onto empirical
     time-difference gradients;
-  * the initial-state mean by integrating the freshly initialized ODE
-    backward one observation interval from the first observation, averaged
-    over posterior draws; the shooting-state means at the observed values;
+  * the initial-state mean (of the shooting model's or the vanilla model's
+    q(x0)) by integrating the freshly initialized ODE backward one
+    observation interval from the first observation, averaged over
+    posterior draws; the shooting-state means at the observed values;
   * observation-noise and kernel hyperparameter setters.
 
 K-means runs on the host (scipy); the solves and the backward integration
@@ -117,6 +117,21 @@ def estimate_x0_backward(gp_params: gp.SVGPParams, noise: PredictNoise,
                                  chol)[0][:, -1]
             for i in range(noise.inducing.shape[0])]
     return torch.mean(torch.stack(ends), dim=0)
+
+
+@torch.no_grad()
+def initialize_latents_with_data(params, noise: PredictNoise,
+                                 data_ys: np.ndarray, data_ts: np.ndarray,
+                                 cfg: SolverConfig):
+    """Vanilla init: the q(x0) mean of a `GPODEParams` by backward
+    integration over the draws of `noise` (the JAX package takes 20).
+    data_ys (N, T, D), data_ts (T,)."""
+    dev = params.x0.mean.device
+    ys = torch.as_tensor(np.asarray(data_ys, np.float32), device=dev)
+    ts = torch.as_tensor(np.asarray(data_ts, np.float32), device=dev)
+    params.x0.mean.copy_(estimate_x0_backward(params.gp, noise, ys[:, 0], ts,
+                                              cfg))
+    return params
 
 
 @torch.no_grad()

@@ -10,13 +10,14 @@ are flattened into one batch and integrated over the single uniform interval
               - KL(q(x0)) / num_obs
               - KL(q(u)) / num_obs )
 
-The noise of one step is a :class:`StepNoise` of tensors.
+The noise of one step is a :class:`StepNoise` of tensors; with segment
+minibatching it also carries the step's segment indices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -51,7 +52,8 @@ class StepNoise:
 
     rff_weights (S_rff, D) and rff_freq (Din, S_rff, D) standard normals;
     rff_phase (1, S_rff, D) uniforms in [0, 1); inducing (M, D), x0
-    (S, N, D) and states (S, N, T-1, D) standard normals.
+    (S, N, D) and states (S, N, T-1, D) standard normals; segment_idx (K,)
+    distinct segment indices in [0, T) for a minibatched step, else None.
     """
 
     rff_weights: torch.Tensor
@@ -60,12 +62,16 @@ class StepNoise:
     inducing: torch.Tensor
     x0: torch.Tensor
     states: torch.Tensor
+    segment_idx: Optional[torch.Tensor] = None
 
 
 def sample_step_noise(params: ShootingParams, num_features: int,
-                      num_samples: int,
-                      generator: torch.Generator) -> StepNoise:
-    """Fill a :class:`StepNoise` from `generator` (on the params' device)."""
+                      num_samples: int, generator: torch.Generator,
+                      segment_minibatch: int = 0) -> StepNoise:
+    """Fill a :class:`StepNoise` from `generator` (on the params' device).
+    With 0 < `segment_minibatch` = K < T the step integrates K segments
+    drawn without replacement (`torch.randperm(T)[:K]`, drawn after the
+    other noise, so the draws before it are those of a full step)."""
     dev = params.gp.z.device
     m, din = params.gp.z.shape
     d = params.gp.u_mean.shape[1]
@@ -73,13 +79,16 @@ def sample_step_noise(params: ShootingParams, num_features: int,
     kw = dict(generator=generator, device=dev)
     freq_shape = (din, num_features, d) if params.gp.dimwise else (din, num_features)
     phase_shape = (1, num_features, d) if params.gp.dimwise else (1, num_features)
-    return StepNoise(
+    noise = StepNoise(
         rff_weights=torch.randn(num_features, d, **kw),
         rff_freq=torch.randn(*freq_shape, **kw),
         rff_phase=torch.rand(*phase_shape, **kw),
         inducing=torch.randn(m, d, **kw),
         x0=torch.randn(num_samples, n, d, **kw),
         states=torch.randn(num_samples, n, t1, d, **kw))
+    if 0 < segment_minibatch < t1 + 1:
+        noise.segment_idx = torch.randperm(t1 + 1, **kw)[:segment_minibatch]
+    return noise
 
 
 class ShootingELBOTerms(NamedTuple):
@@ -110,22 +119,52 @@ def integrate_segments(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
 
 
 def elbo_loss(params: ShootingParams, noise: StepNoise, ys: torch.Tensor,
-              ts: torch.Tensor, cfg: SolverConfig
+              ts: torch.Tensor, cfg: SolverConfig,
+              constraint_raw_scale: Optional[torch.Tensor] = None
               ) -> tuple[torch.Tensor, ShootingELBOTerms]:
     """Negative shooting ELBO; ys (N, T, D_obs), ts (T,) uniform grid. One GP
-    function draw is shared by all state samples."""
+    function draw is shared by all state samples.
+
+    `noise.segment_idx` (K indices in [0, T)) integrates only those K
+    segments, with an unbiased estimator of the full objective: the
+    observation term is the subsample mean, the continuity term a
+    Horvitz-Thompson sum (each segment's constraint weighted by T/K, the
+    final segment, which has no successor, masked), and the entropy and
+    both KLs are exact. `constraint_raw_scale` replaces the constraint's
+    raw scale (constraint annealing, `train/builders.constraint_annealer`).
+    """
     ss = sample_shooting_states(params.states, noise.x0, noise.states)
+    t = ss.shape[2]
+    idx = noise.segment_idx
+    if idx is None:
+        ss_batch, ys_batch = ss, ys
+    else:
+        k = idx.shape[0]
+        ss_batch = ss.index_select(2, idx)                       # (S,N,K,D)
+        ys_batch = ys.index_select(1, idx)
+        # continuity partner: state idx+1 (the final segment has none)
+        has_next = (idx < t - 1).to(ss.dtype)                     # (K,)
+        ss_next = ss.index_select(2, torch.clamp(idx + 1, max=t - 1))
     draw = gp.draw_posterior(params.gp, noise.rff_weights, noise.rff_freq,
                              noise.rff_phase, noise.inducing)
-    pred, stats = integrate_segments(params.gp, draw, ss, ts[:2], cfg)
+    pred, stats = integrate_segments(params.gp, draw, ss_batch, ts[:2], cfg)
 
-    lp = likelihood_log_prob(params.likelihood, pred, ys[None])
+    lp = likelihood_log_prob(params.likelihood, pred, ys_batch[None])
     observ_loglik = torch.mean(lp)
     num_obs = ys.numel()
 
-    constr = constraint_log_prob(params.constraint, ss[:, :, 1:, :],
-                                 pred[:, :, :-1, :]).sum(dim=3)  # (S,N,T-1)
-    scaled_constr = torch.mean(constr, dim=0).sum() / num_obs
+    def constraint(loc, y):
+        return constraint_log_prob(params.constraint, loc, y,
+                                   constraint_raw_scale).sum(dim=3)
+
+    if idx is None:
+        constr = constraint(ss[:, :, 1:, :], pred[:, :, :-1, :])  # (S,N,T-1)
+        scaled_constr = torch.mean(constr, dim=0).sum() / num_obs
+    else:
+        constr = constraint(ss_next, pred)                        # (S,N,K)
+        # Horvitz-Thompson: inclusion probability K/T per segment
+        scaled_constr = ((t / k) * torch.mean(constr * has_next, dim=0).sum()
+                         / num_obs)
     scaled_entropy = shooting_entropy(params.states).sum() / num_obs
     x0_kl = initial_state_kl(params.states.x0) / num_obs
     ind_kl = gp.kl(params.gp) / num_obs

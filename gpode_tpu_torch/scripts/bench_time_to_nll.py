@@ -52,8 +52,7 @@ import torch
 
 from gpode_tpu_torch import resolve_device
 from gpode_tpu_torch.data.mocap import latent_to_data_projector
-from gpode_tpu_torch.models.gpode import (GPODEParams, predict,
-                                          sample_predict_noise)
+from gpode_tpu_torch.models.gpode import predict, sample_predict_noise
 from gpode_tpu_torch.models.init import (initialize_inducing,
                                          initialize_kernel_parameters,
                                          initialize_noisevar,
@@ -67,6 +66,7 @@ from gpode_tpu_torch.train.builders import (build_shooting,
                                             default_frozen_predicate,
                                             make_projector, shooting_loss_fn)
 from gpode_tpu_torch.train.evaluation import make_projected_scorer
+from gpode_tpu_torch.train.experiments import _eval_cfg, generator, view
 from gpode_tpu_torch.train.trainer import default_optimizer, make_train_step
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -78,24 +78,10 @@ NOISEVAR_DRAWS = 16    # draws of the residual-variance predict
 _X0, _NOISEVAR, _TRAIN, _EVAL = range(4)
 
 
-def generator(device, *words) -> torch.Generator:
-    """A generator on `device` seeded from the integers `words` (a seed and
-    a stream, and for an eval its iteration)."""
-    seed = int(np.random.SeedSequence(list(words)).generate_state(1)[0])
-    return torch.Generator(device).manual_seed(seed)
-
-
 def eval_config(margs):
     """The eval solver: the preset's, with max_steps >= 512 and Hairer's
     first step."""
-    cfg = margs.solver_config()
-    return dataclasses.replace(cfg, max_steps=max(512, cfg.max_steps),
-                               first_step=None)
-
-
-def view(params) -> GPODEParams:
-    """The shooting model as the GPODE that `predict` scores."""
-    return GPODEParams(params.gp, params.states.x0, params.likelihood)
+    return _eval_cfg(margs.solver_config())
 
 
 def build_model(margs, data_pca, data_full, seed, device):

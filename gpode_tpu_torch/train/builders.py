@@ -1,5 +1,6 @@
 """Model wiring for the vanilla and the shooting GPODE. Counterpart of
-`gpode_tpu/train/builders.py` (constraint annealing is not ported yet)."""
+`gpode_tpu/train/builders.py`, with the step's noise samplers beside the
+losses (random numbers are inputs in the port)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,14 @@ from gpode_tpu_torch.models.likelihoods import (ProjectedGaussianLikelihood,
                                                 init_gaussian_likelihood)
 from gpode_tpu_torch.models.states import (init_initial_state,
                                            init_shooting_states)
+from gpode_tpu_torch.ops import math as om
+
+
+SOLVERS = ("dopri5", "rk4", "midpoint", "euler", "explicit_adams",
+           "fixed_adams", "adams", "implicit_adams", "bdf")
+# the solvers `ops/ode.odeint` has (the rest wait for ROADMAP A.6)
+PORTED_SOLVERS = ("dopri5", "rk4", "midpoint", "euler")
+CONSTRAINTS = ("gauss", "laplace")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,12 +44,33 @@ class ModelArgs:
     atol: float = 1e-6
     max_steps: int = 256
     first_step: Optional[float] = None  # dopri5 initial dt; -1.0 = full span
+    use_adjoint: bool = False  # not ported yet (ROADMAP A.6)
+    remat: bool = False        # not ported yet (ROADMAP A.4)
     num_samples: int = 5  # shooting MC draws per step
     constraint_type: str = "gauss"
     constraint_trainable: bool = False
     constraint_initial_scale: float = 1e-3
+    # Constraint-scale annealing (0 = off): the continuity scale decays
+    # geometrically from `constraint_anneal_start` to
+    # `constraint_initial_scale` over the first `constraint_anneal_iters`
+    # iterations (`constraint_annealer`).
+    constraint_anneal_iters: int = 0
+    constraint_anneal_start: float = 0.1
+    # Stochastic segment minibatching (0 = off): integrate K uniformly
+    # sampled shooting segments per step (`shooting.elbo_loss`).
+    segment_minibatch: int = 0
 
     def solver_config(self, kernels: Optional[bool] = None) -> SolverConfig:
+        """The solver knobs; raises NotImplementedError for the options the
+        port does not have yet rather than ignoring them."""
+        if self.use_adjoint:
+            raise NotImplementedError(
+                "use_adjoint: the continuous adjoint is not ported yet "
+                "(ROADMAP A.6)")
+        if self.remat:
+            raise NotImplementedError(
+                "remat: rematerialized segment integration is not ported yet "
+                "(ROADMAP A.4)")
         return SolverConfig(solver=self.solver, rtol=self.rtol, atol=self.atol,
                             ts_dense_scale=self.ts_dense_scale,
                             max_steps=self.max_steps,
@@ -48,10 +78,12 @@ class ModelArgs:
 
 
 def make_projector(arrays, device) -> Projector:
-    """A `Projector` module from the arrays of `latent_to_data_projector`."""
+    """A `Projector` module from the arrays of `latent_to_data_projector`,
+    on copies: a CPU parameter made with `as_tensor` would share the
+    dataset's PCA arrays, and training would move them."""
     def t(a):
-        return None if a is None else torch.as_tensor(a, dtype=torch.float32,
-                                                      device=device)
+        return None if a is None else torch.tensor(a, dtype=torch.float32,
+                                                   device=device)
     return Projector(t(arrays.components), t(arrays.norm_mean),
                      t(arrays.norm_std))
 
@@ -113,14 +145,75 @@ def gpode_loss_fn(args: ModelArgs, kernels: Optional[bool] = None):
     return loss
 
 
+def gpode_noise_fn(args: ModelArgs):
+    """noise(params, generator) -> the `GPODEStepNoise` of one vanilla
+    step."""
+
+    def noise(params, generator):
+        return gpode.sample_gpode_step_noise(params, args.num_features,
+                                             generator)
+
+    return noise
+
+
+def constraint_annealer(args: ModelArgs):
+    """itr -> the annealed constraint raw scale, or None when annealing is
+    off.
+
+    The scale decays geometrically from `constraint_anneal_start` to
+    `constraint_initial_scale` over the first `constraint_anneal_iters`
+    iterations and stays there: with f = clip(itr / horizon, 0, 1) the raw
+    scale is invsoftplus(exp((1 - f) log start + f log final)), in the
+    dtype of `itr` (a float32 device tensor the Trainer increments, so the
+    step reads no host value)."""
+    if args.constraint_anneal_iters <= 0:
+        return None
+    log_start = float(np.log(args.constraint_anneal_start))
+    log_final = float(np.log(args.constraint_initial_scale))
+    horizon = float(args.constraint_anneal_iters)
+
+    def anneal(itr: torch.Tensor) -> torch.Tensor:
+        frac = torch.clamp(itr / horizon, 0.0, 1.0)
+        scale = torch.exp((1.0 - frac) * log_start + frac * log_final)
+        return om.invsoftplus(scale, dtype=itr.dtype)
+
+    return anneal
+
+
 def shooting_loss_fn(args: ModelArgs, kernels: Optional[bool] = None):
-    """loss(params, noise, ys, ts) -> (loss, ShootingELBOTerms)."""
+    """loss(params, noise, ys, ts) -> (loss, ShootingELBOTerms).
+
+    With `constraint_anneal_iters > 0` the signature becomes
+    loss(params, noise, itr, ys, ts) (the Trainer passes its device-side
+    iteration counter): the constraint scale follows `constraint_annealer`
+    instead of `params.constraint.raw_scale`."""
     cfg = args.solver_config(kernels)
+    anneal = constraint_annealer(args)
+    if anneal is not None:
+
+        def annealed(params, noise, itr, ys, ts):
+            raw = anneal(itr).expand_as(params.constraint.raw_scale)
+            return shooting.elbo_loss(params, noise, ys, ts, cfg,
+                                      constraint_raw_scale=raw)
+
+        return annealed
 
     def loss(params, noise, ys, ts):
         return shooting.elbo_loss(params, noise, ys, ts, cfg)
 
     return loss
+
+
+def shooting_noise_fn(args: ModelArgs):
+    """noise(params, generator) -> the `StepNoise` of one shooting step
+    (with `segment_minibatch` segment indices when minibatching)."""
+
+    def noise(params, generator):
+        return shooting.sample_step_noise(
+            params, args.num_features, args.num_samples, generator,
+            segment_minibatch=args.segment_minibatch)
+
+    return noise
 
 
 def default_frozen_predicate(args: ModelArgs):
