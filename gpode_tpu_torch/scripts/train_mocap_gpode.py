@@ -2,9 +2,10 @@
 
     python -m gpode_tpu_torch.scripts.train_mocap_gpode --no_plots [flags]
 
-Ends with one JSON line of the final metrics, the wall seconds and the
-Trainer's steps/s. Counterpart of `scripts/train_mocap_gpode.py`: its flags and
-defaults, plus `--device` (default: the CUDA card).
+Counterpart of `scripts/train_mocap_gpode.py`: its flags and defaults, plus
+`--device` (default: the CUDA card; `cpu` runs on the CPU). `--no_plots`
+is required: the plots are not ported yet. Ends with one JSON line of
+the final metrics, the wall seconds and the Trainer's steps/s.
 """
 
 from __future__ import annotations
