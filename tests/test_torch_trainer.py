@@ -36,6 +36,7 @@ from gpode_tpu.utils.meters import Meter as JMeter
 
 from gpode_tpu_torch.convert import (gpode_params_from_numpy, params_from_numpy,
                                      params_like, params_to_numpy)
+from gpode_tpu_torch.models import gp as tgp
 from gpode_tpu_torch.models import gpode as tgpode
 from gpode_tpu_torch.models import init as tinit
 from gpode_tpu_torch.models import shooting as tshooting
@@ -354,6 +355,17 @@ def test_sampled_segment_indices():
     for f in ("rff_weights", "rff_freq", "rff_phase", "inducing", "x0",
               "states"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("k,kernel", [(8, False), (9, True), (16, True)])
+def test_minibatched_rows_and_the_kernel_rule(k, kernel):
+    """At MoCap-09 (5 draws x 6 sequences) a step of K segments integrates
+    30 K rows: the dispatch rule (256 rows) takes the segment kernels from
+    K = 9 at the official widths (M=100, S=256, D=5)."""
+    gp_params = tgp.init_svgp(torch.Generator().manual_seed(0), 5, 5, 100,
+                              device="cpu")
+    for name in ("dopri5_attempt", "rk4_segment"):
+        assert tgp.kernel_rhs_active(gp_params, 5 * 6 * k, 256, name) is kernel
 
 
 def _port_like_problem():
