@@ -94,6 +94,27 @@ exit code and no result line:
      annealed scale at the horizon the initial scale); the vanilla MoCap
      and both VDP twins for TINY_ITERS steps (finite losses); prints
      steps/s, the final LL/MSE, calibration and the best-val iteration;
+  7d. scale and solvers: the dopri5 attempt kernels at the `scale` step's
+     inputs (N=19200 segment rows: 32 draws x 6 x 100; M=256, S=256)
+     against their plain versions (forward rtol 1e-4, cotangents atol
+     1e-3 * max|g|), the accept RMS (one float32 mean over 96000 values)
+     against the same mean in float64 (rel 1e-5), both timed; the `scale`
+     train step (M=256, 32 draws, remat): its step-0 loss against the plain
+     path (rtol 1e-4), the peak memory of one plain-path step without and
+     with remat (remat must be lower), then 3 warm-up and SCALE_STEPS timed
+     steps with each attempt kernel once per step (steps/s, peak MiB); a
+     forced reject inside the scale step (its interval stretched to the
+     shortest span 0.01 * 1.25^k whose plain attempt error RMS exceeds 2):
+     loss and every gradient leaf through the kernels against the plain
+     path (rtol 1e-4; atol 1e-3 * max|g|), and its peak MiB; the official
+     step with `use_adjoint` (`fused_rhs` in both directions, no attempt
+     kernel; loss rtol 1e-5 and gradients rtol 5e-2, atol 5e-4 against the
+     taped step); a MoCap shooting step with `explicit_adams`,
+     `implicit_adams` and `adams` (`fused_rhs` in both directions) and `bdf`
+     (no kernel), each on the card against the CPU (loss rtol 1e-4), and
+     `explicit_adams` with remat (every forward launched once more in the
+     backward, the loss unchanged); the VDP twin with `--solver adams` and
+     `--solver bdf` for TINY_ITERS steps (finite losses and test LL);
   8. vdp: vanilla GPODE on Van der Pol at the train script's defaults (25
      observations over T=7, noise variance 0.05, M=16, S=256, dimwise,
      dopri5): the step-0 loss on the card against the same step on the CPU
@@ -110,12 +131,15 @@ exit code and no result line:
  10. wide A/B: `gpode_tpu_torch.scripts.proto_wide_rhs.main(["--rows",
      "2995"])` in-process (errors of the wide kernels against the per-dim
      reference, then chained timings of all variants); it must return 0;
- 11. a `{"kernels": [...]}` line, a copy of all results in
+ 11. a `{"kernels": [...]}` line (rows 6-7 also carry their `scale`
+     times and launches, rows 2-3 their launches per step on the adjoint
+     and multistep paths), a copy of all results in
      chiprun_out/chip_smoke.json, and as the last line
      `{"ok": true, "device": {...}}`.
 
 `--profile-steps N` adds a torch.profiler breakdown of N more train steps
-after phases 4, 6 and 8 (device time by operator, device busy share).
+after phases 4, 6, 7d (the `scale` step) and 8 (device time by operator,
+device busy share).
 """
 
 from __future__ import annotations
@@ -197,6 +221,8 @@ MAIN_PATH_KERNELS = {
     "field": ("rbf_gram",),
     "experiments": ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd"),
     "experiments_rk4": ("fused_rk4_segment_fwd", "fused_rk4_segment_bwd"),
+    "scale": ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd"),
+    "adjoint": ("fused_rhs_fwd", "fused_rhs_bwd"),
     "wide_ab": ("fused_rhs_fwd", "fused_rhs_bwd", "fused_rhs_wide_fwd",
                 "fused_rhs_wide2_fwd", "fused_rhs_wide_bwd"),
 }
@@ -1368,6 +1394,401 @@ def experiments_phase(tmp):
     return out, launches, rk4_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7d: the `scale` preset and the solver layer
+# ---------------------------------------------------------------------------
+
+SCALE_WARMUP, SCALE_STEPS = 3, 10
+SCALE_ROWS = 32 * 6 * 100
+MULTISTEP_SOLVERS = ("explicit_adams", "implicit_adams", "adams", "bdf")
+
+
+def _loss_and_grads(params, loss_fn, noise, ys, ts):
+    """One step's loss, terms and parameter gradients (no update)."""
+    params.zero_grad(set_to_none=True)
+    loss, terms = loss_fn(params, noise, ys, ts)
+    loss.backward()
+    return float(loss.detach()), terms, {
+        n: p.grad.detach().clone() for n, p in params.named_parameters()
+        if p.grad is not None}
+
+
+def _compare_param_grads(got, ref, what, rtol=0.0, atol_scale=1e-3, atol=0.0):
+    """Every leaf: |got - ref| <= atol + atol_scale * max|ref| + rtol * |ref|.
+    Returns the largest error relative to its leaf's max|ref|."""
+    import torch
+    check(set(got) == set(ref), f"{what}: different gradient leaves")
+    worst = 0.0
+    for name, b in ref.items():
+        a = got[name]
+        err = (a - b).abs()
+        scale = float(b.abs().max())
+        ok = bool(torch.all(err <= atol + atol_scale * scale + rtol * b.abs()))
+        check(ok and bool(torch.all(torch.isfinite(a))),
+              f"{what} d{name} disagrees (max_abs_err {float(err.max()):.3e}, "
+              f"max|ref| {scale:.3e})")
+        worst = max(worst, float(err.max()) / max(scale, 1e-30))
+    return worst
+
+
+def scale_kernel_check(dev):
+    """The dopri5 attempt kernels at the `scale` step's inputs (N=19200
+    segment rows, M=256): forward and cotangents against the plain version,
+    the accept RMS (one float32 mean over N*D values) against the same mean
+    in float64, device times of kernel and plain version, and the bound."""
+    import torch
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+
+    inputs, dt, args, _, _ = main_path_inputs(dev, "scale")
+    x, params = inputs[0], inputs[1:]
+    n, din = x.shape
+    d, m = params[6].shape
+    s = params[5].shape[0]
+    print(f"  attempt kernels at the scale step: N={n} Din={din} D={d} M={m} "
+          f"S={s}")
+    check((n, din, d, m, s) == (SCALE_ROWS, 5, 5, 256, 256),
+          "the scale step's shapes differ from the preset")
+    g = torch.randn(n, d, device=dev, generator=torch.Generator(dev).manual_seed(7))
+    rtol, atol = args.rtol, args.atol
+    x5_k, err_k = ck.fused_dopri5_attempt(x, dt, *params, rtol, atol)
+    x5_p, err_p, _ = ck.dopri5_attempt_plain(x, dt, *params, rtol, atol)
+    e_fwd = compare_fwd(x5_k, x5_p, "fused_dopri5_attempt_fwd x5 (scale)")
+    rms32 = float(torch.sqrt(torch.mean(torch.square(err_k))))
+    rms64 = float(torch.sqrt(torch.mean(torch.square(err_k.double()))))
+    rms_p = float(torch.sqrt(torch.mean(torch.square(err_p))))
+    print(f"  accept RMS over {err_k.numel()} values: float32 {rms32:.9g}, "
+          f"float64 {rms64:.9g} (rel diff {abs(rms32 - rms64) / rms64:.3e}); "
+          f"plain version {rms_p:.6g}")
+    check(abs(rms32 - rms64) <= 1e-5 * rms64,
+          "the float32 accept RMS differs from its float64 value")
+    check((rms32 <= 1.0) == (rms_p <= 1.0), "accept decisions differ")
+    e_bwd = compare_grads(
+        torch.autograd.grad(x5_k, inputs, g),
+        torch.autograd.grad(x5_p, inputs, g, retain_graph=True),
+        "fused_dopri5_attempt_bwd (scale)")
+    dims = (din, d, m, s)
+    ops = ck._kernel_operands(*[p.detach() for p in params])
+    xd = x.detach()
+    with torch.no_grad():
+        xs = ck._launch_dp_fwd(xd, dt, rtol, atol, ops, *dims)[2]
+        ms_f = cuda_ms(lambda: ck._launch_dp_fwd(xd, dt, rtol, atol, ops, *dims))
+        ms_fp = cuda_ms(lambda: ck.dopri5_attempt_plain(
+            xd, dt, *[p.detach() for p in params], rtol, atol), iters=10)
+    ms_b = cuda_ms(lambda: ck._launch_dp_bwd(xs, g, dt, ops, *dims))
+    ms_bp = cuda_ms(lambda: torch.autograd.grad(x5_p, inputs, g,
+                                                retain_graph=True), iters=10)
+    pf = param_floats(din, d, m, s)
+    rows = {
+        "fused_dopri5_attempt_fwd": (e_fwd, ms_f, ms_fp, *bound(
+            7 * rhs_ops(n, din, d, m, s),
+            4 * (n * din + pf + 2 * n * d + 6 * n * din))),
+        "fused_dopri5_attempt_bwd": (e_bwd, ms_b, ms_bp, *bound(
+            6 * vjp_ops(n, din, d, m, s),
+            4 * (6 * n * din + n * d + pf + n * din + pf)))}
+    for name, (err, ms, pms, bms, by) in rows.items():
+        print(f"  {name} at N={n}, M={m}: {ms:.4f} ms (plain {pms:.4f} ms, "
+              f"bound {bms:.5f} ms by {by}); max_abs_err {err:.3e}")
+    del x5_p, err_p
+    return rows, dict(rms_float32=rms32, rms_float64=rms64, rms_plain=rms_p)
+
+
+def _peak_mib(dev, fn):
+    """fn() from a fresh peak: (its result, peak MiB allocated during it)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated(dev) / 2**20
+
+
+def scale_step_check(dev, profile_steps=0):
+    """The `scale` train step: step-0 loss against the plain path, the
+    plain step's peak memory with and without remat, the timed steps with
+    the attempt kernels once per step each (then `profile_steps` profiled
+    ones), then a forced reject."""
+    import dataclasses
+
+    import torch
+    from gpode_tpu_torch.models import gp
+    from gpode_tpu_torch.models.shooting import (sample_step_noise,
+                                                 stack_segments)
+    from gpode_tpu_torch.models.states import sample_shooting_states
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
+    from gpode_tpu_torch.train.builders import shooting_loss_fn
+    from gpode_tpu_torch.train.trainer import default_optimizer, make_train_step
+
+    args, params, ys, ts = build_bench_problem(preset_model_args("scale"),
+                                               device=dev)
+    check(args.remat and args.num_samples == 32 and args.num_inducing == 256,
+          "the scale preset's flags")
+    gen = torch.Generator(dev).manual_seed(0)
+    loss_fn = shooting_loss_fn(args)
+    noise0 = sample_step_noise(params, args.num_features, args.num_samples, gen)
+    with torch.no_grad():
+        lk = float(loss_fn(params, noise0, ys, ts)[0])
+        lp = float(shooting_loss_fn(args, kernels=False)(params, noise0, ys,
+                                                         ts)[0])
+    print(f"  scale step-0 loss: kernels {lk:.8f}, plain {lp:.8f}")
+    check(math.isfinite(lk) and abs(lk - lp) <= 1e-4 * abs(lp),
+          "the scale step-0 loss through the kernels differs from the plain path")
+
+    # one plain-path step, with and without remat
+    plain_peak = {}
+    for remat in (False, True):
+        fn = shooting_loss_fn(dataclasses.replace(args, remat=remat),
+                              kernels=False)
+        (loss, _, _), peak = _peak_mib(dev, lambda: _loss_and_grads(
+            params, fn, noise0, ys, ts))
+        plain_peak[remat] = peak
+        check(math.isfinite(loss), "non-finite plain scale loss")
+    params.zero_grad(set_to_none=True)
+    print(f"  plain scale step peak: {plain_peak[False]:.1f} MiB without "
+          f"remat, {plain_peak[True]:.1f} MiB with")
+    check(plain_peak[True] < plain_peak[False],
+          "remat does not lower the plain scale step's peak memory")
+
+    # the timed steps (the preset's kernels)
+    step = make_train_step(loss_fn, params, default_optimizer(params, 5e-3))
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()                     # main path starts here
+    losses, rejected = [], 0
+    for i in range(SCALE_WARMUP + SCALE_STEPS):
+        if i == SCALE_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+        terms = step(sample_step_noise(params, args.num_features,
+                                       args.num_samples, gen), ys, ts)
+        losses.append(float(terms.loss.detach()))
+        rejected += terms.natt > 1
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)                 # main path ends here
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    n_steps = SCALE_WARMUP + SCALE_STEPS
+    sps = SCALE_STEPS / seconds
+    print(f"  scale steps: {sps:.3f} steps/s ({1e3 / sps:.2f} ms/step) over "
+          f"{SCALE_STEPS}; peak {peak:.1f} MiB; loss first {losses[0]:.4f} "
+          f"last {losses[-1]:.4f}; rejected {rejected}; launches {launches}")
+    check(all(math.isfinite(v) for v in losses), "non-finite scale loss")
+    check(launches["fused_dopri5_attempt_fwd"] == n_steps
+          and launches["fused_dopri5_attempt_bwd"] == n_steps - rejected,
+          "the scale step did not launch each attempt kernel once per step")
+    for name in ("fused_rhs_fwd", "fused_rhs_bwd", "fused_rk4_segment_fwd",
+                 "fused_rk4_segment_bwd"):
+        check(launches[name] == 0, f"{name} launched on the scale step")
+    if profile_steps:
+        profile_train_steps(step, lambda: sample_step_noise(
+            params, args.num_features, args.num_samples, gen), ys, ts,
+            profile_steps, "scale")
+
+    # a forced reject inside the step: the interval stretched to the
+    # shortest span 0.01 * 1.25^k whose plain attempt error RMS exceeds 2
+    noise = sample_step_noise(params, args.num_features, args.num_samples, gen)
+    with torch.no_grad():
+        x = stack_segments(sample_shooting_states(params.states, noise.x0,
+                                                  noise.states))
+        draw = gp.draw_posterior(params.gp, noise.rff_weights, noise.rff_freq,
+                                 noise.rff_phase, noise.inducing)
+        ops = (params.gp.z, params.gp.kernel.lengthscales,
+               params.gp.kernel.variance, draw.omega, draw.phase,
+               gp.kernel_rff_weights(draw.weights), draw.nu)
+        for k in range(40):
+            span = 0.01 * 1.25 ** k
+            dt = torch.full((1,), span, device=dev)
+            err = ck.dopri5_attempt_plain(x, dt, *ops, args.rtol, args.atol)[1]
+            if float(err.square().mean().sqrt()) > 2.0:
+                break
+        else:
+            raise CheckFailed("no span lifts the scale attempt's RMS above 2")
+        del x, draw, ops, err
+    ts_r = ts * (span / float(ts[1] - ts[0]))
+    runs = {}
+    for kernels in (None, False):
+        ck.reset_launch_counts()
+        (loss, terms, grads), peak_r = _peak_mib(dev, lambda: _loss_and_grads(
+            params, shooting_loss_fn(args, kernels=kernels), noise, ys, ts_r))
+        runs[kernels] = (loss, terms, grads, peak_r, dict(ck.LAUNCHES))
+        print(f"  forced reject (span {span:.5g}), "
+              f"{'kernels' if kernels is None else 'plain'}: loss {loss:.8f}, "
+              f"attempts {terms.natt}, nfe {terms.nfe}, covered {terms.ncov}, "
+              f"peak {peak_r:.1f} MiB")
+    params.zero_grad(set_to_none=True)
+    (l_k, t_k, g_k, peak_k, n_k), (l_p, t_p, g_p, _, _) = runs[None], runs[False]
+    check(t_k.natt > 1 and t_p.natt > 1 and t_k.ncov == 2,
+          "the stretched interval's attempt was not rejected, or not covered")
+    check(n_k["fused_dopri5_attempt_fwd"] == 1
+          and n_k["fused_dopri5_attempt_bwd"] == 0,
+          "the rejected step did not start from the attempt kernel")
+    check(math.isfinite(l_k) and abs(l_k - l_p) <= 1e-4 * abs(l_p),
+          "the rejected step's loss differs from the plain path")
+    g_err = _compare_param_grads(g_k, g_p, "forced reject")
+    print(f"  forced reject: |loss diff| {abs(l_k - l_p):.3e}; gradients "
+          f"within {g_err:.3e} of each leaf's max|g|")
+    return dict(step0_kernels=lk, step0_plain=lp, steps_per_sec=sps,
+                peak_mib=peak, rejected=rejected, loss_first=losses[0],
+                loss_last=losses[-1], plain_peak_mib_no_remat=plain_peak[False],
+                plain_peak_mib_remat=plain_peak[True],
+                reject=dict(span=span, loss_kernels=l_k, loss_plain=l_p,
+                            grad_rel_err=g_err, attempts=t_k.natt,
+                            peak_mib=peak_k)), launches
+
+
+def adjoint_check(dev):
+    """The official step with `use_adjoint` against the taped step (the
+    attempt kernels): `fused_rhs` forward and backward launched, no attempt
+    kernel; loss rtol 1e-5, gradients rtol 5e-2, atol 5e-4."""
+    import dataclasses
+
+    import torch
+    from gpode_tpu_torch.models.shooting import sample_step_noise
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
+    from gpode_tpu_torch.train.builders import shooting_loss_fn
+
+    args, params, ys, ts = build_bench_problem(preset_model_args("official"),
+                                               device=dev)
+    noise = sample_step_noise(params, args.num_features, args.num_samples,
+                              torch.Generator(dev).manual_seed(5))
+    l_t, _, g_t = _loss_and_grads(params, shooting_loss_fn(args), noise, ys, ts)
+    adj = dataclasses.replace(args, use_adjoint=True)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()                     # main path starts here
+    t0 = time.perf_counter()
+    l_a, terms, g_a = _loss_and_grads(params, shooting_loss_fn(adj), noise,
+                                      ys, ts)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)                 # main path ends here
+    params.zero_grad(set_to_none=True)
+    print(f"  adjoint: loss {l_a:.8f} against taped {l_t:.8f}; forward nfe "
+          f"{terms.nfe}; {seconds:.3f} s for the step; launches {launches}")
+    check(launches["fused_rhs_fwd"] > 0 and launches["fused_rhs_bwd"] > 0,
+          "the adjoint step did not launch fused_rhs in both directions")
+    for name in ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd",
+                 "fused_rk4_segment_fwd", "fused_rk4_segment_bwd"):
+        check(launches[name] == 0, f"{name} launched on the adjoint step")
+    check(abs(l_a - l_t) <= 1e-5 * abs(l_t), "the adjoint loss differs")
+    g_err = _compare_param_grads(g_a, g_t, "adjoint vs taped", rtol=5e-2,
+                                 atol_scale=0.0, atol=5e-4)
+    return dict(loss=l_a, loss_taped=l_t, nfe=terms.nfe, seconds=seconds,
+                grad_rel_err=g_err), launches
+
+
+def multistep_check(dev):
+    """A MoCap-09 shooting step (the official model) with each multistep
+    solver, on the card against the CPU (loss rtol 1e-4): `fused_rhs` in
+    both directions for the explicit and implicit Adams solvers and the
+    VCABM, no kernel for BDF; then explicit Adams with `remat`, whose
+    backward launches every forward a second time."""
+    import dataclasses
+
+    import torch
+    from gpode_tpu_torch.models.shooting import sample_step_noise
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
+    from gpode_tpu_torch.train.builders import shooting_loss_fn
+
+    base, params, ys, ts = build_bench_problem(preset_model_args("official"),
+                                               device=dev)
+    _, params_c, ys_c, ts_c = build_bench_problem(base, device="cpu")
+    noise_c = sample_step_noise(params_c, base.num_features, base.num_samples,
+                                torch.Generator().manual_seed(9))
+    noise = type(noise_c)(*(t.to(dev) for t in (
+        noise_c.rff_weights, noise_c.rff_freq, noise_c.rff_phase,
+        noise_c.inducing, noise_c.x0, noise_c.states)))
+    out, per_step = {}, {}
+    for solver in MULTISTEP_SOLVERS + ("explicit_adams_remat",):
+        remat = solver.endswith("_remat")
+        args = dataclasses.replace(base, solver=solver.replace("_remat", ""),
+                                   remat=remat)
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()                 # main path starts here
+        t0 = time.perf_counter()
+        loss, terms, _ = _loss_and_grads(params, shooting_loss_fn(args), noise,
+                                         ys, ts)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)             # main path ends here
+        with torch.no_grad():
+            loss_c = float(shooting_loss_fn(args)(params_c, noise_c, ys_c,
+                                                  ts_c)[0])
+        print(f"  {solver}: card {loss:.8f}, CPU {loss_c:.8f}; nfe {terms.nfe}; "
+              f"{seconds:.3f} s; fused_rhs fwd {launches['fused_rhs_fwd']} "
+              f"bwd {launches['fused_rhs_bwd']}")
+        check(math.isfinite(loss) and abs(loss - loss_c) <= 1e-4 * abs(loss_c),
+              f"{solver}: the card's loss differs from the CPU's")
+        for name in ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd",
+                     "fused_rk4_segment_fwd", "fused_rk4_segment_bwd"):
+            check(launches[name] == 0, f"{name} launched by {solver}")
+        if solver == "bdf":
+            check(launches["fused_rhs_fwd"] == launches["fused_rhs_bwd"] == 0,
+                  "BDF launched fused_rhs")
+        else:
+            check(launches["fused_rhs_fwd"] > 0 and launches["fused_rhs_bwd"] > 0,
+                  f"{solver} did not launch fused_rhs in both directions")
+        out[solver] = dict(loss=loss, loss_cpu=loss_c, nfe=terms.nfe,
+                           seconds=seconds)
+        per_step[solver] = {k: launches[k] for k in ("fused_rhs_fwd",
+                                                     "fused_rhs_bwd")}
+    params.zero_grad(set_to_none=True)
+    plain, remat = per_step["explicit_adams"], per_step["explicit_adams_remat"]
+    check(remat["fused_rhs_fwd"] == 2 * plain["fused_rhs_fwd"]
+          and remat["fused_rhs_bwd"] == plain["fused_rhs_bwd"],
+          "remat does not launch each forward once more in the backward")
+    check(out["explicit_adams_remat"]["loss"] == out["explicit_adams"]["loss"],
+          "remat changed the loss")
+    return out, per_step
+
+
+def solver_cli_check(tmp):
+    """The VDP twin for TINY_ITERS steps with `--solver adams` and
+    `--solver bdf`: finite losses and test LL."""
+    from gpode_tpu_torch.scripts import train_vdp_gpode
+    out, rec = {}, _Recorder()
+    try:
+        for solver in ("adams", "bdf"):
+            rec.reset()
+            _, _, mv = train_vdp_gpode.run([
+                "--no_plots", "--solver", solver, "--num_iter",
+                str(TINY_ITERS), "--save", os.path.join(tmp, f"vdp_{solver}")])
+            sps = rec.steps_per_sec()
+            print(f"  vdp --solver {solver}: {sps:.3f} steps/s over "
+                  f"{TINY_ITERS} steps; test LL {mv['test_ll']:.4f} MSE "
+                  f"{mv['test_mse']:.4f}", flush=True)
+            check(len(rec.losses) == TINY_ITERS and rec.all_losses_finite()
+                  and math.isfinite(mv["test_ll"]),
+                  f"vdp --solver {solver}: non-finite loss or test LL")
+            out[solver] = dict(steps_per_sec=sps, test_ll=mv["test_ll"],
+                               test_mse=mv["test_mse"])
+    finally:
+        rec.restore()
+    return out
+
+
+def scale_solvers_phase(dev, tmp, profile_steps=0):
+    """Phase 7d. Returns (results, the attempt kernels' rows at the scale
+    shape, the scale step's launches, the adjoint step's launches,
+    `fused_rhs` launches per multistep step)."""
+    phase("scale and solvers")
+    t0 = time.perf_counter()
+    rows, rms = scale_kernel_check(dev)
+    scale, scale_launches = scale_step_check(dev, profile_steps)
+    adjoint, adjoint_launches = adjoint_check(dev)
+    multistep, per_step = multistep_check(dev)
+    cli = solver_cli_check(tmp)
+    seconds = time.perf_counter() - t0
+    print(f"  phase 7d: {seconds:.1f} s", flush=True)
+    return (dict(accept_rms=rms, scale=scale, adjoint=adjoint,
+                 multistep=multistep, cli=cli, seconds=seconds),
+            rows, scale_launches, adjoint_launches, per_step)
+
+
 def accept_decision_check(x, params, rtol, atol):
     """The attempt kernel and the plain path near the accept threshold: at
     every span 0.01 * 1.05^k whose float64 plain error RMS lies in [0.5, 2]
@@ -1691,6 +2112,9 @@ def main(argv=None) -> int:
     driver, driver_launches = driver_phase(evaluation["ll"])
     with tempfile.TemporaryDirectory() as tmp:
         experiments, exp_launches, exp_rk4_launches = experiments_phase(tmp)
+        (scale_solvers, scale_rows, scale_launches, adjoint_launches,
+         multistep_launches) = scale_solvers_phase(dev, tmp,
+                                                   opts.profile_steps)
     vdp, vdp_params, vdp_data = vdp_phase(dev, "default", opts.profile_steps)
     vdp_golden, _, _ = vdp_phase(dev, "golden", opts.profile_steps)
     field, field_launches, e_gram = field_phase(dev, vdp_params, vdp_data,
@@ -1702,6 +2126,7 @@ def main(argv=None) -> int:
                      "driver": driver_launches,
                      "experiments": exp_launches,
                      "experiments_rk4": exp_rk4_launches,
+                     "scale": scale_launches, "adjoint": adjoint_launches,
                      "field": field_launches, "wide_ab": wide_ab_phase()}
 
     phase("result")
@@ -1715,10 +2140,22 @@ def main(argv=None) -> int:
         path = next(path_launches[p] for p, names in MAIN_PATH_KERNELS.items()
                     if name in names)
         check(path[name] > 0, f"{name} never launched on its main path")
-        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                     "replaces": REPLACES[name], "launches": path[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                     "bound_ms": bms, "bound_by": by, "library_ms": None})
+        row = {"name": name, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name], "launches": path[name],
+               "max_abs_err": err, "ms": ms, "plain_ms": pms,
+               "bound_ms": bms, "bound_by": by, "library_ms": None}
+        if name in scale_rows:  # the attempt kernels at the scale step too
+            s_err, s_ms, s_pms, s_bms, s_by = scale_rows[name]
+            row["scale"] = {"rows": SCALE_ROWS, "num_inducing": 256,
+                            "launches": scale_launches[name],
+                            "max_abs_err": s_err, "ms": s_ms,
+                            "plain_ms": s_pms, "bound_ms": s_bms,
+                            "bound_by": s_by}
+        if name in ("fused_rhs_fwd", "fused_rhs_bwd"):
+            row["launches_per_step"] = {
+                "adjoint": adjoint_launches[name],
+                **{k: v[name] for k, v in multistep_launches.items()}}
+        rows.append(row)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_seconds": build_seconds,
@@ -1729,7 +2166,7 @@ def main(argv=None) -> int:
                    "train_official_heuristic": heuristic,
                    "eval_fast": evaluation, "time_to_nll": driver,
                    "experiments": experiments,
-                   "vdp": vdp,
+                   "scale_and_solvers": scale_solvers, "vdp": vdp,
                    "vdp_golden": vdp_golden, "field": field}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

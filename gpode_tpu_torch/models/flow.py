@@ -1,22 +1,27 @@
 """Flow: numerical integration of a sampled GP vector field.
 
 Counterpart of `gpode_tpu/models/flow.py` (`flow_forward`,
-`flow_forward_batched`, `flow_forward_sampled`): `odeint` applied to
-`eval_draw` of a fixed :class:`~gpode_tpu_torch.models.gp.PosteriorDraw`,
-with the segment kernels for one-interval shooting segments (the rk4 segment
-and the whole-span dopri5 attempt), the batched-draw solve of posterior
-prediction, and a solve under a draw built from its noise.
+`flow_forward_batched`, `flow_forward_sampled`, `flow_inverse`): `odeint`
+applied to `eval_draw` of a fixed
+:class:`~gpode_tpu_torch.models.gp.PosteriorDraw`, with the segment kernels
+for one-interval shooting segments (the rk4 segment and the whole-span
+dopri5 attempt), the continuous adjoint, rematerialized rhs evaluations, the
+batched-draw solve of posterior prediction, and a solve under a draw built
+from its noise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from gpode_tpu_torch.models import gp
+from gpode_tpu_torch.ops.adjoint import odeint_adjoint
 from gpode_tpu_torch.ops.cuda_kernels import (fused_dopri5_attempt,
                                               fused_rk4_segment)
 from gpode_tpu_torch.ops.ode import (FIRST_STEP_SPAN, ODEStats,
@@ -30,11 +35,16 @@ class SolverConfig:
     """Solver knobs. `ts_dense_scale`: fixed-step solvers take
     `ts_dense_scale - 1` sub-steps per interval; dopri5 ignores it.
     `first_step`: None -> Hairer's heuristic, FIRST_STEP_SPAN -> the whole
-    span. `kernels`: None -> the auto rule (dimwise batches of at least 256
-    rows take the fused kernels where both directions of the kernel the
-    solve would launch take the shape), False -> plain tensor path
-    everywhere, True -> the kernels for any dimwise batch (the JAX `pallas`
-    override; a shape the kernel refuses raises ValueError)."""
+    span. `remat`: rematerialize every rhs evaluation of a taped solve in
+    the backward instead of storing its intermediates. `use_adjoint`:
+    continuous-adjoint gradients (`ops/adjoint.py`). `kernels`: None -> the
+    auto rule (dimwise batches of at least 256 rows take the fused kernels
+    where both directions of the kernel the solve would launch take the
+    shape), False -> plain tensor path everywhere, True -> the kernels for
+    any dimwise batch (the JAX `pallas` override; a shape the kernel refuses
+    raises ValueError). BDF always takes the plain rhs: its Newton Jacobian
+    is differentiated a second time in the backward, and the kernels'
+    autograd rules are first order."""
 
     solver: str = "dopri5"
     rtol: float = 1e-6
@@ -42,6 +52,8 @@ class SolverConfig:
     ts_dense_scale: int = 1
     max_steps: int = 256
     first_step: Optional[float] = None
+    remat: bool = False
+    use_adjoint: bool = False
     kernels: Optional[bool] = None
 
     @property
@@ -63,9 +75,31 @@ def _kernel_of(cfg: SolverConfig, ts: torch.Tensor) -> str:
 
 def _kernels_active(cfg: SolverConfig, gp_params: gp.SVGPParams,
                     n_rows: int, num_features: int, kernel: str) -> bool:
+    if cfg.solver == "bdf":
+        return False
     if cfg.kernels is None:
         return gp.kernel_rhs_active(gp_params, n_rows, num_features, kernel)
     return cfg.kernels and gp_params.dimwise
+
+
+def _rematerialized(rhs):
+    """`rhs` under a non-reentrant checkpoint: a taped solve keeps only each
+    evaluation's inputs and recomputes the evaluation in the backward (a
+    kernel rhs launches its forward again there)."""
+    def wrapped(t, x):
+        return checkpoint(rhs, t, x, use_reentrant=False)
+
+    return wrapped
+
+
+def _adjoint_leaves(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw):
+    """The adjoint's parameters, as the JAX package ravels (gp_params,
+    draw): the kernel's raw leaves and Z, which the field reads, the
+    inducing posterior's leaves, which it does not (zero cotangents; they
+    reach the loss through the draw), and the draw's four leaves."""
+    q = gp_params.u_diag_raw if gp_params.q_diag else gp_params.u_tril
+    return (gp_params.kernel.raw_lengthscales, gp_params.kernel.raw_variance,
+            gp_params.z, gp_params.u_mean, q, *draw)
 
 
 def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
@@ -73,9 +107,29 @@ def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
                  cfg: SolverConfig) -> tuple[torch.Tensor, ODEStats]:
     """Integrate dx/dt = f_draw(x) from x0 (N, D) over ts (T,).
     Returns ((N, T, D), stats)."""
+    n_features = draw.weights.shape[-2]
+
+    # continuous adjoint: the generic solver with `fused_rhs` at every
+    # evaluation, forward and in the augmented dynamics (its VJP launches
+    # the backward kernel); never the segment kernels
+    if cfg.use_adjoint:
+        use_kernel = _kernels_active(cfg, gp_params, x0.shape[0], n_features,
+                                     "fused_rhs")
+
+        def rhs_p(p, t, x):
+            del t  # time-invariant ODE
+            return gp.eval_draw(gp.field_view(*p[:3]), gp.PosteriorDraw(*p[5:]),
+                                x, use_kernel)
+
+        xs, stats = odeint_adjoint(
+            rhs_p, _adjoint_leaves(gp_params, draw), x0, ts, solver=cfg.solver,
+            rtol=cfg.rtol, atol=cfg.atol, substeps=cfg.substeps,
+            max_steps=cfg.max_steps, first_step=cfg.first_step)
+        return torch.movedim(xs, 0, 1), stats
+
     kernel = _kernel_of(cfg, ts)
-    use_kernel = _kernels_active(cfg, gp_params, x0.shape[0],
-                                 draw.weights.shape[-2], kernel)
+    use_kernel = _kernels_active(cfg, gp_params, x0.shape[0], n_features,
+                                 kernel)
 
     def rhs(t, x):
         del t  # time-invariant ODE
@@ -83,7 +137,8 @@ def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
 
     # rk4 one-interval shooting segments: one kernel runs all 4 * substeps
     # stage evaluations and combines for every row, and one kernel the
-    # reverse sweep of the stage chain.
+    # reverse sweep of the stage chain (which recomputes the stages, so
+    # `remat` has nothing to add).
     if kernel == "rk4_segment" and use_kernel:
         dt = (ts[1] - ts[0]).detach().reshape(1)
         x1 = fused_rk4_segment(
@@ -116,14 +171,22 @@ def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
             del t
             return gp.eval_draw(gp_params, draw, x, False)
 
-        xs, st = odeint(rhs_plain, x0, ts, solver="dopri5", rtol=cfg.rtol,
-                        atol=cfg.atol, max_steps=cfg.max_steps,
+        # the fallback's rhs is always rematerialized, whatever `remat`
+        # says: a reject at the `scale` preset's 19200 rows would otherwise
+        # tape every stage's (N, S_rff, D) features. Checkpoints are per
+        # evaluation: a checkpoint of the whole host-controlled solve would
+        # replay its accept decisions in the backward and fail if a replay
+        # took another path.
+        xs, st = odeint(_rematerialized(rhs_plain), x0, ts, solver="dopri5",
+                        rtol=cfg.rtol, atol=cfg.atol, max_steps=cfg.max_steps,
                         first_step=float(dt_shrunk))
         # the rejected attempt's 7 kernel evaluations still happened
         return torch.stack([x0, xs[-1]], dim=1), ODEStats(
             st.num_rhs_evals + 7, st.num_accepted, st.num_attempted + 1,
             st.num_covered)
 
+    if cfg.remat:
+        rhs = _rematerialized(rhs)
     xs, stats = odeint(rhs, x0, ts, solver=cfg.solver, rtol=cfg.rtol,
                        atol=cfg.atol, substeps=cfg.substeps,
                        max_steps=cfg.max_steps, first_step=cfg.first_step)
@@ -140,8 +203,15 @@ def flow_forward_batched(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
     evaluation below the kernel gate, which is decided per draw's N rows).
     Step-size control is shared across draws with the max-of-per-draw-RMS
     error norm, so each draw's accuracy is at least what its own controller
-    would enforce.
+    would enforce. `remat` rematerializes each batched evaluation; the
+    continuous adjoint is a train-path option that this forward-only eval
+    route does not implement (a warning says so, as in the JAX package).
     """
+    if cfg.use_adjoint:
+        warnings.warn(
+            "flow_forward_batched does not implement use_adjoint; gradients "
+            "(if any) flow by autodiff-through-solver. Set remat=True to "
+            "bound backward memory for large draw batches.", stacklevel=2)
     use_kernel = _kernels_active(cfg, gp_params, x0.shape[1],
                                  draws.weights.shape[-2], "fused_rhs")
 
@@ -149,11 +219,21 @@ def flow_forward_batched(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
         del t  # time-invariant ODE
         return gp.eval_draws(gp_params, draws, x, use_kernel)
 
+    if cfg.remat:
+        rhs = _rematerialized(rhs)
     xs, stats = odeint(rhs, x0, ts, solver=cfg.solver, rtol=cfg.rtol,
                        atol=cfg.atol, substeps=cfg.substeps,
                        max_steps=cfg.max_steps, first_step=cfg.first_step,
                        norm=max_rms_over_axis0)
     return torch.movedim(xs, 0, 2), stats
+
+
+def flow_inverse(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
+                 x1: torch.Tensor, ts: torch.Tensor,
+                 cfg: SolverConfig) -> tuple[torch.Tensor, ODEStats]:
+    """Integrate backward over the reversed ts: the states at flip(ts),
+    (N, T, D)."""
+    return flow_forward(gp_params, draw, x1, torch.flip(ts, [0]), cfg)
 
 
 def flow_forward_sampled(gp_params: gp.SVGPParams,

@@ -210,6 +210,36 @@ def kernel_rhs_active(params: SVGPParams, n_rows: int, num_features: int,
     return False
 
 
+class _KernelView(NamedTuple):
+    lengthscales: torch.Tensor
+    variance: torch.Tensor
+
+    @property
+    def dimwise(self) -> bool:
+        return self.lengthscales.ndim == 2
+
+
+class FieldView(NamedTuple):
+    """What an evaluation of the field (`eval_draw` with an explicit
+    `use_kernel`) reads of the GP: the kernel's constrained hyperparameters
+    and Z, as plain tensors. The continuous adjoint evaluates the field on
+    detached leaves through it."""
+
+    kernel: _KernelView
+    z: torch.Tensor
+
+    @property
+    def dimwise(self) -> bool:
+        return self.kernel.dimwise
+
+
+def field_view(raw_lengthscales: torch.Tensor, raw_variance: torch.Tensor,
+               z: torch.Tensor) -> FieldView:
+    """A :class:`FieldView` from the kernel's unconstrained leaves."""
+    return FieldView(_KernelView(om.softplus(raw_lengthscales),
+                                 om.softplus(raw_variance)), z)
+
+
 def kernel_rff_weights(weights: torch.Tensor) -> torch.Tensor:
     """RFF weights for the kernels, which hardcode the canonical
     sqrt(2 var / S) feature scale; any other scale folds into the weights."""

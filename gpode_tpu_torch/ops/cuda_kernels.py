@@ -28,9 +28,13 @@ models' dispatch rule). A differentiable call checks its backward's geometry
 before the forward launches, so a refused shape raises before any launch.
 
 Each public function takes the plain version for CPU tensors only; for CUDA
-tensors it launches its kernel or raises. `LAUNCHES` counts kernel launches
-per wrapper (the launch of the kernel itself; the fixed-order reduction pass
-that follows a backward kernel belongs to the same count).
+tensors it launches its kernel or raises. The backward kernels are first
+order only: their autograd rules are `first_order_only`, so a double
+backward through a kernel raises instead of returning wrong second
+derivatives (the implicit BDF solver, which needs one, runs on the plain
+rhs). `LAUNCHES` counts kernel launches per wrapper (the launch of the
+kernel itself; the fixed-order reduction pass that follows a backward
+kernel belongs to the same count).
 
 Operands enter in the JAX package's layouts — lengthscales (D, Din) and
 variance (D,) CONSTRAINED, omega (Din, S, D), phase (1, S, D), weights
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
@@ -509,6 +514,26 @@ def _will_backward(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def first_order_only(backward):
+    """Mark an autograd rule first order: a backward taken with
+    `create_graph` (grad mode on inside the backward) raises at once.
+    `torch.autograd.function.once_differentiable` raises only when the
+    incoming cotangent itself needs a gradient; under unit cotangents (a
+    Newton Jacobian's) it would let the kernel's cotangents enter the
+    second derivative as constants, silently wrong. Past this check grad
+    mode is off, where `once_differentiable` adds nothing."""
+
+    @functools.wraps(backward)
+    def wrapper(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "a double backward through a kernel: its autograd rule is "
+                "first order only (take the plain path, kernels=False)")
+        return backward(ctx, *grads)
+
+    return wrapper
+
+
 def require_no_grad(what, *tensors):
     """The forward-only kernels have no autograd rule: refuse operands that
     would need one (grad mode on and a tensor that requires grad)."""
@@ -575,6 +600,7 @@ class _FusedRhsFn(torch.autograd.Function):
         return _launch_rhs_fwd(x, ops, *dims)
 
     @staticmethod
+    @first_order_only
     def backward(ctx, g):
         x, *ops = ctx.saved_tensors
         if x.shape[0] == 0:
@@ -690,6 +716,7 @@ class _FusedDopri5AttemptFn(torch.autograd.Function):
         return x5, err
 
     @staticmethod
+    @first_order_only
     def backward(ctx, g_x5, _g_err):
         xs, dt, *ops = ctx.saved_tensors
         if g_x5 is None or xs.shape[1] == 0:
@@ -770,6 +797,7 @@ class _FusedRk4SegmentFn(torch.autograd.Function):
         return x1
 
     @staticmethod
+    @first_order_only
     def backward(ctx, g):
         xs, dt, *ops = ctx.saved_tensors
         if xs.shape[1] == 0:

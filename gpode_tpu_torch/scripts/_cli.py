@@ -32,8 +32,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--q_diag", type=_str2bool, default=False,
                    help="Diagonal posterior approximation for inducing variables")
     p.add_argument("--solver", type=str, default="dopri5", choices=SOLVERS,
-                   help="ODE solver for numerical integration (the port has "
-                        "dopri5, rk4, midpoint, euler)")
+                   help="ODE solver for numerical integration")
     p.add_argument("--ts_dense_scale", type=int, default=4,
                    help="Dense integration grid factor (fixed-step solvers)")
     p.add_argument("--first_step", type=float, default=None,
@@ -42,10 +41,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--max_steps", type=int, default=64,
                    help="Adaptive-solver step budget per solve")
     p.add_argument("--use_adjoint", type=_str2bool, default=False,
-                   help="O(1)-memory continuous-adjoint gradients (not "
-                        "ported yet)")
+                   help="O(1)-memory continuous-adjoint gradients")
     p.add_argument("--remat", type=_str2bool, default=False,
-                   help="Rematerialize rhs evals in backward (not ported yet)")
+                   help="Rematerialize rhs evals in backward")
     p.add_argument("--num_iter", type=int, default=5000,
                    help="Number of gradient steps")
     p.add_argument("--lr", type=float, default=0.005, help="Adam learning rate")

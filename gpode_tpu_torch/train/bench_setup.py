@@ -1,7 +1,6 @@
 """The canonical bench problem: MoCap subject 09 shooting GPODE at the
 official recipe and its named presets. Counterpart of
-`gpode_tpu/train/bench_setup.py`, built with the port alone (the `scale`
-preset, which needs rematerialization, is not ported yet)."""
+`gpode_tpu/train/bench_setup.py`, built with the port alone."""
 
 from __future__ import annotations
 
@@ -21,12 +20,17 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))))
 
 
-def bench_model_args(fast: bool = False) -> ModelArgs:
+def bench_model_args(scale: bool = False, fast: bool = False) -> ModelArgs:
     """The official bench recipe: 100 inducing points, 256 RFF features,
     dimwise RBF, dopri5 with a whole-span first step and an 8-attempt
-    budget, 5 MC draws. `fast`: the same model with rk4 and one step per
-    interval (`ts_dense_scale=2`), the JAX package's recommended
-    production config."""
+    budget, 5 MC draws. `scale`: 256 inducing points and 32 MC draws
+    (19200 segment rows a step) with `remat`. `fast`: the official model
+    with rk4 and one step per interval (`ts_dense_scale=2`), the JAX
+    package's recommended production config."""
+    if scale:
+        return ModelArgs(num_inducing=256, num_features=256, dimwise=True,
+                         solver="dopri5", ts_dense_scale=2, max_steps=8,
+                         first_step=-1.0, num_samples=32, remat=True)
     if fast:
         return ModelArgs(num_inducing=100, num_features=256, dimwise=True,
                          solver="rk4", ts_dense_scale=2, max_steps=8,
@@ -36,14 +40,16 @@ def bench_model_args(fast: bool = False) -> ModelArgs:
                      first_step=-1.0, num_samples=5)
 
 
-PRESETS = ("official", "fast", "m256", "m256_fast")
+PRESETS = ("official", "fast", "scale", "m256", "m256_fast")
 
 
 def preset_model_args(name: str) -> ModelArgs:
-    """Named bench presets: `official`, `fast`, and their 256-inducing-point
-    versions `m256` and `m256_fast`."""
+    """Named bench presets: `official`, `fast`, `scale`, and the
+    256-inducing-point versions of the first two, `m256` and `m256_fast`."""
     if name not in PRESETS:
         raise ValueError(f"unknown preset {name!r}; the port has {PRESETS}")
+    if name == "scale":
+        return bench_model_args(scale=True)
     args = bench_model_args(fast=name.endswith("fast"))
     if name.startswith("m256"):
         args = dataclasses.replace(args, num_inducing=256)

@@ -20,12 +20,8 @@ from gpode_tpu_torch.models.likelihoods import (ProjectedGaussianLikelihood,
 from gpode_tpu_torch.models.states import (init_initial_state,
                                            init_shooting_states)
 from gpode_tpu_torch.ops import math as om
+from gpode_tpu_torch.ops.ode import SOLVERS
 
-
-SOLVERS = ("dopri5", "rk4", "midpoint", "euler", "explicit_adams",
-           "fixed_adams", "adams", "implicit_adams", "bdf")
-# the solvers `ops/ode.odeint` has (the rest wait for ROADMAP A.6)
-PORTED_SOLVERS = ("dopri5", "rk4", "midpoint", "euler")
 CONSTRAINTS = ("gauss", "laplace")
 
 
@@ -44,8 +40,8 @@ class ModelArgs:
     atol: float = 1e-6
     max_steps: int = 256
     first_step: Optional[float] = None  # dopri5 initial dt; -1.0 = full span
-    use_adjoint: bool = False  # not ported yet (ROADMAP A.6)
-    remat: bool = False        # not ported yet (ROADMAP A.4)
+    use_adjoint: bool = False  # continuous-adjoint gradients
+    remat: bool = False        # rematerialize rhs evaluations in backward
     num_samples: int = 5  # shooting MC draws per step
     constraint_type: str = "gauss"
     constraint_trainable: bool = False
@@ -61,20 +57,13 @@ class ModelArgs:
     segment_minibatch: int = 0
 
     def solver_config(self, kernels: Optional[bool] = None) -> SolverConfig:
-        """The solver knobs; raises NotImplementedError for the options the
-        port does not have yet rather than ignoring them."""
-        if self.use_adjoint:
-            raise NotImplementedError(
-                "use_adjoint: the continuous adjoint is not ported yet "
-                "(ROADMAP A.6)")
-        if self.remat:
-            raise NotImplementedError(
-                "remat: rematerialized segment integration is not ported yet "
-                "(ROADMAP A.4)")
+        """The solver knobs (`kernels`: the kernel rule, see
+        `SolverConfig`)."""
         return SolverConfig(solver=self.solver, rtol=self.rtol, atol=self.atol,
                             ts_dense_scale=self.ts_dense_scale,
                             max_steps=self.max_steps,
-                            first_step=self.first_step, kernels=kernels)
+                            first_step=self.first_step, remat=self.remat,
+                            use_adjoint=self.use_adjoint, kernels=kernels)
 
 
 def make_projector(arrays, device) -> Projector:

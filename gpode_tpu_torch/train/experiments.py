@@ -12,8 +12,7 @@ as in JAX. Parameters are built from a CPU generator, so every device starts
 from the same values.
 
 Not ported yet, and refused before any work (NotImplementedError naming the
-ROADMAP item): plots (A.8), `remat` (A.4), `use_adjoint` and the solvers
-`ops/ode.odeint` lacks (A.6), `mesh` (A.7), and the FHN drivers (A.5).
+ROADMAP item): plots (A.8), `mesh` (A.7), and the FHN drivers (A.5).
 """
 
 from __future__ import annotations
@@ -37,8 +36,8 @@ from gpode_tpu_torch.models.init import (initialize_inducing,
                                          initialize_shooting_states_with_data)
 from gpode_tpu_torch.models.likelihoods import project
 from gpode_tpu_torch.ops.ode import FIRST_STEP_SPAN
-from gpode_tpu_torch.train.builders import (PORTED_SOLVERS, ModelArgs,
-                                            build_gpode, build_shooting,
+from gpode_tpu_torch.train.builders import (ModelArgs, build_gpode,
+                                            build_shooting,
                                             default_frozen_predicate,
                                             gpode_loss_fn, gpode_noise_fn,
                                             make_projector, shooting_loss_fn,
@@ -193,11 +192,6 @@ def _check_ported(args: ExperimentArgs):
     """Refuse, before any work, what the port does not have yet."""
     missing = [(args.plots, "plots: pass --no_plots (ROADMAP A.8: the "
                             "matplotlib suites are not ported)"),
-               (args.remat, "remat (ROADMAP A.4)"),
-               (args.use_adjoint, "use_adjoint (ROADMAP A.6)"),
-               (args.solver not in PORTED_SOLVERS,
-                f"solver {args.solver!r} (ROADMAP A.6; the port has "
-                f"{', '.join(PORTED_SOLVERS)})"),
                (args.mesh, "mesh: multi-device training (ROADMAP A.7)")]
     for flag, what in missing:
         if flag:

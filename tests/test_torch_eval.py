@@ -15,6 +15,7 @@ rtol 1e-5 (the device version sums in float32).
 """
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -163,9 +164,28 @@ def test_presets_match_jax(name):
     want = dataclasses.asdict(jbench.preset_model_args(name))
     got = dataclasses.asdict(tbench.preset_model_args(name))
     assert got == {k: want[k] for k in got}
-    assert want["remat"] is False and want["use_adjoint"] is False
+    assert want["remat"] is (name == "scale") and want["use_adjoint"] is False
+    assert got["remat"] is want["remat"]
     with pytest.raises(ValueError, match="preset"):
-        tbench.preset_model_args("scale")
+        tbench.preset_model_args("nope")
+
+
+def test_bench_entry_point_runs_on_the_cpu(monkeypatch, capsys):
+    """`scripts/bench.py` with `--device cpu` (the `fast` preset, one step a
+    window): one JSON line with the JAX `measure_steps_per_sec` keys, the
+    CPU named as such, and no device memory figure."""
+    from gpode_tpu_torch.scripts import bench
+    assert bench.main(["--preset", "fast", "--iters", "1", "--device",
+                       "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {"steps_per_sec", "rhs_evals_per_sec", "loss", "platform",
+            "device"} <= set(out)
+    assert (out["platform"], out["device"], out["peak_mib"]) == ("cpu", "cpu",
+                                                                 None)
+    assert out["steps_per_sec"] > 0 and np.isfinite(out["loss"])
+    # rhs evaluations of a fast step (4) x 5 draws x 6 sequences x 100 steps
+    assert out["rhs_evals_per_sec"] == pytest.approx(
+        out["steps_per_sec"] * 4 * 5 * 6 * 100)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@
 the JAX package's: the dataclass's fields and defaults, each parser's
 flags, defaults and choices (from `scripts/_cli.py` and the script's
 `set_defaults`), the artifacts a run writes, resume, `--eval_only`, what is
-refused before any work, and a JAX checkpoint's parameters scored by the
+refused before any work, each solver and memory flag training, and a JAX
+checkpoint's parameters scored by the
 port's evaluation on the JAX package's noise. The runs are tiny (M=8, 16
 features, 6 iterations, validation every 3).
 """
@@ -153,11 +154,8 @@ def test_pallas_rhs_maps_to_the_kernel_rule(flag, kernels):
 
 @pytest.mark.parametrize("flags,item", [
     ([], "A.8"),
-    (["--no_plots", "--remat", "true"], "A.4"),
-    (["--no_plots", "--use_adjoint", "true"], "A.6"),
-    (["--no_plots", "--solver", "bdf"], "A.6"),
     (["--no_plots", "--mesh", "dp=2"], "A.7"),
-], ids=["plots", "remat", "adjoint", "solver", "mesh"])
+], ids=["plots", "mesh"])
 def test_unported_options_raise_before_any_work(flags, item, tmp_path):
     save = tmp_path / "run"
     with pytest.raises(NotImplementedError, match=item):
@@ -168,8 +166,51 @@ def test_unported_options_raise_before_any_work(flags, item, tmp_path):
         tex.run_fhn(tex.ExperimentArgs(plots=False))
     with pytest.raises(NotImplementedError, match="A.5"):
         tex.run_fhn_interpolation(tex.ExperimentArgs(plots=False))
-    with pytest.raises(NotImplementedError, match="A.4"):
-        tb.ModelArgs(remat=True).solver_config()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--remat", "true"], ["--use_adjoint", "true"],
+    ["--solver", "adams"], ["--solver", "explicit_adams"],
+    ["--solver", "implicit_adams"], ["--solver", "bdf"],
+], ids=["remat", "adjoint", "adams", "explicit_adams", "implicit_adams",
+        "bdf"])
+def test_solver_and_memory_flags_train(flags, tmp_path, monkeypatch, capsys):
+    """The MoCap shooting twin at the tiny size with each solver and memory
+    flag the JAX script has: finite losses, the flag in the model's solver
+    config, and the JSON line on stdout."""
+    runs, losses = [], []
+    run, loss_fn = train_mocap_gpode_shooting.run, tex.shooting_loss_fn
+
+    def recording(argv):
+        runs.append(run(argv))
+        return runs[-1]
+
+    def recording_loss_fn(*a, **k):
+        inner = loss_fn(*a, **k)
+
+        def loss(*args):
+            out = inner(*args)
+            losses.append(float(out[0].detach()))
+            return out
+
+        return loss
+
+    monkeypatch.setattr(train_mocap_gpode_shooting, "run", recording)
+    monkeypatch.setattr(tex, "shooting_loss_fn", recording_loss_fn)
+    save = str(tmp_path / "run")
+    assert train_mocap_gpode_shooting.main(
+        MOCAP + SHOOTING + flags + ["--save", save, "--num_iter", "3"]) == 0
+    _, trainer, metrics = runs[0]
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metrics"]["test_ll"] == metrics["test_ll"]
+    assert len(losses) == 3 and np.all(np.isfinite(losses))
+    assert trainer.cfg.num_iter == 3
+    assert np.isfinite(metrics["test_ll"]) and np.isfinite(metrics["test_mse"])
+    args = _cli.to_experiment_args(train_mocap_gpode_shooting.parser()
+                                   .parse_args(MOCAP + flags))
+    cfg = args.model_args().solver_config()
+    assert (cfg.solver, cfg.remat, cfg.use_adjoint) == (
+        args.solver, flags[0] == "--remat", flags[0] == "--use_adjoint")
 
 
 def test_twins_default_to_the_card(tmp_path):

@@ -123,6 +123,23 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     assert ck.LAUNCHES == before
 
 
+def test_double_backward_through_the_kernels_raises(cuda):
+    """A backward with `create_graph` through each kernel's autograd rule
+    raises, also under the unit cotangents of a Newton Jacobian; a
+    first-order backward runs."""
+    args = _inputs(cuda)
+    dt = torch.full((1,), 0.01, device=cuda)
+    outs = {"fused_rhs": ck.fused_rhs(*args),
+            "dopri5": ck.fused_dopri5_attempt(args[0], dt, *args[1:])[0],
+            "rk4": ck.fused_rk4_segment(args[0], dt, *args[1:])}
+    for name, out in outs.items():
+        unit = torch.zeros_like(out)
+        unit[:, 0] = 1.0
+        _grads(out, args, unit, retain=True)
+        with pytest.raises(RuntimeError, match="first order"):
+            torch.autograd.grad(out, args[0], unit, create_graph=True)
+
+
 @pytest.mark.parametrize("substeps", [1, 3])
 def test_fused_rk4_segment_forward_and_backward_match_plain(cuda, substeps):
     args = _inputs(cuda, seed=6)
