@@ -105,8 +105,11 @@ exit code and no result line:
      steps with each attempt kernel once per step (steps/s, peak MiB); a
      forced reject inside the scale step (its interval stretched to the
      shortest span 0.01 * 1.25^k whose plain attempt error RMS exceeds 2):
-     loss and every gradient leaf through the kernels against the plain
-     path (rtol 1e-4; atol 1e-3 * max|g|), and its peak MiB; the official
+     the loss through the kernels against the plain path (rtol 1e-4), and
+     every gradient leaf against the plain path in float64: no farther from
+     it than 1.25x the float32 plain path's distance + 1e-4 * max|g| (both
+     float32 paths sit ~1e-3 of max|g| from float64 on this step's
+     cancelling sums), and its peak MiB; the official
      step with `use_adjoint` (`fused_rhs` in both directions, no attempt
      kernel; loss rtol 1e-5 and gradients rtol 5e-2, atol 5e-4 against the
      taped step); a MoCap shooting step with `explicit_adams`,
@@ -115,6 +118,26 @@ exit code and no result line:
      `explicit_adams` with remat (every forward launched once more in the
      backward, the loss unchanged); the VDP twin with `--solver adams` and
      `--solver bdf` for TINY_ITERS steps (finite losses and test LL);
+  7e. plots, FHN and the neural ODE (run after phase 9: it reads phase 8's
+     VDP GP): the native host library's branch and build seconds, and
+     whether g++ and matplotlib are here (with g++ the native branch is
+     required); the plots' data parts on the card against the CPU on the
+     same noise (rtol 1e-4, atol 1e-4 * max|ref|): the VDP field draws on
+     the 30x30 and 12x12 grids and their mean, the un-whitened inducing
+     posterior of the VDP and the MoCap GP, the grid conditional (one
+     `rbf_gram` launch); the VDP twin, vanilla and `--shooting`, and the
+     MoCap shooting twin at their defaults for TINY_ITERS steps, plots on
+     where matplotlib imports (then the png families of tests/test_plots.py
+     and two `rbf_gram` launches per VDP run, none on MoCap; else
+     `--no_plots`, said so): finite losses; the FHN shooting twin's default
+     step (300 rows, Din=D=2, M=16): the attempt kernels at its inputs
+     against their plain versions (forward rtol 1e-4, cotangents atol
+     1e-3 * max|g|), timed, the step-0 loss against the plain path (rtol
+     1e-4), then TINY_ITERS twin steps with the attempt forward once per
+     step and its backward once per accepted step; FHN interpolation,
+     vanilla and `--shooting` at 6 draws (`fused_rhs` in both directions):
+     finite interpolation LL/MSE; the VDP and MoCap neural-ODE twins: the
+     step-0 loss on the card against the CPU (rtol 1e-4), finite MSE;
   8. vdp: vanilla GPODE on Van der Pol at the train script's defaults (25
      observations over T=7, noise variance 0.05, M=16, S=256, dimwise,
      dopri5): the step-0 loss on the card against the same step on the CPU
@@ -132,8 +155,9 @@ exit code and no result line:
      "2995"])` in-process (errors of the wide kernels against the per-dim
      reference, then chained timings of all variants); it must return 0;
  11. a `{"kernels": [...]}` line (rows 6-7 also carry their `scale`
-     times and launches, rows 2-3 their launches per step on the adjoint
-     and multistep paths), a copy of all results in
+     and FHN times and launches, rows 2-3 their launches per step on the
+     adjoint, multistep and FHN interpolation paths, row 1 its launches per
+     plot run), a copy of all results in
      chiprun_out/chip_smoke.json, and as the last line
      `{"ok": true, "device": {...}}`.
 
@@ -1172,8 +1196,9 @@ MOCAP_TRACE_KEYS = {"loss", "observ_nll", "state_kl", "x0_kl", "inducing_kl",
 class _Recorder:
     """Wraps the functions a run goes through, to read what the CLI does not
     print: each `Trainer.train` call's iterations and seconds, the rows of
-    each `fused_dopri5_attempt` call, and each ELBO's loss (detached, read
-    after the run) and annealed constraint scale."""
+    each `fused_dopri5_attempt` call, and each shooting ELBO's loss
+    (detached, read after the run), solver attempts and annealed constraint
+    scale."""
 
     def __init__(self):
         from gpode_tpu_torch.models import flow, gpode, shooting
@@ -1207,6 +1232,7 @@ class _Recorder:
             loss, terms = s_elbo(*a, constraint_raw_scale=constraint_raw_scale,
                                  **k)
             rec.losses.append(loss.detach())
+            rec.natts.append(terms.natt)
             rec.raw_scale = constraint_raw_scale
             return loss, terms
 
@@ -1216,6 +1242,7 @@ class _Recorder:
 
     def reset(self):
         self.trains, self.rows, self.losses, self.raw_scale = [], set(), [], None
+        self.natts = []
 
     def restore(self):
         for (o, n), f in zip(self.targets, self.saved):
@@ -1431,28 +1458,64 @@ def _compare_param_grads(got, ref, what, rtol=0.0, atol_scale=1e-3, atol=0.0):
     return worst
 
 
+def _compare_to_float64(got, plain, ref64, what, ratio=1.25, atol_scale=1e-4):
+    """Every leaf of the kernel path's gradients `got` against the float64
+    plain path's `ref64`: max|got - ref64| <= ratio * max|plain - ref64| +
+    atol_scale * max|ref64|, where `plain` is the float32 plain path's.
+    Prints both distances; returns the largest of the kernel path's
+    relative to its leaf's max|ref64|."""
+    import torch
+    check(set(got) == set(ref64) == set(plain),
+          f"{what}: different gradient leaves")
+    worst = 0.0
+    for name, r in ref64.items():
+        r = r.float()
+        scale = float(r.abs().max())
+        e_k = float((got[name] - r).abs().max())
+        e_p = float((plain[name] - r).abs().max())
+        print(f"  {what} d{name}: kernel path {e_k / scale:.3e}, plain path "
+              f"{e_p / scale:.3e} of max|g64| {scale:.3e}")
+        check(bool(torch.all(torch.isfinite(got[name])))
+              and e_k <= ratio * e_p + atol_scale * scale,
+              f"{what} d{name}: the kernel path is farther from float64 "
+              f"({e_k:.3e}) than the plain path ({e_p:.3e})")
+        worst = max(worst, e_k / max(scale, 1e-30))
+    return worst
+
+
 def scale_kernel_check(dev):
     """The dopri5 attempt kernels at the `scale` step's inputs (N=19200
-    segment rows, M=256): forward and cotangents against the plain version,
-    the accept RMS (one float32 mean over N*D values) against the same mean
-    in float64, device times of kernel and plain version, and the bound."""
+    segment rows, M=256); see `attempt_kernel_check`."""
+    inputs, dt, args, _, _ = main_path_inputs(dev, "scale")
+    n, din = inputs[0].shape
+    d, m = inputs[-1].shape
+    s = inputs[-2].shape[0]
+    check((n, din, d, m, s) == (SCALE_ROWS, 5, 5, 256, 256),
+          "the scale step's shapes differ from the preset")
+    return attempt_kernel_check(inputs, dt, args, "scale")
+
+
+def attempt_kernel_check(inputs, dt, args, label):
+    """The dopri5 attempt kernels at `inputs` (the segment rows x, then the
+    draw's seven operands, each requiring grad): forward and cotangents
+    against the plain version, the accept RMS (one float32 mean over N*D
+    values) against the same mean in float64, device times of kernel and
+    plain version, and the bound."""
     import torch
     from gpode_tpu_torch.ops import cuda_kernels as ck
 
-    inputs, dt, args, _, _ = main_path_inputs(dev, "scale")
     x, params = inputs[0], inputs[1:]
     n, din = x.shape
     d, m = params[6].shape
     s = params[5].shape[0]
-    print(f"  attempt kernels at the scale step: N={n} Din={din} D={d} M={m} "
-          f"S={s}")
-    check((n, din, d, m, s) == (SCALE_ROWS, 5, 5, 256, 256),
-          "the scale step's shapes differ from the preset")
-    g = torch.randn(n, d, device=dev, generator=torch.Generator(dev).manual_seed(7))
+    print(f"  attempt kernels at the {label} step: N={n} Din={din} D={d} "
+          f"M={m} S={s}")
+    g = torch.randn(n, d, device=x.device,
+                    generator=torch.Generator(x.device).manual_seed(7))
     rtol, atol = args.rtol, args.atol
     x5_k, err_k = ck.fused_dopri5_attempt(x, dt, *params, rtol, atol)
     x5_p, err_p, _ = ck.dopri5_attempt_plain(x, dt, *params, rtol, atol)
-    e_fwd = compare_fwd(x5_k, x5_p, "fused_dopri5_attempt_fwd x5 (scale)")
+    e_fwd = compare_fwd(x5_k, x5_p, f"fused_dopri5_attempt_fwd x5 ({label})")
     rms32 = float(torch.sqrt(torch.mean(torch.square(err_k))))
     rms64 = float(torch.sqrt(torch.mean(torch.square(err_k.double()))))
     rms_p = float(torch.sqrt(torch.mean(torch.square(err_p))))
@@ -1465,7 +1528,7 @@ def scale_kernel_check(dev):
     e_bwd = compare_grads(
         torch.autograd.grad(x5_k, inputs, g),
         torch.autograd.grad(x5_p, inputs, g, retain_graph=True),
-        "fused_dopri5_attempt_bwd (scale)")
+        f"fused_dopri5_attempt_bwd ({label})")
     dims = (din, d, m, s)
     ops = ck._kernel_operands(*[p.detach() for p in params])
     xd = x.detach()
@@ -1507,6 +1570,7 @@ def scale_step_check(dev, profile_steps=0):
     plain step's peak memory with and without remat, the timed steps with
     the attempt kernels once per step each (then `profile_steps` profiled
     ones), then a forced reject."""
+    import copy
     import dataclasses
 
     import torch
@@ -1625,9 +1689,21 @@ def scale_step_check(dev, profile_steps=0):
           "the rejected step did not start from the attempt kernel")
     check(math.isfinite(l_k) and abs(l_k - l_p) <= 1e-4 * abs(l_p),
           "the rejected step's loss differs from the plain path")
-    g_err = _compare_param_grads(g_k, g_p, "forced reject")
-    print(f"  forced reject: |loss diff| {abs(l_k - l_p):.3e}; gradients "
-          f"within {g_err:.3e} of each leaf's max|g|")
+    # the reference: the plain path in float64. Both float32 paths sit
+    # ~1e-3 of max|g| from it on this step's cancelling sums, so the kernel
+    # path is held to the float32 plain path's own distance
+    p64 = copy.deepcopy(params).double()
+    noise64 = type(noise)(*(t.double() for t in (
+        noise.rff_weights, noise.rff_freq, noise.rff_phase, noise.inducing,
+        noise.x0, noise.states)))
+    l_64, t_64, g_64 = _loss_and_grads(p64, shooting_loss_fn(args, kernels=False),
+                                       noise64, ys.double(), ts_r.double())
+    del p64
+    print(f"  forced reject, plain float64: loss {l_64:.8f}, attempts "
+          f"{t_64.natt}")
+    g_err = _compare_to_float64(g_k, g_p, g_64, "forced reject")
+    print(f"  forced reject: |loss diff| {abs(l_k - l_p):.3e}; kernel-path "
+          f"gradients within {g_err:.3e} of each leaf's float64 max|g|")
     return dict(step0_kernels=lk, step0_plain=lp, steps_per_sec=sps,
                 peak_mib=peak, rejected=rejected, loss_first=losses[0],
                 loss_last=losses[-1], plain_peak_mib_no_remat=plain_peak[False],
@@ -1787,6 +1863,368 @@ def scale_solvers_phase(dev, tmp, profile_steps=0):
     return (dict(accept_rms=rms, scale=scale, adjoint=adjoint,
                  multistep=multistep, cli=cli, seconds=seconds),
             rows, scale_launches, adjoint_launches, per_step)
+
+
+# ---------------------------------------------------------------------------
+# phase 7e: the plots, FitzHugh-Nagumo and the neural ODE
+# ---------------------------------------------------------------------------
+
+# the FHN shooting twin's defaults: 10 draws x 1 sequence x 30 states
+FHN_ROWS, FHN_INDUCING = 10 * 1 * 30, 16
+# draws of the FHN interpolation shooting run: 6 x 50 = 300 rows, where the
+# generic dopri5 solve takes `fused_rhs` at every stage
+FHN_INTERP_DRAWS = 6
+# the png families of tests/test_plots.py
+VDP_PLOT_FAMILIES = ("model_before_initialization.png",
+                     "model_after_initialization.png", "plt_longitudinal.png",
+                     "plt_longitudinal_0.png", "plt_vectorfield.png",
+                     "plt_inducing_posterior.png", "plt_long_pred.png",
+                     "plt_longnoise_pred.png", "plt_longnoise_pred_single.png")
+MOCAP_PLOT_FAMILIES = ("plt_latents_after_optimization_train.png",
+                       "plt_data_after_optimization_train.png",
+                       "inducing_posterior_train.png", "plt_latents_3d.png")
+
+
+def _cpu(module):
+    import copy
+    return copy.deepcopy(module).to("cpu")
+
+
+def _noise_cpu(noise):
+    return type(noise)(*(None if t is None else t.cpu() for t in (
+        noise.rff_weights, noise.rff_freq, noise.rff_phase, noise.inducing,
+        noise.x0)))
+
+
+def _compare_arrays(got, ref, what):
+    """Host arrays from the card against the CPU's: rtol 1e-4, atol
+    1e-4 * max|ref|."""
+    import torch
+    return compare_fwd(torch.as_tensor(got), torch.as_tensor(ref), what,
+                       atol_scale=1e-4)
+
+
+def native_check():
+    """The native host library's branch, its build seconds, and whether g++
+    and matplotlib are on this machine (the native branch is required where
+    g++ is)."""
+    import shutil
+    from gpode_tpu_torch.utils import native
+    info = native.info()
+    gxx = shutil.which("g++")
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    print(f"  native host library: branch {info['branch']}; "
+          f"{'reused' if info.get('reused') else 'built'} in "
+          f"{info.get('seconds', float('nan')):.2f} s; reason "
+          f"{info.get('reason')}; g++ {gxx}; matplotlib imports: {has_mpl}",
+          flush=True)
+    if gxx is not None:
+        check(info["branch"] == "native",
+              "g++ is here but the port took the scipy branch")
+    return dict(native_branch=info["branch"],
+                native_build_seconds=info.get("seconds"), gxx=gxx,
+                matplotlib=has_mpl), has_mpl
+
+
+def plot_arrays_check(dev, vdp_params, vdp_data, mocap_params):
+    """The plots' data parts on the card against the CPU on the same noise:
+    the VDP field draws on both grids and their mean, the un-whitened
+    inducing posterior of the VDP and the MoCap GP, and the VDP grid
+    conditional (one `rbf_gram` launch per call). Returns (errors, the
+    launches of the conditional's run)."""
+    import torch
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.plots import plots_2d
+
+    gp_c = _cpu(vdp_params.gp)
+    gen = torch.Generator(dev).manual_seed(17)
+    noise = plots_2d.field_noise(vdp_params.gp, 256, gen)
+    coarse = plots_2d.field_noise(vdp_params.gp, 256, gen)
+    a = plots_2d.vectorfield_arrays(vdp_params.gp, vdp_data, noise, coarse)
+    b = plots_2d.vectorfield_arrays(gp_c, vdp_data, _noise_cpu(noise),
+                                    _noise_cpu(coarse))
+    err = {k: _compare_arrays(a[k], b[k], f"vdp field {k}")
+           for k in ("field", "mean", "qfield")}
+    for name, gp_params in (("vdp", vdp_params.gp), ("mocap", mocap_params.gp)):
+        u, z = plots_2d.unwhiten_inducing(gp_params)
+        u_c, _ = plots_2d.unwhiten_inducing(_cpu(gp_params))
+        err[f"{name}_unwhitened"] = _compare_arrays(
+            u, u_c, f"{name} un-whitened inducing posterior (M={z.shape[0]})")
+    ck.reset_launch_counts()                     # main path starts here
+    _, _, mean, var = plots_2d.grid_conditional(vdp_params.gp, vdp_data)
+    launches = dict(ck.LAUNCHES)                 # main path ends here
+    check(launches["rbf_gram"] == 1,
+          f"the grid conditional launched rbf_gram {launches['rbf_gram']} times")
+    _, _, mean_c, var_c = plots_2d.grid_conditional(gp_c, vdp_data)
+    err["grid_mean"] = _compare_arrays(mean, mean_c, "vdp grid conditional mean")
+    err["grid_var"] = _compare_arrays(var, var_c, "vdp grid conditional var")
+    return err, launches
+
+
+def plot_twins_check(tmp, has_mpl):
+    """The VDP twin (vanilla and `--shooting`) and the MoCap shooting twin
+    at their default flags, plots on where matplotlib imports, for
+    TINY_ITERS steps: finite losses, `rbf_gram` twice per VDP run (the
+    before/after-initialization snapshots) and never on MoCap, the png
+    families of tests/test_plots.py. Returns (results, rbf_gram launches
+    per run)."""
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.scripts import (train_mocap_gpode_shooting,
+                                         train_vdp_gpode,
+                                         train_vdp_gpode_shooting)
+    if not has_mpl:
+        print("  matplotlib does not import here: the twins run with "
+              "--no_plots and no figure is rendered", flush=True)
+    mocap = ["--data_path", os.path.join(ROOT, "data", "mocap")]
+    out, per_run, rec = {}, {}, _Recorder()
+    try:
+        for name, run, extra, families, grams in (
+                ("vdp", train_vdp_gpode.run, [], VDP_PLOT_FAMILIES, 2),
+                ("vdp_shooting", train_vdp_gpode_shooting.run, [],
+                 VDP_PLOT_FAMILIES + ("plt_shooting_states.png",), 2),
+                ("mocap_shooting", train_mocap_gpode_shooting.run, mocap,
+                 MOCAP_PLOT_FAMILIES, 0)):
+            d = os.path.join(tmp, f"plots_{name}")
+            rec.reset()
+            ck.reset_launch_counts()             # main path starts here
+            t0 = time.perf_counter()
+            _, _, m = run(extra + ["--num_iter", str(TINY_ITERS), "--save", d]
+                          + ([] if has_mpl else ["--no_plots"]))
+            seconds = time.perf_counter() - t0
+            launches = dict(ck.LAUNCHES)         # main path ends here
+            pngs = sorted(f for f in os.listdir(d) if f.endswith(".png"))
+            print(f"  {name} twin: {seconds:.1f} s; test LL "
+                  f"{m['test_ll']:.4f}; rbf_gram launches "
+                  f"{launches['rbf_gram']}; {len(pngs)} png files", flush=True)
+            check(len(rec.losses) == TINY_ITERS and rec.all_losses_finite()
+                  and math.isfinite(m["test_ll"]),
+                  f"{name} twin: non-finite loss or test LL")
+            if has_mpl:
+                missing = [f for f in families if f not in pngs]
+                check(not missing, f"{name} twin: missing {missing}")
+                check(launches["rbf_gram"] == grams,
+                      f"{name} twin launched rbf_gram {launches['rbf_gram']} "
+                      f"times, not {grams}")
+            out[name] = dict(seconds=seconds, test_ll=m["test_ll"],
+                             pngs=len(pngs))
+            per_run[name] = launches["rbf_gram"]
+    finally:
+        rec.restore()
+    return out, per_run
+
+
+def fhn_shooting_check(dev, tmp):
+    """The FHN shooting twin at its defaults (10 draws x 30 states = 300
+    rows, Din=D=2, M=16, S=256): the attempt kernels at the step's inputs
+    against their plain versions, the step-0 loss against the plain path
+    (rtol 1e-4), then TINY_ITERS steps of the twin with the attempt forward
+    once per step and its backward once per accepted step (a rejected
+    whole-span attempt falls back to the plain solver). Returns (results,
+    the kernel rows, the twin's launches)."""
+    import numpy as np
+    import torch
+    from gpode_tpu_torch.data.fhn import FHN
+    from gpode_tpu_torch.models import gp
+    from gpode_tpu_torch.models.gpode import sample_predict_noise
+    from gpode_tpu_torch.models.init import (
+        initialize_inducing, initialize_shooting_states_with_data)
+    from gpode_tpu_torch.models.shooting import sample_step_noise, stack_segments
+    from gpode_tpu_torch.models.states import sample_shooting_states
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.scripts import train_fhn_gpode
+    from gpode_tpu_torch.scripts._cli import to_experiment_args
+    from gpode_tpu_torch.train import experiments as ex
+    from gpode_tpu_torch.train.builders import build_shooting, shooting_loss_fn
+
+    args = to_experiment_args(train_fhn_gpode.parser().parse_args([]))
+    margs = ex._shooting_margs(args.model_args(), True)
+    data = FHN(s_train=args.data_obs_s, t_train=args.data_obs_t,
+               noise_var=args.data_obs_noise_var, x0=np.array([[-1.0, -1.0]]))
+    params = build_shooting(ex.generator("cpu", args.seed, ex._BUILD), margs,
+                            data.trn.ys, device=dev)
+    initialize_inducing(params.gp, data.trn.ys, float(data.trn.ts.max()),
+                        rng=np.random.RandomState(args.seed))
+    ys = torch.as_tensor(data.trn.ys, device=dev)
+    ts = torch.as_tensor(data.trn.ts, device=dev)
+    x0_noise = sample_predict_noise(ex.view(params), margs.num_features, 50,
+                                    torch.Generator(dev).manual_seed(3),
+                                    sample_x0=False)
+    initialize_shooting_states_with_data(params, x0_noise, data.trn.ys,
+                                         data.trn.ts, ex._eval_cfg(
+                                             margs.solver_config()))
+    noise = sample_step_noise(params, margs.num_features, margs.num_samples,
+                              torch.Generator(dev).manual_seed(5))
+    with torch.no_grad():
+        x = stack_segments(sample_shooting_states(params.states, noise.x0,
+                                                  noise.states))
+        draw = gp.draw_posterior(params.gp, noise.rff_weights, noise.rff_freq,
+                                 noise.rff_phase, noise.inducing)
+        ops = (x, params.gp.z, params.gp.kernel.lengthscales,
+               params.gp.kernel.variance, draw.omega, draw.phase,
+               gp.kernel_rff_weights(draw.weights), draw.nu)
+    inputs = [t.detach().clone().contiguous().requires_grad_() for t in ops]
+    check((x.shape[0], params.gp.num_inducing) == (FHN_ROWS, FHN_INDUCING)
+          and margs.first_step is not None,
+          "the FHN shooting defaults are not 300 rows at M=16 with a "
+          "whole-span first step")
+    rows, rms = attempt_kernel_check(inputs, (ts[1] - ts[0]).reshape(1),
+                                     margs, "FHN shooting default")
+    with torch.no_grad():
+        lk = float(shooting_loss_fn(margs)(params, noise, ys, ts)[0])
+        lp = float(shooting_loss_fn(margs, kernels=False)(params, noise, ys,
+                                                          ts)[0])
+    print(f"  FHN step-0 loss: kernels {lk:.8f}, plain {lp:.8f}")
+    check(math.isfinite(lk) and abs(lk - lp) <= 1e-4 * abs(lp),
+          "the FHN step-0 loss through the kernels differs from the plain path")
+
+    rec = _Recorder()
+    try:
+        ck.reset_launch_counts()                 # main path starts here
+        t0 = time.perf_counter()
+        _, _, m = train_fhn_gpode.run([
+            "--shooting", "--no_plots", "--num_iter", str(TINY_ITERS),
+            "--save", os.path.join(tmp, "fhn_shooting")])
+        seconds = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)             # main path ends here
+        rejected = sum(natt > 1 for natt in rec.natts)
+        print(f"  FHN shooting twin: {seconds:.1f} s; attempt rows "
+              f"{sorted(rec.rows)}; rejected whole-span attempts {rejected} "
+              f"of {TINY_ITERS}; test LL {m['test_ll']:.4f} MSE "
+              f"{m['test_mse']:.4f}; launches {launches}", flush=True)
+        check(len(rec.losses) == TINY_ITERS and rec.all_losses_finite()
+              and math.isfinite(m["test_ll"]),
+              "the FHN shooting twin: non-finite loss or test LL")
+        check(rec.rows == {FHN_ROWS}, f"FHN attempt rows {rec.rows}")
+    finally:
+        rec.restore()
+    check(launches["fused_dopri5_attempt_fwd"] == TINY_ITERS
+          and launches["fused_dopri5_attempt_bwd"] == TINY_ITERS - rejected,
+          f"the attempt kernels launched {launches['fused_dopri5_attempt_fwd']}"
+          f" / {launches['fused_dopri5_attempt_bwd']} times in {TINY_ITERS} "
+          f"FHN steps with {rejected} rejected")
+    return (dict(step0_kernels=lk, step0_plain=lp, accept_rms=rms,
+                 twin_seconds=seconds, rejected=rejected,
+                 test_ll=m["test_ll"], test_mse=m["test_mse"]), rows, launches)
+
+
+def fhn_interpolation_check(tmp):
+    """The FHN interpolation driver at the twin's defaults for TINY_ITERS
+    steps, vanilla and shooting at FHN_INTERP_DRAWS draws (`fused_rhs` in
+    both directions, no segment kernel): finite interpolation LL and MSE.
+    Returns (results, the shooting run's launches)."""
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.scripts import train_fhn_interpolation
+    from gpode_tpu_torch.scripts._cli import to_experiment_args
+    from gpode_tpu_torch.train.experiments import run_fhn_interpolation
+
+    out, rec = {}, _Recorder()
+    try:
+        for shooting in (False, True):
+            name = "shooting" if shooting else "vanilla"
+            args = to_experiment_args(train_fhn_interpolation.parser()
+                                      .parse_args([]))
+            args.data_path = os.path.join(ROOT, "data", "fhn")
+            args.num_iter = TINY_ITERS
+            args.save = os.path.join(tmp, f"fhn_interp_{name}")
+            if shooting:
+                args.num_samples = FHN_INTERP_DRAWS
+            rec.reset()
+            ck.reset_launch_counts()             # main path starts here
+            t0 = time.perf_counter()
+            _, _, m = run_fhn_interpolation(args, shooting_variant=shooting)
+            seconds = time.perf_counter() - t0
+            launches = dict(ck.LAUNCHES)         # main path ends here
+            print(f"  FHN interpolation ({name}): {seconds:.1f} s; interp LL "
+                  f"{m['interp_ll']:.4f} MSE {m['interp_mse']:.4f}; launches "
+                  f"{launches}", flush=True)
+            check(len(rec.losses) == TINY_ITERS and rec.all_losses_finite()
+                  and math.isfinite(m["interp_ll"])
+                  and math.isfinite(m["interp_mse"]),
+                  f"FHN interpolation ({name}): non-finite loss or metric")
+            out[name] = dict(seconds=seconds, **m)
+        for kernel in ("fused_rhs_fwd", "fused_rhs_bwd"):
+            check(launches[kernel] > 0,
+                  f"{kernel} not launched on the FHN interpolation shooting run")
+        for kernel in ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd",
+                       "fused_rk4_segment_fwd", "fused_rk4_segment_bwd"):
+            check(launches[kernel] == 0,
+                  f"{kernel} launched on the FHN interpolation shooting run")
+    finally:
+        rec.restore()
+    return out, launches
+
+
+def neural_ode_check(dev, tmp, has_mpl):
+    """The neural-ODE twins on VDP and MoCap: the step-0 loss of the
+    twin's weights on the card against the CPU (rtol 1e-4), then
+    TINY_ITERS steps (plots on where matplotlib imports): finite MSE."""
+    import numpy as np
+    import torch
+    from gpode_tpu_torch.models import neural_ode
+    from gpode_tpu_torch.scripts import (train_mocap_neuralode,
+                                         train_vdp_neuralode)
+
+    mocap = ["--data_path", os.path.join(ROOT, "data", "mocap")]
+    out = {}
+    for name, twin, extra in (("vdp", train_vdp_neuralode, []),
+                              ("mocap", train_mocap_neuralode, mocap)):
+        ns = twin.parser().parse_args(extra)
+        if name == "vdp":
+            data, cfg = twin.problem(ns)
+            ys, ts, d = data.trn.ys, data.trn.ts, 2
+        else:
+            data_pca, _, _, cfg = twin.problem(ns, "cpu")
+            ys, ts, d = data_pca.trn.ys, data_pca.trn.ts, ns.num_latents
+        losses = []
+        for device in (dev, "cpu"):
+            params = neural_ode.init_neural_ode(
+                torch.Generator().manual_seed(ns.seed), d, ns.num_hidden,
+                device=device)
+            with torch.no_grad():
+                losses.append(float(neural_ode.mse_loss(
+                    params, None, torch.as_tensor(np.asarray(ys), device=device),
+                    torch.as_tensor(np.asarray(ts), device=device), cfg)[0]))
+        print(f"  neural ODE ({name}) step-0 loss: card {losses[0]:.8f}, "
+              f"CPU {losses[1]:.8f}")
+        check(math.isfinite(losses[0])
+              and abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1]),
+              f"the neural ODE ({name}) step-0 loss differs from the CPU's")
+        t0 = time.perf_counter()
+        _, trainer, m = twin.run(extra + [
+            "--num_iter", str(TINY_ITERS), "--save",
+            os.path.join(tmp, f"node_{name}")]
+            + ([] if has_mpl else ["--no_plots"]))
+        seconds = time.perf_counter() - t0
+        print(f"  neural ODE ({name}) twin: {seconds:.1f} s; train MSE "
+              f"{m['train_mse']:.4f} test MSE {m['test_mse']:.4f}", flush=True)
+        check(math.isfinite(m["train_mse"]) and math.isfinite(m["test_mse"])
+              and all(math.isfinite(v) for v in trainer.loss_meter.vals),
+              f"the neural ODE ({name}) twin: non-finite loss or MSE")
+        out[name] = dict(step0_card=losses[0], step0_cpu=losses[1],
+                         seconds=seconds, **m)
+    return out
+
+
+def plots_fhn_node_phase(dev, tmp, vdp_params, vdp_data, mocap_params):
+    """Phase 7e (run after phase 9: it reads phase 8's VDP GP). Returns
+    (results, the FHN attempt rows, launches by path)."""
+    phase("plots, FHN and the neural ODE")
+    t0 = time.perf_counter()
+    out, has_mpl = native_check()
+    out["plot_arrays"], grid_launches = plot_arrays_check(
+        dev, vdp_params, vdp_data, mocap_params)
+    out["plot_twins"], gram_per_run = plot_twins_check(tmp, has_mpl)
+    out["fhn_shooting"], fhn_rows, fhn_launches = fhn_shooting_check(dev, tmp)
+    out["fhn_interpolation"], interp_launches = fhn_interpolation_check(tmp)
+    out["neural_ode"] = neural_ode_check(dev, tmp, has_mpl)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 7e: {out['seconds']:.1f} s", flush=True)
+    return out, fhn_rows, dict(grid=grid_launches, gram_per_run=gram_per_run,
+                               fhn=fhn_launches, interp=interp_launches)
 
 
 def accept_decision_check(x, params, rtol, atol):
@@ -2119,6 +2557,9 @@ def main(argv=None) -> int:
     vdp_golden, _, _ = vdp_phase(dev, "golden", opts.profile_steps)
     field, field_launches, e_gram = field_phase(dev, vdp_params, vdp_data,
                                                 fast_args, fast_params)
+    with tempfile.TemporaryDirectory() as tmp:
+        plots_fhn_node, fhn_rows, p7e = plots_fhn_node_phase(
+            dev, tmp, vdp_params, vdp_data, fast_params)
     kernels["rbf_gram"] = (max(kernels["rbf_gram"][0], e_gram),
                            *kernels["rbf_gram"][1:])
     path_launches = {"official": launches, "fast": fast_launches,
@@ -2151,10 +2592,22 @@ def main(argv=None) -> int:
                             "max_abs_err": s_err, "ms": s_ms,
                             "plain_ms": s_pms, "bound_ms": s_bms,
                             "bound_by": s_by}
+        if name in fhn_rows:  # the attempt kernels at the FHN default too
+            f_err, f_ms, f_pms, f_bms, f_by = fhn_rows[name]
+            row["fhn"] = {"rows": FHN_ROWS, "num_inducing": FHN_INDUCING,
+                          "launches": p7e["fhn"][name], "max_abs_err": f_err,
+                          "ms": f_ms, "plain_ms": f_pms, "bound_ms": f_bms,
+                          "bound_by": f_by}
         if name in ("fused_rhs_fwd", "fused_rhs_bwd"):
             row["launches_per_step"] = {
                 "adjoint": adjoint_launches[name],
-                **{k: v[name] for k, v in multistep_launches.items()}}
+                **{k: v[name] for k, v in multistep_launches.items()},
+                "fhn_interpolation_shooting": p7e["interp"][name] / TINY_ITERS}
+        if name == "rbf_gram":
+            row["launches_per_run"] = {"plots_grid_conditional":
+                                       p7e["grid"][name], **{
+                                           f"{k}_twin": v for k, v in
+                                           p7e["gram_per_run"].items()}}
         rows.append(row)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2167,7 +2620,8 @@ def main(argv=None) -> int:
                    "eval_fast": evaluation, "time_to_nll": driver,
                    "experiments": experiments,
                    "scale_and_solvers": scale_solvers, "vdp": vdp,
-                   "vdp_golden": vdp_golden, "field": field}, f, indent=1)
+                   "vdp_golden": vdp_golden, "field": field,
+                   "plots_fhn_neural_ode": plots_fhn_node}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

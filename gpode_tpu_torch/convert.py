@@ -3,7 +3,8 @@
 The keys are the JAX package's leaf paths — of `ShootingParams`
 (`gp.kernel.raw_lengthscales`, `states.x0.tril_packed`,
 `likelihood.projector.components`, `constraint.raw_scale`, ...) and of
-`GPODEParams` (`gp.z`, `x0.mean`, `likelihood.base.raw_variance`, ...) —
+`GPODEParams` (`gp.z`, `x0.mean`, `likelihood.base.raw_variance`, ...) and
+of the neural ODE's `NeuralODEParams` (`mlp.w1` ... `mlp.b3`) —
 which are also the port's parameter names, so both packages can compute the
 same step from the same weights. The port itself never sees JAX: callers
 flatten the JAX pytree to this dict.
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from gpode_tpu_torch import resolve_device
-from gpode_tpu_torch.models import gp, gpode, shooting
+from gpode_tpu_torch.models import gp, gpode, neural_ode, shooting
 from gpode_tpu_torch.models.constraints import (GaussianConstraint,
                                                 LaplaceConstraint)
 from gpode_tpu_torch.models.likelihoods import (GaussianLikelihood,
@@ -89,10 +90,23 @@ def gpode_params_from_numpy(flat: dict[str, np.ndarray],
     return params
 
 
+def neural_ode_params_from_numpy(flat: dict[str, np.ndarray],
+                                 device=None) -> neural_ode.NeuralODEParams:
+    """Build `NeuralODEParams` from {dotted path: array} (the JAX
+    `NeuralODEParams` leaf paths `mlp.w1` ... `mlp.b3`). `device` defaults
+    to CUDA."""
+    t = _Arrays(flat, resolve_device(device))
+    params = neural_ode.NeuralODEParams(neural_ode.MLPParams(
+        *(t(f"mlp.{n}") for n in ("w1", "b1", "w2", "b2", "w3", "b3"))))
+    t.done("NeuralODEParams")
+    return params
+
+
 def params_like(template: torch.nn.Module, flat: dict[str, np.ndarray],
                 args=None) -> torch.nn.Module:
     """Parameters of `template`'s model (`ShootingParams`, whose constraint
-    family `args.constraint_type` names, or `GPODEParams`) from
+    family `args.constraint_type` names, `GPODEParams` or
+    `NeuralODEParams`) from
     {dotted path: array}, on the template's device: how a checkpoint's
     parameters load (`utils/checkpoint.load_checkpoint`), the port's or a
     JAX one's flattened. Every name and shape must be the template's, so a
@@ -108,6 +122,8 @@ def params_like(template: torch.nn.Module, flat: dict[str, np.ndarray],
     device = next(template.parameters()).device
     if isinstance(template, shooting.ShootingParams):
         return params_from_numpy(flat, args, device)
+    if isinstance(template, neural_ode.NeuralODEParams):
+        return neural_ode_params_from_numpy(flat, device)
     return gpode_params_from_numpy(flat, device)
 
 

@@ -1,8 +1,9 @@
 """Van der Pol oscillator simulators (uniform and non-uniform observation
 times). Counterpart of `gpode_tpu/data/vanderpol.py`: identical dynamics, RNG
 seeds (noise 121, init 123, times 122) and split layout. Simulation runs on
-the host with scipy's LSODA (the JAX package's optional native integrator is
-not ported).
+the host under the JAX package's branch rule: the native host library's
+adaptive DP5(4) (`utils/native.py`) where it loads, scipy's LSODA where it
+does not.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 from scipy.integrate import odeint as scipy_odeint
 
 from gpode_tpu_torch.data.common import Split
+from gpode_tpu_torch.utils import native
 
 
 def vdp_rhs(y, t, mu=0.5):
@@ -21,6 +23,9 @@ def vdp_rhs(y, t, mu=0.5):
 
 
 def _simulate(x0: np.ndarray, ts: np.ndarray, mu: float) -> np.ndarray:
+    if native.available():
+        return np.stack([native.integrate("vdp", xi, ts, params=(mu,))
+                         for xi in x0])
     return np.stack([scipy_odeint(vdp_rhs, xi, ts, args=(mu,)) for xi in x0])
 
 

@@ -149,25 +149,36 @@ class PredictNoise:
     x0: Optional[torch.Tensor] = None
 
 
-def sample_predict_noise(params: GPODEParams, num_features: int,
-                         num_draws: int, generator: torch.Generator,
-                         sample_x0: bool = True) -> PredictNoise:
-    """Fill a :class:`PredictNoise` for `num_draws` draws from `generator`
-    (on the params' device). `sample_x0=False` leaves out the x0 normals,
-    for predictions from given start states."""
-    dev = params.gp.z.device
-    m, din = params.gp.z.shape
-    d = params.gp.u_mean.shape[1]
+def sample_draw_noise(gp_params: gp.SVGPParams, num_features: int,
+                      num_draws: int, generator: torch.Generator) -> PredictNoise:
+    """The function-draw part of a :class:`PredictNoise` (x0 None) for
+    `num_draws` draws of `gp_params`'s posterior, from `generator` (on the
+    params' device)."""
+    dev = gp_params.z.device
+    m, din = gp_params.z.shape
+    d = gp_params.u_mean.shape[1]
     kw = dict(generator=generator, device=dev)
     s, f = num_draws, num_features
-    dimwise = params.gp.dimwise
+    dimwise = gp_params.dimwise
     return PredictNoise(
         rff_weights=torch.randn(s, f, d, **kw),
         rff_freq=torch.randn(*((s, din, f, d) if dimwise else (s, din, f)), **kw),
         rff_phase=torch.rand(*((s, 1, f, d) if dimwise else (s, 1, f)), **kw),
-        inducing=torch.randn(s, m, d, **kw),
-        x0=(torch.randn(s, *params.x0.mean.shape, **kw) if sample_x0
-            else None))
+        inducing=torch.randn(s, m, d, **kw))
+
+
+def sample_predict_noise(params: GPODEParams, num_features: int,
+                         num_draws: int, generator: torch.Generator,
+                         sample_x0: bool = True) -> PredictNoise:
+    """Fill a :class:`PredictNoise` for `num_draws` draws from `generator`
+    (on the params' device): the function draws' noise, then the x0
+    normals. `sample_x0=False` leaves out the x0 normals, for predictions
+    from given start states."""
+    noise = sample_draw_noise(params.gp, num_features, num_draws, generator)
+    if sample_x0:
+        noise.x0 = torch.randn(num_draws, *params.x0.mean.shape,
+                               generator=generator, device=params.gp.z.device)
+    return noise
 
 
 def predict(params: GPODEParams, noise: PredictNoise, ts: torch.Tensor,

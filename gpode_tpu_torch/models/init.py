@@ -9,7 +9,10 @@
     posterior draws; the shooting-state means at the observed values;
   * observation-noise and kernel hyperparameter setters.
 
-K-means runs on the host (scipy); the solves and the backward integration
+K-means runs on the host, under the JAX package's branch rule: the native
+host library (`utils/native.py`) where it loads, scipy's `kmeans2` where it
+does not; each consumes the `RandomState` as its JAX counterpart does. The
+solves and the backward integration
 run on the parameters' device. Random numbers are inputs: the backward
 integration takes its draws' noise as a `gpode.PredictNoise`. The
 initializers update the module in place and return it.
@@ -28,6 +31,7 @@ from gpode_tpu_torch.models.flow import SolverConfig, flow_forward_sampled
 from gpode_tpu_torch.models.gpode import PredictNoise
 from gpode_tpu_torch.ops import math as om
 from gpode_tpu_torch.ops.kernels import rbf_K
+from gpode_tpu_torch.utils import native
 
 
 def _safe_cholesky(mat: torch.Tensor, jitter: float, max_tries: int = 6):
@@ -59,7 +63,10 @@ def initialize_inducing(gp_params: gp.SVGPParams, data_ys: np.ndarray,
     xs = data_ys[:, :-1, :].reshape(-1, d)
 
     m = gp_params.num_inducing
-    z_np = kmeans2(xs, k=m, minit="points", seed=rng)[0].astype(np.float32)
+    if native.available():
+        z_np = native.kmeans(xs, m, seed=int(rng.randint(2 ** 31)))
+    else:
+        z_np = kmeans2(xs, k=m, minit="points", seed=rng)[0].astype(np.float32)
     keep = rng.choice(xs.shape[0], min(max_obs, xs.shape[0]), replace=False)
 
     dev = gp_params.z.device

@@ -120,7 +120,8 @@ def integrate_segments(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
 
 def elbo_loss(params: ShootingParams, noise: StepNoise, ys: torch.Tensor,
               ts: torch.Tensor, cfg: SolverConfig,
-              constraint_raw_scale: Optional[torch.Tensor] = None
+              constraint_raw_scale: Optional[torch.Tensor] = None,
+              obs_mask: Optional[torch.Tensor] = None
               ) -> tuple[torch.Tensor, ShootingELBOTerms]:
     """Negative shooting ELBO; ys (N, T, D_obs), ts (T,) uniform grid. One GP
     function draw is shared by all state samples.
@@ -132,6 +133,13 @@ def elbo_loss(params: ShootingParams, noise: StepNoise, ys: torch.Tensor,
     final segment, which has no successor, masked), and the entropy and
     both KLs are exact. `constraint_raw_scale` replaces the constraint's
     raw scale (constraint annealing, `train/builders.constraint_annealer`).
+
+    `obs_mask` (optional, (N, T) of {0, 1}) marks the observed time points:
+    the others drop out of the likelihood, which is normalised by the full
+    observed count (scaled by T/K and taken at the step's segments under
+    minibatching), and num_obs = (observed count) * D_obs scales the other
+    terms. The shooting states and the continuity constraint still span the
+    whole grid, so the posterior interpolates through the gaps.
     """
     ss = sample_shooting_states(params.states, noise.x0, noise.states)
     t = ss.shape[2]
@@ -150,8 +158,17 @@ def elbo_loss(params: ShootingParams, noise: StepNoise, ys: torch.Tensor,
     pred, stats = integrate_segments(params.gp, draw, ss_batch, ts[:2], cfg)
 
     lp = likelihood_log_prob(params.likelihood, pred, ys_batch[None])
-    observ_loglik = torch.mean(lp)
-    num_obs = ys.numel()
+    if obs_mask is None:
+        observ_loglik = torch.mean(lp)
+        num_obs = ys.numel()
+    else:
+        mask = obs_mask if idx is None else obs_mask.index_select(1, idx)
+        m_total = torch.sum(obs_mask)
+        batch_scale = 1.0 if idx is None else t / k
+        m = mask[None, :, :, None].to(lp.dtype)
+        observ_loglik = (batch_scale * torch.sum(lp * m)
+                         / (ss.shape[0] * m_total * lp.shape[-1]))
+        num_obs = m_total * lp.shape[-1]
 
     def constraint(loc, y):
         return constraint_log_prob(params.constraint, loc, y,

@@ -66,8 +66,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="Periodic checkpoint cadence in iterations (0 = only "
                         "the final checkpoint)")
     p.add_argument("--no_plots", action="store_true",
-                   help="Skip diagnostics plots (required: plots are not "
-                        "ported yet)")
+                   help="Skip diagnostics plots")
     p.add_argument("--resume", action="store_true",
                    help="Resume from <save>/checkpt.npz if present")
     p.add_argument("--flatten_opt", type=_str2bool, default=True,

@@ -1,10 +1,9 @@
 """Learn human motion dynamics with vanilla GPODE.
 
-    python -m gpode_tpu_torch.scripts.train_mocap_gpode --no_plots [flags]
+    python -m gpode_tpu_torch.scripts.train_mocap_gpode [flags]
 
 Counterpart of `scripts/train_mocap_gpode.py`: its flags and defaults, plus
-`--device` (default: the CUDA card; `cpu` runs on the CPU). `--no_plots`
-is required: the plots are not ported yet. Ends with one JSON line of
+`--device` (default: the CUDA card; `cpu` runs on the CPU). Ends with one JSON line of
 the final metrics, the wall seconds and the Trainer's steps/s.
 """
 

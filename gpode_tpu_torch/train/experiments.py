@@ -1,18 +1,23 @@
-"""End-to-end experiment drivers: MoCap and Van der Pol, vanilla and
-shooting. Counterpart of `gpode_tpu/train/experiments.py`: data -> build ->
-initialize -> train -> evaluate -> artifacts. The command lines in
+"""End-to-end experiment drivers: MoCap, Van der Pol and FitzHugh-Nagumo,
+vanilla and shooting, and the FHN interpolation experiment. Counterpart of
+`gpode_tpu/train/experiments.py`: data -> build -> initialize -> train ->
+evaluate -> plots -> artifacts. The command lines in
 `gpode_tpu_torch/scripts/` stay thin.
 
 Random numbers are inputs: each of the driver's streams is its own
 generator, seeded from (seed, stream) — the counterparts of the JAX
 driver's `split(PRNGKey(seed))` keys — and a validation draw at iteration
 `itr` from (seed, eval stream, itr), the counterpart of
-`fold_in(k_eval, itr)`. The k-means init takes `np.random.RandomState(seed)`
+`fold_in(k_eval, itr)`. The plots draw from streams of their own, so a run
+with plots on trains bit-equal to the same run without; the MoCap plot
+before initialization reuses the noise-variance init's stream, as the JAX
+driver reuses its key. The k-means init takes `np.random.RandomState(seed)`
 as in JAX. Parameters are built from a CPU generator, so every device starts
 from the same values.
 
 Not ported yet, and refused before any work (NotImplementedError naming the
-ROADMAP item): plots (A.8), `mesh` (A.7), and the FHN drivers (A.5).
+ROADMAP item): `mesh` (A.7). A plots-on run where matplotlib does not
+import raises before any work too, naming `--no_plots`.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from gpode_tpu_torch import resolve_device
 from gpode_tpu_torch.convert import params_like
+from gpode_tpu_torch.data.fhn import FHN, load_fhn_interpolation
 from gpode_tpu_torch.data.mocap import MocapDataset, latent_to_data_projector
 from gpode_tpu_torch.data.vanderpol import VanderPol, VanderPolNonUniform
 from gpode_tpu_torch.models import gpode, shooting
@@ -36,6 +42,7 @@ from gpode_tpu_torch.models.init import (initialize_inducing,
                                          initialize_shooting_states_with_data)
 from gpode_tpu_torch.models.likelihoods import project
 from gpode_tpu_torch.ops.ode import FIRST_STEP_SPAN
+from gpode_tpu_torch.plots import pyplot
 from gpode_tpu_torch.train.builders import (ModelArgs, build_gpode,
                                             build_shooting,
                                             default_frozen_predicate,
@@ -49,7 +56,8 @@ from gpode_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from gpode_tpu_torch.utils.meters import Meter
 
 # the drivers' random streams, each a generator seeded from (seed, stream)
-_BUILD, _INIT, _NOISE, _TRAIN, _EVAL, _EVAL_TRAIN, _EVAL_TEST = range(7)
+(_BUILD, _INIT, _NOISE, _TRAIN, _EVAL, _EVAL_TRAIN, _EVAL_TEST, _PLOT_INIT,
+ _PLOT_FIELD) = range(9)
 # backward-integration draws of the x0 init (the JAX defaults)
 _X0_DRAWS = {True: 50, False: 20}   # by shooting_variant
 _NOISEVAR_DRAWS = 16
@@ -188,14 +196,15 @@ def _shooting_margs(margs: ModelArgs, shooting_variant: bool) -> ModelArgs:
     return margs
 
 
-def _check_ported(args: ExperimentArgs):
-    """Refuse, before any work, what the port does not have yet."""
-    missing = [(args.plots, "plots: pass --no_plots (ROADMAP A.8: the "
-                            "matplotlib suites are not ported)"),
-               (args.mesh, "mesh: multi-device training (ROADMAP A.7)")]
-    for flag, what in missing:
-        if flag:
-            raise NotImplementedError(f"not ported yet: {what}")
+def _check_ported(args: ExperimentArgs, plots: bool = True):
+    """Refuse, before any work, what the port does not have yet, and a
+    plots-on run of a driver that draws (`plots`) where matplotlib does not
+    import."""
+    if args.mesh:
+        raise NotImplementedError("not ported yet: mesh: multi-device "
+                                  "training (ROADMAP A.7)")
+    if plots and args.plots:
+        pyplot()
 
 
 def _ncov_expected(shooting_variant: bool, ts) -> int:
@@ -336,16 +345,13 @@ def run_vdp(args: ExperimentArgs, shooting_variant: bool = False):
 
 
 def run_fhn(args: ExperimentArgs, shooting_variant: bool = False):
-    """FitzHugh-Nagumo experiment: not ported yet."""
-    raise NotImplementedError("not ported yet: run_fhn and data/fhn.py "
-                              "(ROADMAP A.5)")
-
-
-def run_fhn_interpolation(args: ExperimentArgs, small: bool = False,
-                          shooting_variant: bool = False):
-    """FHN interpolation experiment: not ported yet."""
-    raise NotImplementedError("not ported yet: run_fhn_interpolation and "
-                              "data/fhn.py (ROADMAP A.5)")
+    """FitzHugh-Nagumo experiment, vanilla or shooting, through `run_2d`."""
+    _check_ported(args)
+    name = "fhn_gpode_shooting" if shooting_variant else "fhn_gpode"
+    data = FHN(s_train=args.data_obs_s, t_train=args.data_obs_t,
+               noise_var=args.data_obs_noise_var,
+               x0=np.array([[-1.0, -1.0]]))
+    return run_2d(args, data, name, shooting_variant)
 
 
 def _train_config(args, num_iter, warmup_iters, shooting_variant, ts):
@@ -361,6 +367,46 @@ def _final_checkpoint(args, params, opt_state, gen):
     save_checkpoint(os.path.join(args.save, "checkpt.npz"),
                     {"params": params, "opt_state": opt_state,
                      "generator": gen, "step": args.num_iter})
+
+
+def _plot_initialization(args, params, data, margs, cfg, device, fname,
+                         shooting_variant):
+    """`model_{before,after}_initialization.png`: the shooting snapshot
+    (its 20-draw prediction from the plot-init stream, the same draws
+    before and after) or the field and inducing snapshot."""
+    from gpode_tpu_torch.plots import plots_2d
+    if shooting_variant:
+        plots_2d.plot_shooting_initialization(
+            generator(device, args.seed, _PLOT_INIT), params, data, cfg,
+            margs.num_features, args.save, fname)
+    else:
+        plots_2d.plot_model_initialization(params.gp, data, args.save, fname)
+
+
+def _plot_2d_results(args, params, data, margs, test_pred, trainer, device,
+                     shooting_variant):
+    """The post-evaluation suite of the 2-D drivers."""
+    from gpode_tpu_torch.plots import plots_2d
+    noise_var = params.likelihood.variance.detach().cpu().numpy()
+    plots_2d.plot_longitudinal(data, test_pred, noise_var, args.save)
+    plots_2d.plot_longitudinal_per_sequence(data, test_pred, noise_var,
+                                            args.save)
+    plots_2d.plot_vectorfield(params.gp, data, test_pred, args.save,
+                              generator=generator(device, args.seed,
+                                                  _PLOT_FIELD),
+                              num_features=margs.num_features)
+    plots_2d.plot_inducing_posterior(params.gp, data, args.save)
+    plots_2d.plot_long_pred(data.tst.ys, test_pred, data.tst.ts, args.save,
+                            "plt_long_pred.png")
+    plots_2d.plot_long_pred(data.tst.ys, test_pred, data.tst.ts, args.save,
+                            "plt_longnoise_pred.png", noise_var=noise_var)
+    plots_2d.plot_long_pred_single(data.tst.ys, test_pred, data.tst.ts,
+                                   args.save, "plt_longnoise_pred_single.png",
+                                   noise_var=noise_var)
+    if shooting_variant:
+        plots_2d.plot_shooting_states(params.states, data, args.save)
+    if trainer is not None:
+        plots_2d.plot_trace(trainer, args.save)
 
 
 def run_2d(args: ExperimentArgs, data, name: str,
@@ -390,6 +436,10 @@ def run_2d(args: ExperimentArgs, data, name: str,
         params = _load_eval_params(args, params, margs, logger)
         trainer = None
     else:
+        if args.plots:
+            _plot_initialization(args, params, data, margs, eval_cfg, device,
+                                 "model_before_initialization.png",
+                                 shooting_variant)
         initialize_inducing(params.gp, data.trn.ys, float(data.trn.ts.max()),
                             rng=rng)
         x0_noise = _predict_noise(params, margs, _X0_DRAWS[shooting_variant],
@@ -397,6 +447,10 @@ def run_2d(args: ExperimentArgs, data, name: str,
         init = (initialize_shooting_states_with_data if shooting_variant
                 else initialize_latents_with_data)
         init(params, x0_noise, data.trn.ys, data.trn.ts, eval_cfg)
+        if args.plots:
+            _plot_initialization(args, params, data, margs, eval_cfg, device,
+                                 "model_after_initialization.png",
+                                 shooting_variant)
 
         params, opt_state0, gen_state, start_iter = _maybe_resume(
             args, params, margs, logger)
@@ -424,7 +478,48 @@ def run_2d(args: ExperimentArgs, data, name: str,
              train_ts=data.trn.ts, train_ys=data.trn.ys, train_pred=train_pred,
              test_ts=data.tst.ts, test_ys=data.tst.ys, test_pred=test_pred,
              obs_noisevar=params.likelihood.variance.detach().cpu().numpy())
+    if args.plots:
+        _plot_2d_results(args, params, data, margs, test_pred, trainer,
+                         device, shooting_variant)
     return params, trainer, metrics
+
+
+def _plot_mocap_predictions(args, data_pca, data_full, tag, zs_pred, ys_pred):
+    """Latent- and data-space prediction grids of a training-pipeline
+    stage."""
+    from gpode_tpu_torch.plots import plots_mocap
+    plots_mocap.plot_pca_predictions(data_pca.trn.ys, zs_pred, data_pca.trn.ts,
+                                     args.save, name=f"plt_latents_{tag}")
+    plots_mocap.plot_data_predictions(data_full.trn.ys, ys_pred,
+                                      data_pca.trn.ts, args.save,
+                                      name=f"plt_data_{tag}")
+
+
+def _plot_mocap_results(args, params, data_pca, data_full, train_pred_zs,
+                        train_pred_ys, test_pred_zs, test_pred_ys, trainer):
+    """The post-evaluation suite of the MoCap drivers."""
+    from gpode_tpu_torch.plots import plots_mocap
+    for split, zs, ys, full in (("train", train_pred_zs, train_pred_ys,
+                                 data_full.trn),
+                                ("test", test_pred_zs, test_pred_ys,
+                                 data_full.tst)):
+        pca = data_pca.trn if split == "train" else data_pca.tst
+        plots_mocap.plot_pca_predictions(
+            pca.ys, zs, pca.ts, args.save,
+            name=f"plt_latents_after_optimization_{split}")
+        plots_mocap.plot_data_predictions(
+            full.ys, ys, pca.ts, args.save,
+            name=f"plt_data_after_optimization_{split}")
+    plots_mocap.plot_inducing_posterior_3d(params.gp, train_pred_zs, args.save,
+                                           name="inducing_posterior_train")
+    plots_mocap.plot_inducing_posterior_3d(params.gp, test_pred_zs, args.save,
+                                           name="inducing_posterior_test")
+    # a small draw subset keeps the Line3DCollection count bounded
+    plots_mocap.plot_latents_3d(train_pred_zs[:8], data_pca.trn.ts, args.save,
+                                name="plt_latents_3d",
+                                rng=np.random.RandomState(args.seed))
+    if trainer is not None:
+        plots_mocap.plot_trace(trainer, args.save)
 
 
 def run_mocap(args: ExperimentArgs, shooting_variant: bool = False):
@@ -459,6 +554,17 @@ def run_mocap(args: ExperimentArgs, shooting_variant: bool = False):
         params = _load_eval_params(args, params, margs, logger)
         trainer = None
     else:
+        if args.plots:
+            # before initialization, from the observed first states; the
+            # draws of the noise-variance init's stream, as in JAX
+            pre_noise = _predict_noise(params, margs, _NOISEVAR_DRAWS,
+                                       generator(device, args.seed, _NOISE),
+                                       False)
+            _plot_mocap_predictions(args, data_pca, data_full,
+                                    "before_initialization",
+                                    *mocap_predictions(
+                                        params, pre_noise, data_pca.trn.ts,
+                                        data_pca.trn.ys[:, 0], eval_cfg, proj))
         initialize_kernel_parameters(params.gp, lengthscale_value=1.25,
                                      variance_value=0.5)
         initialize_inducing(params.gp, data_pca.trn.ys,
@@ -473,11 +579,17 @@ def run_mocap(args: ExperimentArgs, shooting_variant: bool = False):
         resid_noise = _predict_noise(params, margs, _NOISEVAR_DRAWS,
                                      generator(device, args.seed, _NOISE), True)
         with torch.no_grad():
-            init_ys = project(proj, _predict(params, resid_noise,
-                                             data_pca.trn.ts, eval_cfg, device))
+            init_zs = _predict(params, resid_noise, data_pca.trn.ts, eval_cfg,
+                               device)
+            init_ys = project(proj, init_zs)
             resid_var = (_tensor(data_full.trn.ys, device)[None]
                          - init_ys).var(dim=(0, 1, 2), unbiased=False) + 1e-4
         initialize_noisevar(params.likelihood, 1.5 * resid_var.cpu().numpy())
+        if args.plots:
+            _plot_mocap_predictions(args, data_pca, data_full,
+                                    "after_initialization",
+                                    init_zs.cpu().numpy(),
+                                    init_ys.cpu().numpy())
 
         frozen = default_frozen_predicate(margs) if shooting_variant else None
         params, opt_state, gen_state, start_iter = _maybe_resume(
@@ -605,7 +717,121 @@ def run_mocap(args: ExperimentArgs, shooting_variant: bool = False):
              train_pred_zs=train_pred_zs, train_pred_ys=train_pred_ys,
              test_pred_zs=test_pred_zs, test_pred_ys=test_pred_ys,
              obs_noisevar=noise_var)
+    if args.plots:
+        _plot_mocap_results(args, params, data_pca, data_full, train_pred_zs,
+                            train_pred_ys, test_pred_zs, test_pred_ys, trainer)
     metrics = dict(train_ll=train_ll, train_mse=train_mse,
                    test_ll=test_ll, test_mse=test_mse, calibration=cal,
                    **best_metrics)
     return params, trainer, metrics
+
+
+def run_fhn_interpolation(args: ExperimentArgs, small: bool = False,
+                          shooting_variant: bool = False):
+    """FHN interpolation experiment on the shipped splits
+    (`data/fhn/fhn_interpolation[_small].npz`): score the held-out
+    interpolation window. Vanilla trains on the non-uniform observed times;
+    shooting trains on the full uniform grid with the held-out points
+    masked out of the likelihood (`obs_mask`, hidden entries zero-filled)
+    and its model args as given (a dopri5 solve takes Hairer's first step).
+    It draws no plots.
+    """
+    _check_ported(args, plots=False)
+    device = resolve_device(args.device)
+    name = ("fhn_interpolation_shooting" if shooting_variant
+            else "fhn_interpolation")
+    logger = _setup_run(args, name)
+
+    split = load_fhn_interpolation(args.data_path, small=small)
+    full_ts = split["full_ts"]
+    mask = split["interpolation_mask"]          # True = held out
+
+    margs = args.model_args()
+    cfg = margs.solver_config(args.kernels)
+    eval_cfg = _eval_cfg(cfg)
+    rng = np.random.RandomState(args.seed)
+    build_gen = generator("cpu", args.seed, _BUILD)
+
+    if shooting_variant:
+        train_ts = full_ts
+        train_ys = np.where(mask[None, :, None], 0.0, split["full_ys"])
+        obs_mask = _tensor(np.broadcast_to(~mask, train_ys.shape[:2]), device)
+        params = build_shooting(build_gen, margs, train_ys, device=device)
+        if not args.eval_only:
+            initialize_inducing(params.gp, split["train_ys"],
+                                float(split["train_ts"].max()), rng=rng)
+            x0_noise = _predict_noise(params, margs, _X0_DRAWS[True],
+                                      generator(device, args.seed, _INIT),
+                                      False)
+            initialize_shooting_states_with_data(params, x0_noise, train_ys,
+                                                 train_ts, eval_cfg)
+
+        def loss_fn(p, noise, ys, ts):
+            return shooting.elbo_loss(p, noise, ys, ts, cfg,
+                                      obs_mask=obs_mask)
+
+        # every segment each step: the masked loss takes no minibatch
+        noise_fn = shooting_noise_fn(dataclasses.replace(margs,
+                                                         segment_minibatch=0))
+        frozen = default_frozen_predicate(margs)
+    else:
+        train_ys, train_ts = split["train_ys"], split["train_ts"]
+        params = build_gpode(build_gen, margs, train_ys, device=device)
+        if not args.eval_only:
+            initialize_inducing(params.gp, train_ys, float(train_ts.max()),
+                                rng=rng)
+            x0_noise = _predict_noise(params, margs, _X0_DRAWS[False],
+                                      generator(device, args.seed, _INIT),
+                                      False)
+            initialize_latents_with_data(params, x0_noise, train_ys, train_ts,
+                                         eval_cfg)
+        loss_fn = gpode_loss_fn(margs, args.kernels)
+        noise_fn = gpode_noise_fn(margs)
+        frozen = None
+
+    if args.eval_only:
+        params = _load_eval_params(args, params, margs, logger)
+        trainer = None
+    else:
+        params, opt_state0, gen_state, start_iter = _maybe_resume(
+            args, params, margs, logger)
+        trainer = Trainer(loss_fn,
+                          TrainConfig(num_iter=args.num_iter, lr=args.lr,
+                                      log_freq=args.log_freq,
+                                      warmup_iters=min(100,
+                                                       args.num_iter // 10),
+                                      checkpoint_every=args.checkpoint_every,
+                                      flatten_opt=args.flatten_opt,
+                                      ncov_expected=_ncov_expected(
+                                          shooting_variant, train_ts)),
+                          noise_fn, frozen_predicate=frozen, logger=logger,
+                          checkpoint_path=os.path.join(args.save,
+                                                       "checkpt.npz"))
+        params, opt_state, gen = trainer.train(
+            params, _train_generator(args, device, gen_state),
+            _tensor(train_ys, device), _tensor(train_ts, device),
+            start_iter=start_iter, opt_state=opt_state0)
+        logger.info("********** Optimization completed **********")
+        save_trace(trainer, os.path.join(args.save, "optimization_trace.json"))
+        _final_checkpoint(args, params, opt_state, gen)
+
+    # predict on the full grid from the optimized x0 posterior; score the
+    # held-out interpolation window
+    noise = _predict_noise(params, margs, args.eval_sample_size,
+                           generator(device, args.seed, _EVAL), True)
+    pred_full = _predict(params, noise, full_ts, eval_cfg,
+                         device).cpu().numpy()
+    noise_var = params.likelihood.variance.detach().cpu().numpy()
+    interp_ll, interp_mse = compute_summary(split["full_ys"][:, mask],
+                                            pred_full[:, :, mask], noise_var)
+    train_mask = ~mask
+    train_ll, train_mse = compute_summary(split["full_ys"][:, train_mask],
+                                          pred_full[:, :, train_mask],
+                                          noise_var)
+    logger.info(f"[TRAIN]  LL {train_ll:.3f} | MSE {train_mse:.3f}")
+    logger.info(f"[INTERP] LL {interp_ll:.3f} | MSE {interp_mse:.3f}")
+    np.savez(os.path.join(args.save, "model_predictions.npz"),
+             full_ts=full_ts, full_ys=split["full_ys"], pred_full=pred_full,
+             interpolation_mask=mask, obs_noisevar=noise_var)
+    return params, trainer, dict(train_ll=train_ll, train_mse=train_mse,
+                                 interp_ll=interp_ll, interp_mse=interp_mse)

@@ -38,7 +38,6 @@ from gpode_tpu.train import builders as jb
 from gpode_tpu.train import metrics as jmetrics
 from gpode_tpu.train.evaluation import \
     make_projected_scorer as j_make_projected_scorer
-from gpode_tpu.utils import native
 from gpode_tpu.utils.time_grids import insert_zero_t0 as j_insert_zero_t0
 
 from gpode_tpu_torch.convert import gpode_params_from_numpy, params_from_numpy
@@ -53,6 +52,8 @@ from gpode_tpu_torch.train import builders as tb
 from gpode_tpu_torch.train import metrics as tmetrics
 from gpode_tpu_torch.train.evaluation import make_projected_scorer
 from gpode_tpu_torch.utils.time_grids import insert_zero_t0
+
+from test_torch_native import same_branch
 
 torch.set_num_threads(1)
 
@@ -99,9 +100,10 @@ def problem():
                                projector=j_projector(data_pca), full_dim=50)
     params = params._replace(gp=initialize_kernel_parameters(params.gp))
     with pytest.MonkeyPatch.context() as mp:
-        # scipy's k-means on every run: whether the JAX package's native
-        # library loads depends on which test process built it first
-        mp.setattr(native, "available", lambda: False)
+        # scipy's k-means in both packages on every run: whether the JAX
+        # package's native library loads depends on which test process
+        # built it first
+        same_branch(mp, False)
         params = params._replace(gp=initialize_inducing(
             params.gp, ys_pca, float(data_pca.trn.ts.max()), 1e0,
             rng=np.random.RandomState(0)))

@@ -1,7 +1,9 @@
 """The port's experiment drivers and their command lines, on the CPU.
 
 `gpode_tpu_torch/train/experiments.py` (`ExperimentArgs`, `run_mocap`,
-`run_vdp`) and the four CLI twins under `gpode_tpu_torch/scripts/`, held to
+`run_vdp`) and the CLI twins under `gpode_tpu_torch/scripts/` (each
+parser; the FHN and neural-ODE drivers run in tests/test_torch_fhn.py and
+tests/test_torch_neural_ode.py), held to
 the JAX package's: the dataclass's fields and defaults, each parser's
 flags, defaults and choices (from `scripts/_cli.py` and the script's
 `set_defaults`), the artifacts a run writes, resume, `--eval_only`, what is
@@ -14,6 +16,7 @@ features, 6 iterations, validation every 3).
 from __future__ import annotations
 
 import ast
+import builtins
 import dataclasses
 import importlib.util
 import json
@@ -34,20 +37,25 @@ from gpode_tpu.train import builders as jb
 from gpode_tpu.train import experiments as jex
 from gpode_tpu.train import metrics as jmetrics
 from gpode_tpu.train.trainer import default_optimizer as j_default_optimizer
-from gpode_tpu.utils import native
 from gpode_tpu.utils.checkpoint import load_checkpoint as j_load_checkpoint
 from gpode_tpu.utils.checkpoint import save_checkpoint as j_save_checkpoint
 
 from gpode_tpu_torch.data.mocap import MocapDataset, latent_to_data_projector
 from gpode_tpu_torch.models import gpode as tgpode
-from gpode_tpu_torch.scripts import (_cli, train_mocap_gpode,
+from gpode_tpu_torch.scripts import (_cli, train_fhn_gpode,
+                                     train_fhn_interpolation,
+                                     train_mocap_gpode,
                                      train_mocap_gpode_shooting,
-                                     train_vdp_gpode, train_vdp_gpode_shooting)
+                                     train_mocap_neuralode, train_vdp_gpode,
+                                     train_vdp_gpode_shooting,
+                                     train_vdp_neuralode)
 from gpode_tpu_torch.train import builders as tb
 from gpode_tpu_torch.train import experiments as tex
 from gpode_tpu_torch.train.metrics import compute_summary
 from gpode_tpu_torch.utils import io as io_utils
 from gpode_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+from test_torch_native import same_branch
 
 torch.set_num_threads(1)
 
@@ -56,7 +64,11 @@ DATA_DIR = os.path.join(REPO, "data", "mocap")
 TWINS = {"train_mocap_gpode_shooting": train_mocap_gpode_shooting,
          "train_mocap_gpode": train_mocap_gpode,
          "train_vdp_gpode": train_vdp_gpode,
-         "train_vdp_gpode_shooting": train_vdp_gpode_shooting}
+         "train_vdp_gpode_shooting": train_vdp_gpode_shooting,
+         "train_fhn_gpode": train_fhn_gpode,
+         "train_fhn_interpolation": train_fhn_interpolation,
+         "train_vdp_neuralode": train_vdp_neuralode,
+         "train_mocap_neuralode": train_mocap_neuralode}
 TINY = ["--device", "cpu", "--no_plots", "--num_inducing", "8",
         "--num_features", "16", "--num_iter", "6", "--log_freq", "2",
         "--eval_sample_size", "4"]
@@ -93,9 +105,15 @@ def _jax_cli(monkeypatch, tmp_path):
     return module
 
 
+def _literal(node):
+    return (getattr(builtins, node.id) if isinstance(node, ast.Name)
+            else ast.literal_eval(node))
+
+
 def _jax_script(jcli, name):
     """(the JAX script's parser, its set_defaults) from its source: the
-    `add_*_flags` it calls and the keywords of its `set_defaults`."""
+    `add_*_flags` it calls, its own `parser.add_argument` calls and the
+    keywords of its `set_defaults`."""
     tree = ast.parse(open(os.path.join(REPO, "scripts", f"{name}.py")).read())
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)]
     names = [c.func.id if isinstance(c.func, ast.Name) else c.func.attr
@@ -105,6 +123,11 @@ def _jax_script(jcli, name):
     for adder in ("add_vdp_flags", "add_mocap_flags", "add_shooting_flags"):
         if adder in names:
             getattr(jcli, adder)(parser)
+    for call, called in zip(calls, names):
+        if called == "add_argument":
+            parser.add_argument(*map(_literal, call.args),
+                                **{k.arg: _literal(k.value)
+                                   for k in call.keywords})
     defaults = {k.arg: ast.literal_eval(k.value)
                 for k in calls[names.index("set_defaults")].keywords}
     parser.set_defaults(**defaults)
@@ -153,19 +176,23 @@ def test_pallas_rhs_maps_to_the_kernel_rule(flag, kernels):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("flags,item", [
-    ([], "A.8"),
+    ([], None),
     (["--no_plots", "--mesh", "dp=2"], "A.7"),
 ], ids=["plots", "mesh"])
 def test_unported_options_raise_before_any_work(flags, item, tmp_path):
+    """`--mesh` (ROADMAP A.7) is refused before any work. The plots (A.8)
+    are ported: a plots-on run of the tiny MoCap shooting twin trains and
+    draws."""
     save = tmp_path / "run"
+    argv = ["--device", "cpu", "--save", str(save)] + flags
+    if item is None:
+        plots_on = [a for a in MOCAP if a != "--no_plots"] + SHOOTING
+        assert train_mocap_gpode_shooting.main(plots_on + argv) == 0
+        assert (save / "plt_latents_3d.png").exists()
+        return
     with pytest.raises(NotImplementedError, match=item):
-        train_mocap_gpode_shooting.main(["--device", "cpu", "--save",
-                                         str(save)] + flags)
+        train_mocap_gpode_shooting.main(argv)
     assert not save.exists()
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tex.run_fhn(tex.ExperimentArgs(plots=False))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tex.run_fhn_interpolation(tex.ExperimentArgs(plots=False))
 
 
 @pytest.mark.parametrize("flags", [
@@ -349,7 +376,7 @@ def test_jax_checkpoint_scores_like_jax(tmp_path):
                                projector=j_projector(jd_pca), full_dim=50)
     params = params._replace(gp=jinit.initialize_kernel_parameters(params.gp))
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
+        same_branch(mp, False)
         params = params._replace(gp=jinit.initialize_inducing(
             params.gp, jd_pca.trn.ys, float(jd_pca.trn.ts.max()), 1e0,
             rng=np.random.RandomState(121)))

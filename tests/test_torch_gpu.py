@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card,
-at the official bench shapes (N=3000 segment rows, Din=D=5, M=100, S=256).
+at the official bench shapes (N=3000 segment rows, Din=D=5, M=100, S=256),
+and at the FHN shooting default and the plots' VDP grid.
 
 Needs an NVIDIA GPU with nvcc: `pytest -m gpu tests/test_torch_gpu.py`.
 Without a card every test here skips (the check runs inside a fixture).
@@ -605,3 +606,45 @@ def test_time_to_nll_init_on_the_card_matches_the_cpu(cuda, preset):
     want = dict(params["cpu"].named_parameters())
     for name, got in params[cuda].named_parameters():
         _assert_close(got.cpu(), want[name], name)
+
+
+# The FHN shooting twin's default step: 10 draws x 1 sequence x 30 states =
+# 300 segment rows (and 290, a ragged last row tile), Din = D = 2, M = 16,
+# S = 256, over its 6 / 29 interval.
+@pytest.mark.parametrize("n", [290, 300])
+def test_attempt_kernels_at_the_fhn_shooting_default(cuda, n):
+    args = _segment_inputs(cuda, n, 2, 16, 256, seed=30)
+    dt = torch.full((1,), 6.0 / 29.0, device=cuda)
+    before = dict(ck.LAUNCHES)
+    x5, err = ck.fused_dopri5_attempt(args[0], dt, *args[1:], 1e-6, 1e-6)
+    rx5, rerr, _ = ck.dopri5_attempt_plain(args[0], dt, *args[1:], 1e-6, 1e-6)
+    _assert_close(x5, rx5, "x5")
+    torch.testing.assert_close(err, rerr.detach(), rtol=1e-3,
+                               atol=1e-3 * float(rerr.abs().max()))
+    _check_segment_backward(cuda, x5, rx5, args, "dopri5 attempt (FHN)")
+    assert ck.LAUNCHES["fused_dopri5_attempt_fwd"] == before["fused_dopri5_attempt_fwd"] + 1
+    assert ck.LAUNCHES["fused_dopri5_attempt_bwd"] == before["fused_dopri5_attempt_bwd"] + 2
+
+
+def test_plots_grid_conditional_takes_rbf_gram_once(cuda):
+    """The plots' grid conditional of a VDP GP on the card (rbf_gram at the
+    30x30 grid's N=900, Din=D=2, M=16): one launch, mean and variance equal
+    to the same call on the CPU (rtol 1e-4, atol 1e-4 * max|ref|)."""
+    import copy
+
+    from gpode_tpu_torch.data.vanderpol import VanderPol
+    from gpode_tpu_torch.plots import plots_2d
+    from gpode_tpu_torch.train.builders import ModelArgs, build_gpode
+
+    data = VanderPol(s_train=25, t_train=7.0, noise_var=0.05)
+    params = build_gpode(torch.Generator().manual_seed(0),
+                         ModelArgs(num_inducing=16), data.trn.ys, device="cpu")
+    gp_card = copy.deepcopy(params.gp).to(cuda)
+    before = ck.LAUNCHES["rbf_gram"]
+    _, _, mean, var = plots_2d.grid_conditional(gp_card, data)
+    assert ck.LAUNCHES["rbf_gram"] == before + 1
+    _, _, mean_c, var_c = plots_2d.grid_conditional(params.gp, data)
+    assert mean.shape == var.shape == (900, 2)
+    for got, want in ((mean, mean_c), (var, var_c)):
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(want).max()))

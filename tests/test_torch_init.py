@@ -33,7 +33,6 @@ from gpode_tpu.models.flow import flow_forward_sampled as j_flow_sampled
 from gpode_tpu.train import builders as jb
 from gpode_tpu.train.trainer import (build_frozen_mask, default_optimizer,
                                      make_train_step)
-from gpode_tpu.utils import native
 
 from gpode_tpu_torch.convert import params_from_numpy
 from gpode_tpu_torch.models import gpode
@@ -44,6 +43,8 @@ from gpode_tpu_torch.ops import cuda_kernels as ck
 from gpode_tpu_torch.scripts import bench_time_to_nll
 from gpode_tpu_torch.train import builders as tb
 from gpode_tpu_torch.train import trainer as tt
+
+from test_torch_native import same_branch
 
 torch.set_num_threads(1)
 
@@ -89,8 +90,8 @@ def problem():
     params = params._replace(gp=jinit.initialize_kernel_parameters(
         params.gp, lengthscale_value=1.25, variance_value=0.5))
     with pytest.MonkeyPatch.context() as mp:
-        # scipy's k-means on every run, as the port runs it
-        mp.setattr(native, "available", lambda: False)
+        # scipy's k-means in both packages on every run
+        same_branch(mp, False)
         params = params._replace(gp=jinit.initialize_inducing(
             params.gp, ys, float(data_pca.trn.ts.max()), 1e0,
             rng=np.random.RandomState(0)))

@@ -27,13 +27,14 @@ from gpode_tpu.models.init import (initialize_inducing,
 from gpode_tpu.train import builders as jb
 from gpode_tpu.train.trainer import (build_frozen_mask, default_optimizer,
                                      make_train_step)
-from gpode_tpu.utils import native
 
 from gpode_tpu_torch.convert import params_from_numpy, params_to_numpy
 from gpode_tpu_torch.models.shooting import StepNoise
 from gpode_tpu_torch.train import builders as tb
 from gpode_tpu_torch.train import trainer as tt
 from gpode_tpu_torch.train.bench_setup import bench_model_args, load_bench_data
+
+from test_torch_native import same_branch
 
 torch.set_num_threads(1)
 
@@ -77,9 +78,10 @@ def problem():
                                projector=j_projector(data_pca), full_dim=50)
     params = params._replace(gp=initialize_kernel_parameters(params.gp))
     with pytest.MonkeyPatch.context() as mp:
-        # scipy's k-means on every run: whether the JAX package's native
-        # library loads depends on which test process built it first
-        mp.setattr(native, "available", lambda: False)
+        # scipy's k-means in both packages on every run: whether the JAX
+        # package's native library loads depends on which test process
+        # built it first
+        same_branch(mp, False)
         params = params._replace(gp=initialize_inducing(
             params.gp, ys_pca, float(data_pca.trn.ts.max()), 1e0,
             rng=np.random.RandomState(0)))

@@ -31,7 +31,6 @@ from gpode_tpu.models.flow import SolverConfig as JSolverConfig
 from gpode_tpu.train import builders as jb
 from gpode_tpu.train import metrics as jmetrics
 from gpode_tpu.train import trainer as jt
-from gpode_tpu.utils import native
 from gpode_tpu.utils.meters import Meter as JMeter
 
 from gpode_tpu_torch.convert import (gpode_params_from_numpy, params_from_numpy,
@@ -48,6 +47,8 @@ from gpode_tpu_torch.train import metrics as tmetrics
 from gpode_tpu_torch.train import trainer as tt
 from gpode_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from gpode_tpu_torch.utils.meters import Meter
+
+from test_torch_native import same_branch
 
 torch.set_num_threads(1)
 
@@ -89,8 +90,8 @@ def problem():
                                projector=j_projector(data_pca), full_dim=50)
     params = params._replace(gp=jinit.initialize_kernel_parameters(params.gp))
     with pytest.MonkeyPatch.context() as mp:
-        # scipy's k-means, as the port runs it
-        mp.setattr(native, "available", lambda: False)
+        # scipy's k-means in both packages
+        same_branch(mp, False)
         params = params._replace(gp=jinit.initialize_inducing(
             params.gp, ys_pca, float(data_pca.trn.ts.max()), 1e0,
             rng=np.random.RandomState(0)))

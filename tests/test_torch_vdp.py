@@ -13,18 +13,13 @@ Tolerances: data rtol 1e-6; conditional rtol 1e-4, atol 1e-6; loss and ELBO
 terms rtol 1e-4; gradients rtol 1e-3 with atol 1e-3 * max|g| per leaf; the
 golden trajectory at tests/test_golden.py's own tolerances.
 
-The JAX package initialises inducing points with its native host library's
-k-means where that library loads, else with scipy's `kmeans2`, and the two
+Both packages initialise inducing points with the native host library's
+k-means where it loads, else with scipy's `kmeans2`, and the two branches
 start different problems. The goldens were recorded on the native branch,
-so the golden test loads the library race-free first (`_load_native`); the
-scipy-branch test holds the same 30-step run against the JAX package with
-the library forced away.
+so the golden test loads the JAX package's library race-free first
+(`test_torch_native.load_jax_native`); the scipy-branch test holds the same
+30-step run against the JAX package with both libraries forced away.
 """
-
-import fcntl
-import os
-import subprocess
-import time
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +48,8 @@ from gpode_tpu_torch.models.likelihoods import (GaussianLikelihood,
 from gpode_tpu_torch.ops import cuda_kernels as ck
 from gpode_tpu_torch.train import builders as tb
 from gpode_tpu_torch.train import trainer as tt
+
+from test_torch_native import load_jax_native, same_branch
 
 torch.set_num_threads(1)
 
@@ -93,37 +90,9 @@ def _step_noise(sub, jparams, num_features) -> tgpode.GPODEStepNoise:
         x0=_t(jax.random.normal(k_x0, (1, n, d))[0]))
 
 
-def _load_native():
-    """Load the JAX package's native host library in this process, whatever
-    another process did to it.
-
-    `gpode_tpu.utils.native` builds the library with an unlocked `make` the
-    first time a process asks, and a process whose load failed (say, on a
-    file another worker was still writing) keeps `native._load_failed` for
-    good and takes scipy's branches. Here the flags are reset and the load
-    retried under an exclusive lock on a file beside the library; the
-    library is built into a temporary file and renamed into place when it
-    is missing, or when it still fails to load after two retries."""
-    lock_path = os.path.join(native._NATIVE_DIR, "libgpode_host.lock")
-    with open(lock_path, "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        for attempt in range(6):
-            if attempt > 0:
-                time.sleep(1.0)  # an unlocked build may still be writing it
-            if not os.path.exists(native._LIB_PATH) or attempt >= 3:
-                tmp = f"libgpode_host.{os.getpid()}.tmp"
-                subprocess.run(["make", "-C", native._NATIVE_DIR, f"TARGET={tmp}"],
-                               check=True, capture_output=True, timeout=300)
-                os.replace(os.path.join(native._NATIVE_DIR, tmp), native._LIB_PATH)
-            native._lib, native._load_failed = None, False
-            if native._load() is not None:
-                return
-    raise AssertionError(f"cannot load {native._LIB_PATH}")
-
-
 @pytest.fixture(scope="module")
 def data():
-    _load_native()
+    load_jax_native()
     return JVanderPol(**VDP)
 
 
@@ -141,10 +110,9 @@ def _jax_problem(data, args, seed=121):
 
 @pytest.mark.parametrize("kind", ["uniform", "nonuniform"])
 def test_vanderpol_data_matches_jax(kind, monkeypatch):
-    # the port has the scipy (LSODA) branch only: hold the JAX package to it
-    # too (its optional native integrator differs from LSODA by ~2e-7)
-    from gpode_tpu.utils import native
-    monkeypatch.setattr(native, "available", lambda: False)
+    # both packages on the scipy (LSODA) branch (the native branch is held
+    # in tests/test_torch_native.py)
+    same_branch(monkeypatch, False)
     if kind == "uniform":
         kw = dict(s_train=25, t_train=7.0, s_test=50, t_test=14.0,
                   noise_var=0.05)
@@ -366,7 +334,7 @@ TRAJECTORY_RTOL = {0: 1e-3, 9: 1e-2, 29: 2e-2}
 def test_vdp_training_loss_trajectory_matches_jax_and_goldens(data):
     """The golden run on the branch the goldens were recorded on: the
     native library's k-means initialises the inducing points."""
-    _load_native()
+    load_jax_native()
     assert native.available()
     t_losses, j_losses, tparams, jparams = _loss_trajectories(data)
     goldens = {0: GOLDEN_FIRST, 9: GOLDEN_ITER10, 29: GOLDEN_LAST}
@@ -385,8 +353,7 @@ def test_vdp_training_loss_trajectory_matches_jax_on_the_scipy_branch(monkeypatc
     initialises the inducing points with scipy's `kmeans2`, and the port
     follows it on the same noise. No goldens: they belong to the native
     branch."""
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_load_failed", True)
+    same_branch(monkeypatch, False)
     assert not native.available()
     t_losses, j_losses, _, _ = _loss_trajectories(JVanderPol(**VDP))
     for i, rtol in TRAJECTORY_RTOL.items():
