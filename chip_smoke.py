@@ -154,12 +154,34 @@ exit code and no result line:
  10. wide A/B: `gpode_tpu_torch.scripts.proto_wide_rhs.main(["--rows",
      "2995"])` in-process (errors of the wide kernels against the per-dim
      reference, then chained timings of all variants); it must return 0;
+  7f. mesh (run last, since it leaves this process in a world of 1):
+     (a) a world of 1 on NCCL in this process: the MoCap shooting twin at
+     its defaults for MESH_ITERS steps (its meters start after 100, so 20
+     metered losses) without a mesh and with `--mesh dp=1` under both
+     `--parallel` styles: losses and final parameters rtol 1e-6 against the
+     run without, the attempt kernels launched; then `scripts.bench
+     --preset official --mesh dp=1` prints its JSON line; (b) two ranks over
+     gloo on the one card (NCCL refuses two ranks on one GPU), `dp=2`, the
+     official and `fast` bench problems at full width (1500 segment rows
+     per rank): `gpode_tpu_torch.scripts.mesh_check` in two processes —
+     both step styles' loss (rtol 1e-5 against the single-process step or
+     the single-process composition of the two rank blocks) and every
+     gradient leaf (within 1e-4 * max|g| of the float32 single-process
+     gradient; the distances to float64 printed beside it), an accepted
+     whole-span attempt on each rank, the attempt kernels (official) or the
+     rk4 segment kernels (`fast`) once per step on each rank, parameters
+     bit-equal on both ranks after 5 steps of each style,
+     `collective_audit`'s 2 collectives per step and none inside a solve;
+     (c)
+     `capture_trace` over 5 official steps and `analyze_trace` on its
+     output: grouped device ms per step beside the profile's
+     `key_averages` device time;
  11. a `{"kernels": [...]}` line (rows 6-7 also carry their `scale`
-     and FHN times and launches, rows 2-3 their launches per step on the
-     adjoint, multistep and FHN interpolation paths, row 1 its launches per
-     plot run), a copy of all results in
-     chiprun_out/chip_smoke.json, and as the last line
-     `{"ok": true, "device": {...}}`.
+     and FHN times and launches, rows 4-7 their launches under `--mesh`,
+     rows 2-3 their launches per step on the adjoint, multistep and FHN
+     interpolation paths, row 1 its launches per plot run), the smoke's
+     wall seconds, a copy of all results in chiprun_out/chip_smoke.json,
+     and as the last line `{"ok": true, "device": {...}}`.
 
 `--profile-steps N` adds a torch.profiler breakdown of N more train steps
 after phases 4, 6, 7d (the `scale` step) and 8 (device time by operator,
@@ -259,8 +281,11 @@ OFF_PATH_KERNELS = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 class CheckFailed(RuntimeError):
@@ -2227,6 +2252,191 @@ def plots_fhn_node_phase(dev, tmp, vdp_params, vdp_data, mocap_params):
                                fhn=fhn_launches, interp=interp_launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 7f: multi-device training
+# ---------------------------------------------------------------------------
+
+# the MoCap driver's loss meter starts after iteration 100: 120 steps give
+# 20 metered losses
+MESH_ITERS = 120
+MESH_CHECK_TIMEOUT_S = 420
+PROFILE_TRACE_STEPS = 5
+
+
+def mesh_world1_check(tmp):
+    """(a) A world of 1 on NCCL, in this process: the MoCap shooting twin
+    at its defaults for MESH_ITERS steps without a mesh and with `--mesh
+    dp=1` under both `--parallel` styles (losses and final parameters
+    rtol 1e-6 against the run without), then `scripts.bench --preset
+    official --mesh dp=1`."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch.distributed as dist
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.scripts import bench
+    from gpode_tpu_torch.scripts import train_mocap_gpode_shooting as twin
+    from gpode_tpu_torch.utils.checkpoint import load_checkpoint
+
+    runs = {}
+    for tag, extra in (("no_mesh", []),
+                       ("gspmd", ["--mesh", "dp=1", "--parallel", "gspmd"]),
+                       ("shard_map", ["--mesh", "dp=1",
+                                      "--parallel", "shard_map"])):
+        save = os.path.join(tmp, f"mesh_{tag}")
+        ck.reset_launch_counts()
+        _, trainer, metrics = twin.run(["--no_plots", "--num_iter",
+                                        str(MESH_ITERS), "--save", save,
+                                        "--data_path", os.path.join(
+                                            ROOT, "data", "mocap")]
+                                       + extra)
+        launches = dict(ck.LAUNCHES)
+        params = load_checkpoint(os.path.join(save, "checkpt.npz"))["params"]
+        runs[tag] = dict(losses=list(trainer.loss_meter.vals),
+                         test_ll=metrics["test_ll"], params=params,
+                         launches_per_step={
+                             k: launches[k] / MESH_ITERS
+                             for k in MAIN_PATH_KERNELS["official"]})
+    check(dist.is_initialized() and dist.get_world_size() == 1
+          and dist.get_backend() == "nccl",
+          "--mesh dp=1 did not start a world of 1 on NCCL")
+    ref = runs["no_mesh"]
+    check(len(ref["losses"]) == MESH_ITERS - 100
+          and all(math.isfinite(v) for v in ref["losses"]),
+          "the twin's metered losses are missing or not finite")
+    out = {"backend": dist.get_backend(), "steps": MESH_ITERS}
+    for tag in ("gspmd", "shard_map"):
+        got = runs[tag]
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(got["losses"], ref["losses"]))
+        param_err = max(float(np.max(np.abs(got["params"][k] - v))
+                              / max(float(np.max(np.abs(v))), 1e-30))
+                        for k, v in ref["params"].items())
+        bit_equal = (got["losses"] == ref["losses"] and all(
+            np.array_equal(got["params"][k], v)
+            for k, v in ref["params"].items()))
+        print(f"  world of 1 ({tag}): losses of steps 101-{MESH_ITERS} max "
+              f"rel diff {loss_err:.3e}, final params {param_err:.3e}, "
+              f"bit-equal {bit_equal}; test LL {got['test_ll']:.6f} (no "
+              f"mesh {ref['test_ll']:.6f}); attempt launches per step "
+              f"{got['launches_per_step']}")
+        check(loss_err <= 1e-6 and param_err <= 1e-6
+              and abs(got["test_ll"] - ref["test_ll"])
+              <= 1e-6 * abs(ref["test_ll"]),
+              f"--mesh dp=1 ({tag}) differs from the run without a mesh")
+        check(all(v > 0 for v in got["launches_per_step"].values()),
+              f"--mesh dp=1 ({tag}) never launched the attempt kernels")
+        out[tag] = dict(loss_max_rel_diff=loss_err,
+                        param_max_rel_diff=param_err, bit_equal=bit_equal,
+                        test_ll=got["test_ll"],
+                        launches_per_step=got["launches_per_step"])
+    out["no_mesh_test_ll"] = ref["test_ll"]
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(["--preset", "official", "--mesh", "dp=1",
+                         "--iters", "20"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f"  bench --mesh dp=1: {line}")
+    row = json.loads(line)
+    check(rc == 0 and row["mesh"] == {"dp": 1} and row["steps_per_sec"] > 0
+          and math.isfinite(row["loss"]), "bench --mesh dp=1 failed")
+    out["bench"] = row
+    dist.destroy_process_group()
+    return out
+
+
+def mesh_two_ranks_check(tmp):
+    """(b) Two ranks over gloo on the one card (NCCL refuses two ranks on
+    one GPU), `dp=2`, the official and `fast` bench problems at full width:
+    `gpode_tpu_torch.scripts.mesh_check` in two processes (its docstring
+    holds the checks and limits). Returns rank 0's verdict."""
+    from gpode_tpu_torch.scripts import mesh_check
+    codes, outs = mesh_check.run_local(2, "official,fast",
+                                       os.path.join(tmp, "mesh_check"),
+                                       MESH_CHECK_TIMEOUT_S)
+    for rank, (code, text) in enumerate(zip(codes, outs)):
+        if code != 0:
+            print(text[-4000:])
+        check(code == 0, f"mesh_check rank {rank} exited {code}")
+    verdict = json.loads(outs[0].strip().splitlines()[-1])
+    check(not verdict["failures"], f"mesh_check: {verdict['failures']}")
+    print(f"  two ranks on one card: backend {verdict['backend']}; "
+          f"{verdict['seconds']:.1f} s")
+    for preset, res in verdict["presets"].items():
+        print(f"  {preset} ({res['rows_per_rank']} segment rows per rank):")
+        for style in ("gspmd", "shard_map"):
+            r = res[style]
+            e = r["errors"][0]
+            print(f"    {style}: loss {r['loss']:.6f} vs single process "
+                  f"{r['ref_loss']:.6f} (rel {e['loss_rel_err']:.2e}); "
+                  f"grads vs float32 single {e['grad_err_vs_f32_over_max']:.2e}"
+                  f", vs float64 {e['grad_err_vs_f64_over_max']:.2e} (single "
+                  f"float32 {e['f32_ref_err_vs_f64_over_max']:.2e}) of max|g|;"
+                  f" attempts per rank {r['natt']}; launches per rank "
+                  f"{r['launches']}")
+            t = res[f"{style}_train"]
+            print(f"    {style}: {len(t['losses'])} steps, params bit-equal "
+                  f"on both ranks {t['params_bit_equal']}, steps/s per rank "
+                  f"{[round(v, 2) for v in t['steps_per_sec']]}")
+        print(f"    collective audit per rank: {res['audit']}")
+    return verdict
+
+
+def mesh_profile_check(tmp):
+    """(c) `capture_trace` over PROFILE_TRACE_STEPS official steps, then
+    `analyze_trace` on its output: the grouped device ms per step, beside
+    the device self time of the same profile's `key_averages` (the
+    `--profile-steps` figure)."""
+    from gpode_tpu_torch.scripts import analyze_trace, capture_trace
+    prof = capture_trace.capture(os.path.join(tmp, "trace"),
+                                 steps=PROFILE_TRACE_STEPS, preset="official")
+    summary = analyze_trace.report(prof.trace_path, top=10,
+                                   steps=PROFILE_TRACE_STEPS)
+    kernels = [e for e in prof.key_averages()
+               if "CUDA" in str(e.device_type)]
+    busy_ms = sum(getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0)
+                  for e in kernels) / 1e3 / PROFILE_TRACE_STEPS
+    per_step = {g: v / 1e3 / PROFILE_TRACE_STEPS
+                for g, v in summary["groups"].items()}
+    total = summary["total_us"] / 1e3 / PROFILE_TRACE_STEPS
+    print(f"  analyze_trace: {total:.4f} device ms per step; key_averages "
+          f"device self time {busy_ms:.4f} ms per step")
+    check(per_step.get("port kernels: fused_dopri5.cu", 0.0) > 0,
+          "the traced official steps show no attempt kernel")
+    return {"device_ms_per_step": total, "groups_ms_per_step": per_step,
+            "key_averages_ms_per_step": busy_ms,
+            "steps": PROFILE_TRACE_STEPS}
+
+
+def mesh_phase(tmp):
+    """Phase 7f: multi-device training (a)-(c). Returns (results, the
+    world-of-1 and two-rank launches of the segment kernels)."""
+    phase("mesh")
+    t0 = time.perf_counter()
+    out = {"world1": mesh_world1_check(tmp)}
+    out["two_ranks"] = mesh_two_ranks_check(tmp)
+    out["profile"] = mesh_profile_check(tmp)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 7f: {out['seconds']:.1f} s", flush=True)
+    launches = {}
+    for preset, kernels in (("official", MAIN_PATH_KERNELS["official"]),
+                            ("fast", MAIN_PATH_KERNELS["fast"])):
+        res = out["two_ranks"]["presets"][preset]
+        for name in kernels:
+            launches[name] = {
+                "dp2_gloo_per_rank_per_step": {
+                    style: [lau.get(name, 0) for lau in res[style]["launches"]]
+                    for style in ("gspmd", "shard_map")}}
+            if preset == "official":
+                launches[name]["world1_nccl_per_step"] = {
+                    style: out["world1"][style]["launches_per_step"][name]
+                    for style in ("gspmd", "shard_map")}
+    return out, launches
+
+
 def accept_decision_check(x, params, rtol, atol):
     """The attempt kernel and the plain path near the accept threshold: at
     every span 0.01 * 1.05^k whose float64 plain error RMS lies in [0.5, 2]
@@ -2528,6 +2738,7 @@ def main(argv=None) -> int:
                              "train steps (torch.profiler); 0 = off")
     opts = parser.parse_args(argv)
     sys.path.insert(0, ROOT)
+    t_start = time.perf_counter()
     card = device_phase()
     import torch
     dev = torch.device("cuda")
@@ -2560,6 +2771,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         plots_fhn_node, fhn_rows, p7e = plots_fhn_node_phase(
             dev, tmp, vdp_params, vdp_data, fast_params)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh, mesh_launches = mesh_phase(tmp)
     kernels["rbf_gram"] = (max(kernels["rbf_gram"][0], e_gram),
                            *kernels["rbf_gram"][1:])
     path_launches = {"official": launches, "fast": fast_launches,
@@ -2598,6 +2811,8 @@ def main(argv=None) -> int:
                           "launches": p7e["fhn"][name], "max_abs_err": f_err,
                           "ms": f_ms, "plain_ms": f_pms, "bound_ms": f_bms,
                           "bound_by": f_by}
+        if name in mesh_launches:  # the segment kernels under --mesh too
+            row["mesh"] = mesh_launches[name]
         if name in ("fused_rhs_fwd", "fused_rhs_bwd"):
             row["launches_per_step"] = {
                 "adjoint": adjoint_launches[name],
@@ -2621,7 +2836,10 @@ def main(argv=None) -> int:
                    "experiments": experiments,
                    "scale_and_solvers": scale_solvers, "vdp": vdp,
                    "vdp_golden": vdp_golden, "field": field,
-                   "plots_fhn_neural_ode": plots_fhn_node}, f, indent=1)
+                   "plots_fhn_neural_ode": plots_fhn_node, "mesh": mesh,
+                   "wall_seconds": time.perf_counter() - t_start},
+                  f, indent=1)
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """gpode_tpu_torch — the PyTorch/CUDA port of gpode_tpu for NVIDIA Hopper.
 
 Mirrors the JAX package's module layout (`ops/`, `models/`, `train/`,
-`data/`, `utils/`) so each module's counterpart is easy to find. The hot ODE
-right-hand side and the whole-span dopri5 attempt run as hand-written CUDA
-kernels (`csrc/`, bound in `ops/cuda_kernels.py`); everything else is plain
-PyTorch.
+`data/`, `utils/`, `plots/`, `parallel/`) so each module's counterpart is
+easy to find; `MIGRATION.md` maps the JAX package's idioms to the port's.
+The hot ODE right-hand side and the whole-span dopri5 attempt run as
+hand-written CUDA kernels (`csrc/`, bound in `ops/cuda_kernels.py`);
+everything else is plain PyTorch.
 
 Everything runs in full float32: the GP math (Gram matrices, Cholesky,
 triangular solves) breaks at TF32 precision, exactly as the JAX package pins

@@ -3,7 +3,8 @@
 Counterpart of `gpode_tpu/data/mocap.py`, numpy only: zeroed sensor columns
 clamped, optional data normalization, PCA to `pca_components` latents fit on
 the train split (with sklearn's sign convention), optional PCA-space
-normalization, and the latent-to-data projector's arrays.
+normalization, the latent-to-data projector's arrays, and the pairing of
+the two views of the train split (`CombinedDataset`).
 """
 
 from __future__ import annotations
@@ -130,3 +131,19 @@ def latent_to_data_projector(dataset: MocapDataset) -> ProjectorArrays:
     return ProjectorArrays(
         components=np.asarray(dataset.pca.components_, dtype=np.float32),
         norm_mean=norm_mean, norm_std=norm_std)
+
+
+class CombinedDataset:
+    """Pairs the data-space and PCA-space views of the train split: item i
+    is (data-space sequence i, latent sequence i, the train times)."""
+
+    def __init__(self, data_pca: MocapDataset, data_full: MocapDataset):
+        self.data_pca = data_pca
+        self.data_full = data_full
+
+    def __len__(self) -> int:
+        return self.data_pca.trn.ys.shape[0]
+
+    def __getitem__(self, index):
+        return (self.data_full.trn.ys[index, ...],
+                self.data_pca.trn.ys[index, ...], self.data_pca.trn.ts)

@@ -12,15 +12,23 @@ are flattened into one batch and integrated over the single uniform interval
 
 The noise of one step is a :class:`StepNoise` of tensors; with segment
 minibatching it also carries the step's segment indices.
+
+Under a rank mesh (`gpode_tpu_torch/parallel/`) each rank integrates only
+its own (S_l, N_l, T, D) block of the segments, in one flow call (so the
+kernels take the rank's rows), and `elbo_loss` returns the rank's part of
+the objective; `parallel/train.py` sums the parts and reduces the solver
+statistics over the ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from gpode_tpu_torch.models import gp
 from gpode_tpu_torch.models.constraints import constraint_log_prob
@@ -30,6 +38,10 @@ from gpode_tpu_torch.models.states import (initial_state_kl,
                                            sample_shooting_states,
                                            shooting_entropy)
 from gpode_tpu_torch.ops.ode import ODEStats
+
+# the profiler range around a rank's segment solve under a mesh, which
+# `parallel/collective_audit.py` holds free of collectives
+SOLVE_RANGE = "gpode.segment_solve"
 
 
 class ShootingParams(nn.Module):
@@ -65,6 +77,23 @@ class StepNoise:
     segment_idx: Optional[torch.Tensor] = None
 
 
+def sample_draw_noise(params: ShootingParams, num_features: int,
+                      generator: torch.Generator) -> dict:
+    """The posterior draw's part of a :class:`StepNoise` (rff_weights,
+    rff_freq, rff_phase, inducing), from `generator` on the params'
+    device: the first draws of a step."""
+    dev = params.gp.z.device
+    m, din = params.gp.z.shape
+    d = params.gp.u_mean.shape[1]
+    kw = dict(generator=generator, device=dev)
+    freq_shape = (din, num_features, d) if params.gp.dimwise else (din, num_features)
+    phase_shape = (1, num_features, d) if params.gp.dimwise else (1, num_features)
+    return dict(rff_weights=torch.randn(num_features, d, **kw),
+                rff_freq=torch.randn(*freq_shape, **kw),
+                rff_phase=torch.rand(*phase_shape, **kw),
+                inducing=torch.randn(m, d, **kw))
+
+
 def sample_step_noise(params: ShootingParams, num_features: int,
                       num_samples: int, generator: torch.Generator,
                       segment_minibatch: int = 0) -> StepNoise:
@@ -72,20 +101,11 @@ def sample_step_noise(params: ShootingParams, num_features: int,
     With 0 < `segment_minibatch` = K < T the step integrates K segments
     drawn without replacement (`torch.randperm(T)[:K]`, drawn after the
     other noise, so the draws before it are those of a full step)."""
-    dev = params.gp.z.device
-    m, din = params.gp.z.shape
-    d = params.gp.u_mean.shape[1]
-    n, t1, _ = params.states.mean.shape
-    kw = dict(generator=generator, device=dev)
-    freq_shape = (din, num_features, d) if params.gp.dimwise else (din, num_features)
-    phase_shape = (1, num_features, d) if params.gp.dimwise else (1, num_features)
-    noise = StepNoise(
-        rff_weights=torch.randn(num_features, d, **kw),
-        rff_freq=torch.randn(*freq_shape, **kw),
-        rff_phase=torch.rand(*phase_shape, **kw),
-        inducing=torch.randn(m, d, **kw),
-        x0=torch.randn(num_samples, n, d, **kw),
-        states=torch.randn(num_samples, n, t1, d, **kw))
+    n, t1, d = params.states.mean.shape
+    kw = dict(generator=generator, device=params.gp.z.device)
+    noise = StepNoise(**sample_draw_noise(params, num_features, generator),
+                      x0=torch.randn(num_samples, n, d, **kw),
+                      states=torch.randn(num_samples, n, t1, d, **kw))
     if 0 < segment_minibatch < t1 + 1:
         noise.segment_idx = torch.randperm(t1 + 1, **kw)[:segment_minibatch]
     return noise
@@ -121,7 +141,7 @@ def integrate_segments(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
 def elbo_loss(params: ShootingParams, noise: StepNoise, ys: torch.Tensor,
               ts: torch.Tensor, cfg: SolverConfig,
               constraint_raw_scale: Optional[torch.Tensor] = None,
-              obs_mask: Optional[torch.Tensor] = None
+              obs_mask: Optional[torch.Tensor] = None, mesh=None
               ) -> tuple[torch.Tensor, ShootingELBOTerms]:
     """Negative shooting ELBO; ys (N, T, D_obs), ts (T,) uniform grid. One GP
     function draw is shared by all state samples.
@@ -140,8 +160,30 @@ def elbo_loss(params: ShootingParams, noise: StepNoise, ys: torch.Tensor,
     minibatching), and num_obs = (observed count) * D_obs scales the other
     terms. The shooting states and the continuity constraint still span the
     whole grid, so the posterior interpolates through the gaps.
+
+    `mesh` (a `parallel.mesh.Mesh`, the counterpart of the JAX `seg_mesh`):
+    the rank's part of the objective. `ys` is then the rank's sequences
+    (its block over `dp`), `noise.x0` / `noise.states` the normals of its
+    block of samples and sequences (S_l, N_l, ...), and the draw's noise
+    and `segment_idx` are every rank's. The rank integrates its block in
+    one flow call inside the profiler range `SOLVE_RANGE`. The observation
+    and continuity terms are its local sums scaled to the global means;
+    the entropy and both KLs, which read only the replicated parameters,
+    count on rank 0 alone. So the returned loss and each term sum over the
+    ranks to the single-device values, and so do the gradients of the
+    losses; the solver statistics are the rank's own. `obs_mask` takes no
+    mesh: its normaliser counts every rank's observations.
     """
-    ss = sample_shooting_states(params.states, noise.x0, noise.states)
+    n_lo, n_hi = 0, params.states.mean.shape[0]
+    if mesh is not None:
+        if obs_mask is not None:
+            raise ValueError("elbo_loss: obs_mask takes no mesh")
+        n_lo, n_hi = mesh.sequence_block(n_hi)
+        if ys.shape[0] != n_hi - n_lo:
+            raise ValueError(f"ys holds {ys.shape[0]} sequences; this rank's "
+                             f"block of the model's is {n_hi - n_lo}")
+    ss = sample_shooting_states(params.states, noise.x0, noise.states,
+                                slice(n_lo, n_hi))
     t = ss.shape[2]
     idx = noise.segment_idx
     if idx is None:
@@ -155,7 +197,10 @@ def elbo_loss(params: ShootingParams, noise: StepNoise, ys: torch.Tensor,
         ss_next = ss.index_select(2, torch.clamp(idx + 1, max=t - 1))
     draw = gp.draw_posterior(params.gp, noise.rff_weights, noise.rff_freq,
                              noise.rff_phase, noise.inducing)
-    pred, stats = integrate_segments(params.gp, draw, ss_batch, ts[:2], cfg)
+    with (contextlib.nullcontext() if mesh is None
+          else record_function(SOLVE_RANGE)):
+        pred, stats = integrate_segments(params.gp, draw, ss_batch, ts[:2],
+                                         cfg)
 
     lp = likelihood_log_prob(params.likelihood, pred, ys_batch[None])
     if obs_mask is None:
@@ -182,9 +227,19 @@ def elbo_loss(params: ShootingParams, noise: StepNoise, ys: torch.Tensor,
         # Horvitz-Thompson: inclusion probability K/T per segment
         scaled_constr = ((t / k) * torch.mean(constr * has_next, dim=0).sum()
                          / num_obs)
-    scaled_entropy = shooting_entropy(params.states).sum() / num_obs
-    x0_kl = initial_state_kl(params.states.x0) / num_obs
-    ind_kl = gp.kl(params.gp) / num_obs
+    if mesh is not None:
+        # this block's share of the global means: 1 / (its share of the
+        # samples and of the sequences), and of the mean over samples
+        dp, mc = mesh.axis_size("dp"), mesh.axis_size("mc")
+        num_obs = num_obs * dp
+        observ_loglik = observ_loglik / (dp * mc)
+        scaled_constr = scaled_constr / (dp * mc)
+    if mesh is None or mesh.rank == 0:
+        scaled_entropy = shooting_entropy(params.states).sum() / num_obs
+        x0_kl = initial_state_kl(params.states.x0) / num_obs
+        ind_kl = gp.kl(params.gp) / num_obs
+    else:
+        scaled_entropy = x0_kl = ind_kl = ss.new_zeros(())
 
     loss = -(observ_loglik + scaled_constr + scaled_entropy - x0_kl - ind_kl)
     return loss, ShootingELBOTerms(

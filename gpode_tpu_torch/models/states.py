@@ -72,10 +72,12 @@ def init_shooting_states(generator: torch.Generator, dim_n: int, dim_t: int,
     return ShootingStatePosterior(x0, mean, tril)
 
 
-def sample_initial_state(p: InitialStatePosterior,
-                         normals: torch.Tensor) -> torch.Tensor:
-    """Reparameterized x0 samples (S, N, D) from normals (S, N, D)."""
-    return torch.einsum("nij,snj->sni", p.tril(), normals) + p.mean[None]
+def sample_initial_state(p: InitialStatePosterior, normals: torch.Tensor,
+                         seqs: slice = slice(None)) -> torch.Tensor:
+    """Reparameterized x0 samples (S, N, D) from normals (S, N, D), for
+    the sequences `seqs` (all by default; N is then the block's length)."""
+    return (torch.einsum("nij,snj->sni", p.tril()[seqs], normals)
+            + p.mean[seqs][None])
 
 
 def initial_state_kl(p: InitialStatePosterior) -> torch.Tensor:
@@ -83,13 +85,23 @@ def initial_state_kl(p: InitialStatePosterior) -> torch.Tensor:
     return om.kl_whitened_gaussian(p.mean, p.tril())
 
 
+def initial_state_log_prob(p: InitialStatePosterior, x: torch.Tensor,
+                           jitter: float = om.DEFAULT_JITTER) -> torch.Tensor:
+    """log q(x0 = x) with the jittered covariance L L^T + jitter I;
+    x (..., N, D) -> (..., N)."""
+    return _mvn_log_prob(x, p.mean, p.tril(), jitter)
+
+
 def sample_shooting_states(p: ShootingStatePosterior, x0_normals: torch.Tensor,
-                           state_normals: torch.Tensor) -> torch.Tensor:
+                           state_normals: torch.Tensor,
+                           seqs: slice = slice(None)) -> torch.Tensor:
     """Samples of [x0, s_1, ..., s_{T-1}]: (S, N, T, D), from x0_normals
-    (S, N, D) and state_normals (S, N, T-1, D)."""
-    zs = torch.einsum("ntij,sntj->snti", p.tril(), state_normals)
-    states = zs + p.mean[None]
-    x0 = sample_initial_state(p.x0, x0_normals)[:, :, None, :]
+    (S, N, D) and state_normals (S, N, T-1, D). `seqs` samples only a block
+    of the sequences (a rank's block over `dp`; the normals are then that
+    block's, N its length)."""
+    zs = torch.einsum("ntij,sntj->snti", p.tril()[seqs], state_normals)
+    states = zs + p.mean[seqs][None]
+    x0 = sample_initial_state(p.x0, x0_normals, seqs)[:, :, None, :]
     return torch.cat([x0, states], dim=2)
 
 
@@ -98,9 +110,24 @@ def _jittered_chol_from_scale(tril: torch.Tensor, jitter: float) -> torch.Tensor
     return om.cholesky_jittered(torch.matmul(tril, tril.mT), jitter)
 
 
+def _mvn_log_prob(x, mean, tril, jitter):
+    d = mean.shape[-1]
+    chol = _jittered_chol_from_scale(tril, jitter)
+    alpha = om.solve_lower(chol, (x - mean)[..., None])[..., 0]
+    maha = torch.sum(torch.square(alpha), dim=-1)
+    logdet = om.tri_logdet_from_chol(chol)
+    return -0.5 * (d * math.log(2.0 * math.pi) + logdet + maha)
+
+
 def shooting_entropy(p: ShootingStatePosterior,
                      jitter: float = om.DEFAULT_JITTER) -> torch.Tensor:
     """Entropy of the factorized shooting posterior: (N, T-1)."""
     d = p.dim_d
     logdet = om.tri_logdet_from_chol(_jittered_chol_from_scale(p.tril(), jitter))
     return 0.5 * (d * (1.0 + math.log(2.0 * math.pi)) + logdet)
+
+
+def shooting_log_prob(p: ShootingStatePosterior, x: torch.Tensor,
+                      jitter: float = om.DEFAULT_JITTER) -> torch.Tensor:
+    """log q(s = x) for x (..., N, T-1, D) -> (..., N, T-1)."""
+    return _mvn_log_prob(x, p.mean, p.tril(), jitter)

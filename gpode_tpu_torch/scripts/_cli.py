@@ -118,11 +118,16 @@ def add_mocap_flags(p: argparse.ArgumentParser):
 
 def add_shooting_flags(p: argparse.ArgumentParser):
     p.add_argument("--mesh", type=str, default=None,
-                   help="Multi-device mesh, e.g. 'dp=2,mc=4' (not ported "
-                        "yet)")
+                   help="Rank mesh, e.g. 'dp=2,mc=4': sequences over dp, "
+                        "MC samples over mc; sizes multiply to the world "
+                        "size (torchrun --nproc_per_node, or 1 in a plain "
+                        "process)")
     p.add_argument("--parallel", type=str, default="shard_map",
                    choices=("shard_map", "gspmd"),
-                   help="Sharded-step style with --mesh (not ported yet)")
+                   help="Sharded-step style with --mesh: per-rank sample "
+                        "noise (shard_map) or the single-device step's "
+                        "noise split over the ranks (gspmd; takes "
+                        "--segment_minibatch)")
     p.add_argument("--constraint_type", type=str, default="gauss",
                    choices=CONSTRAINTS, help="Shooting-constraint density")
     p.add_argument("--constraint_trainable", type=_str2bool, default=False,
@@ -158,10 +163,13 @@ def run_and_report(run, argv=None) -> int:
     """`run(argv)` (a twin's), then one JSON line on stdout: the final
     metrics, the wall seconds of the run, and the Trainer's steps/s (its
     step-time meter: the steps after the warm-up, without the validation
-    callbacks), or None for an `--eval_only` run."""
+    callbacks), or None for an `--eval_only` run. A `--mesh` rank other
+    than 0, which does not evaluate, prints nothing."""
     t0 = time.perf_counter()
     _, trainer, metrics = run(argv)
     wall = time.perf_counter() - t0
+    if metrics is None:
+        return 0
     sps = (1.0 / trainer.time_meter.avg
            if trainer is not None and trainer.time_meter.avg > 0 else None)
     print(json.dumps({"metrics": metrics, "wall_seconds": wall,

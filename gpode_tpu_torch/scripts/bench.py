@@ -1,7 +1,7 @@
 """Benchmark: MoCap shooting-GPODE training throughput (ELBO steps/s).
 
     python -m gpode_tpu_torch.scripts.bench [--preset official] [--iters 200]
-        [--device cuda]
+        [--device cuda] [--mesh dp=2,mc=... [--parallel shard_map|gspmd]]
 
 Counterpart of the single-device `measure_steps_per_sec` of `bench.py`: the
 bench problem of a preset (`train/bench_setup.py`: MoCap subject 09, seqlen
@@ -15,9 +15,15 @@ Prints one JSON line: `steps_per_sec`, `rhs_evals_per_sec` (steps/s x the
 last step's rhs evaluations x the segments of a step, draws x sequences x
 steps), the final `loss`, `platform` ("gpu" or "cpu") and `device` (the
 card's name), plus the preset, the iterations and the peak device memory
-in MiB (null on the CPU). The JAX script's CPU-baseline subprocess and its
-`--mesh` are not here. `--device cpu` runs on the CPU (the kernels' plain
-versions).
+in MiB (null on the CPU). The JAX script's CPU-baseline subprocess is not
+here. `--device cpu` runs on the CPU (the kernels' plain versions).
+
+`--mesh dp=2,mc=4` times the sharded train step the drivers run with
+`--mesh` (`--parallel` picks its style; sequences over dp, MC samples over
+mc, parameters replicated from rank 0), one process per rank: under
+`torchrun --nproc_per_node=W`, or a world of 1 in a plain process. Every
+rank times its own steps; rank 0 prints the line, with the mesh, the style,
+the world size and the process group's backend.
 """
 
 from __future__ import annotations
@@ -28,8 +34,12 @@ import time
 
 import torch
 
+import torch.distributed as dist
+
 from gpode_tpu_torch import resolve_device
 from gpode_tpu_torch.models.shooting import sample_step_noise
+from gpode_tpu_torch.parallel import STYLES, multihost
+from gpode_tpu_torch.parallel.mesh import make_mesh, parse_mesh_spec
 from gpode_tpu_torch.train.bench_setup import (PRESETS, build_bench_problem,
                                                preset_model_args)
 from gpode_tpu_torch.train.builders import shooting_loss_fn
@@ -37,15 +47,35 @@ from gpode_tpu_torch.train.trainer import default_optimizer, make_train_step
 
 
 def measure_steps_per_sec(preset: str = "official", iters: int = 200,
-                          warmup: int = 3, device=None) -> dict:
-    dev = resolve_device(device)
+                          warmup: int = 3, device=None,
+                          mesh_spec: str | None = None,
+                          parallel: str = "shard_map") -> dict:
+    mesh = None
+    if mesh_spec:
+        mesh = make_mesh(parse_mesh_spec(mesh_spec))
+        multihost.initialize(device=device)
+        dev = multihost.local_device(device)
+    else:
+        dev = resolve_device(device)
     args, params, ys, ts = build_bench_problem(preset_model_args(preset),
                                                device=dev)
-    step = make_train_step(shooting_loss_fn(args), params,
-                           default_optimizer(params, 5e-3))
+    opt = default_optimizer(params, 5e-3)
+    n_seq = ys.shape[0]
+    if mesh is None:
+        step = make_train_step(shooting_loss_fn(args), params, opt)
+        noise_fn = None
+    else:
+        make, noise_maker = STYLES[parallel]
+        step = make(mesh, args, params, opt)
+        noise_fn = noise_maker(mesh, args)
+        multihost.broadcast_params(params)
+        lo, hi = mesh.sequence_block(n_seq)
+        ys = ys[lo:hi]
     gen = torch.Generator(dev).manual_seed(1)
 
     def run():
+        if noise_fn is not None:
+            return step(noise_fn(params, gen), ys, ts)
         return step(sample_step_noise(params, args.num_features,
                                       args.num_samples, gen), ys, ts)
 
@@ -62,8 +92,11 @@ def measure_steps_per_sec(preset: str = "official", iters: int = 200,
         final_loss = float(terms.loss.detach())  # the window ends in a host read
         window_times.append(time.perf_counter() - begin)
     steps_per_sec = iters / sorted(window_times)[1]
-    segments = args.num_samples * ys.shape[0] * ys.shape[1]
+    segments = args.num_samples * n_seq * ys.shape[1]
     cuda = dev.type == "cuda"
+    meshed = {} if mesh is None else {
+        "mesh": mesh.shape, "parallel": parallel, "world_size": mesh.size,
+        "backend": dist.get_backend()}
     return {
         "steps_per_sec": steps_per_sec,
         "rhs_evals_per_sec": steps_per_sec * terms.nfe * segments,
@@ -74,6 +107,7 @@ def measure_steps_per_sec(preset: str = "official", iters: int = 200,
         "iters": iters,
         "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
                      if cuda else None),
+        **meshed,
     }
 
 
@@ -84,9 +118,17 @@ def main(argv=None) -> int:
                     help="steps per timing window (3 windows)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None,
+                    help="time the sharded step over this rank mesh, e.g. "
+                         "'dp=2' (one process per rank)")
+    ap.add_argument("--parallel", default="shard_map",
+                    choices=("shard_map", "gspmd"),
+                    help="the sharded step's style with --mesh")
     a = ap.parse_args(argv)
-    print(json.dumps(measure_steps_per_sec(a.preset, a.iters,
-                                           device=a.device)))
+    result = measure_steps_per_sec(a.preset, a.iters, device=a.device,
+                                   mesh_spec=a.mesh, parallel=a.parallel)
+    if result.get("mesh") is None or dist.get_rank() == 0:
+        print(json.dumps(result))
     return 0
 
 

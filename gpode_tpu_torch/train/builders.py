@@ -169,13 +169,15 @@ def constraint_annealer(args: ModelArgs):
     return anneal
 
 
-def shooting_loss_fn(args: ModelArgs, kernels: Optional[bool] = None):
+def shooting_loss_fn(args: ModelArgs, kernels: Optional[bool] = None,
+                     mesh=None):
     """loss(params, noise, ys, ts) -> (loss, ShootingELBOTerms).
 
     With `constraint_anneal_iters > 0` the signature becomes
     loss(params, noise, itr, ys, ts) (the Trainer passes its device-side
     iteration counter): the constraint scale follows `constraint_annealer`
-    instead of `params.constraint.raw_scale`."""
+    instead of `params.constraint.raw_scale`. With a `mesh` the loss is the
+    rank's part of the objective (`shooting.elbo_loss`)."""
     cfg = args.solver_config(kernels)
     anneal = constraint_annealer(args)
     if anneal is not None:
@@ -183,12 +185,12 @@ def shooting_loss_fn(args: ModelArgs, kernels: Optional[bool] = None):
         def annealed(params, noise, itr, ys, ts):
             raw = anneal(itr).expand_as(params.constraint.raw_scale)
             return shooting.elbo_loss(params, noise, ys, ts, cfg,
-                                      constraint_raw_scale=raw)
+                                      constraint_raw_scale=raw, mesh=mesh)
 
         return annealed
 
     def loss(params, noise, ys, ts):
-        return shooting.elbo_loss(params, noise, ys, ts, cfg)
+        return shooting.elbo_loss(params, noise, ys, ts, cfg, mesh=mesh)
 
     return loss
 

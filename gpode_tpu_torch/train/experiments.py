@@ -15,9 +15,15 @@ driver reuses its key. The k-means init takes `np.random.RandomState(seed)`
 as in JAX. Parameters are built from a CPU generator, so every device starts
 from the same values.
 
-Not ported yet, and refused before any work (NotImplementedError naming the
-ROADMAP item): `mesh` (A.7). A plots-on run where matplotlib does not
-import raises before any work too, naming `--no_plots`.
+`--mesh dp=2,mc=...` (shooting variants) trains over a rank mesh
+(`gpode_tpu_torch/parallel/`): one process per rank, started by `torchrun`
+or, for a world of 1, by the driver itself. Rank 0 runs the data-driven
+init and its parameters are broadcast, so the replicas start bit-equal;
+every rank trains on its block of sequences with the `--parallel` step;
+only rank 0 logs, writes the checkpoints, the trace, the predictions and
+the plots, and evaluates (the other ranks return no metrics). A plots-on
+run where matplotlib does not import raises before any work, naming
+`--no_plots`.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gpode_tpu_torch import resolve_device
 from gpode_tpu_torch.convert import params_like
@@ -42,6 +49,10 @@ from gpode_tpu_torch.models.init import (initialize_inducing,
                                          initialize_shooting_states_with_data)
 from gpode_tpu_torch.models.likelihoods import project
 from gpode_tpu_torch.ops.ode import FIRST_STEP_SPAN
+from gpode_tpu_torch.parallel import STYLES, multihost
+from gpode_tpu_torch.parallel.mesh import (make_mesh, parse_mesh_spec,
+                                           world_size_and_rank)
+from gpode_tpu_torch.parallel.train import check_step_mesh
 from gpode_tpu_torch.plots import pyplot
 from gpode_tpu_torch.train.builders import (ModelArgs, build_gpode,
                                             build_shooting,
@@ -197,14 +208,66 @@ def _shooting_margs(margs: ModelArgs, shooting_variant: bool) -> ModelArgs:
 
 
 def _check_ported(args: ExperimentArgs, plots: bool = True):
-    """Refuse, before any work, what the port does not have yet, and a
-    plots-on run of a driver that draws (`plots`) where matplotlib does not
-    import."""
-    if args.mesh:
-        raise NotImplementedError("not ported yet: mesh: multi-device "
-                                  "training (ROADMAP A.7)")
+    """Refuse, before any work, a plots-on run of a driver that draws
+    (`plots`) where matplotlib does not import."""
     if plots and args.plots:
         pyplot()
+
+
+def _mesh_step_factory(args: ExperimentArgs, margs: ModelArgs, logger,
+                       shooting_variant: bool):
+    """--mesh: (step_factory, noise_fn, mesh) for the Trainer, or three
+    Nones without it. The factory plugs into the Trainer's `step_factory`
+    hook, so the loop, meters, checkpoints and validation callbacks are the
+    single-device path's; only the step and its noise are the mesh's
+    (sequences over `dp`, MC samples over `mc`). The mesh is checked
+    against the world size before this process joins a group (started
+    here, from the `torchrun` environment or as a world of 1)."""
+    if not args.mesh:
+        return None, None, None
+    if not shooting_variant:
+        raise ValueError(
+            "--mesh multi-chip training is wired for the shooting variants "
+            "(the scale-out workload, SURVEY.md §2.3); drop --mesh or use "
+            "the shooting driver")
+    if args.segment_minibatch > 0 and args.parallel == "shard_map":
+        raise ValueError(
+            "--segment_minibatch with --mesh needs --parallel gspmd (the "
+            "explicit-collective step integrates fixed per-device segment "
+            "blocks; the GSPMD step supports the subsampled estimator)")
+    mesh = make_mesh(parse_mesh_spec(args.mesh))
+    check_step_mesh(mesh, margs)
+    multihost.initialize(device=args.device)
+    logger.info(f"Multi-device training: mesh {mesh.shape} over {mesh.size} "
+                f"ranks ({args.parallel} step, {dist.get_backend()})")
+    make, noise_fn = STYLES[args.parallel]
+
+    def factory(params, optimizer):
+        return make(mesh, margs, params, optimizer, args.kernels)
+
+    return factory, noise_fn(mesh, margs), mesh
+
+
+def _place_on_mesh(mesh, params, ys, device):
+    """Rank 0's parameters on every rank (broadcast); the rank's block of
+    the sequences `ys` (N, T, D) over `dp`, on `device`."""
+    multihost.broadcast_params(params)
+    return multihost.global_array(np.asarray(ys, np.float32), mesh, "dp",
+                                  device)
+
+
+def _is_main(args: ExperimentArgs) -> bool:
+    """Whether this process logs, writes the run's files and evaluates:
+    the single process, or rank 0 of a `--mesh` run (the group's rank, or
+    the `torchrun` environment's before the group starts)."""
+    return not args.mesh or world_size_and_rank()[1] == 0
+
+
+def _run_device(args: ExperimentArgs, mesh) -> torch.device:
+    """The run's device: under a mesh the rank's (`local_device`)."""
+    if mesh is None:
+        return resolve_device(args.device)
+    return multihost.local_device(args.device)
 
 
 def _ncov_expected(shooting_variant: bool, ts) -> int:
@@ -214,7 +277,13 @@ def _ncov_expected(shooting_variant: bool, ts) -> int:
     return 2 if shooting_variant else len(np.asarray(ts)) + 1
 
 
-def _setup_run(args: ExperimentArgs, name: str):
+def _setup_run(args: ExperimentArgs, name: str, main: bool = True):
+    """The run's logger (`<save>/logs` and stderr), and its args record;
+    a rank other than 0 (`main` False) gets a silent logger and writes
+    nothing."""
+    if not main:
+        return io_utils.get_logger(displaying=False, saving=False,
+                                   name=f"{name}.rank")
     io_utils.makedirs(args.save)
     logger = io_utils.get_logger(os.path.join(args.save, "logs"), name=name)
     # an eval-only invocation must not clobber the training run's arg record
@@ -242,10 +311,13 @@ def _load_eval_params(args: ExperimentArgs, template, margs, logger):
     return params_like(template, state["params"], margs)
 
 
-def _maybe_resume(args: ExperimentArgs, params, margs, logger):
+def _maybe_resume(args: ExperimentArgs, params, margs, logger, mesh=None):
     """(params, opt_state, generator state, start_iter) from
-    <save>/checkpt.npz under `--resume`, else (params, None, None, 1)."""
+    <save>/checkpt.npz under `--resume`, else (params, None, None, 1).
+    Under a mesh every rank reads rank 0's checkpoint, after a barrier."""
     path = os.path.join(args.save, "checkpt.npz")
+    if mesh is not None and args.resume:
+        dist.barrier()
     if not (args.resume and os.path.exists(path)):
         return params, None, None, 1
     state = load_checkpoint(path)
@@ -413,18 +485,24 @@ def run_2d(args: ExperimentArgs, data, name: str,
            shooting_variant: bool = False):
     """Shared 2-D driver: build -> initialize -> train -> eval -> artifacts."""
     _check_ported(args)
-    device = resolve_device(args.device)
-    logger = _setup_run(args, name)
+    main = _is_main(args)
+    logger = _setup_run(args, name, main)
     margs = _shooting_margs(args.model_args(), shooting_variant)
     cfg = margs.solver_config(args.kernels)
     eval_cfg = _eval_cfg(cfg)
+    # validate/construct the mesh before any expensive init work
+    step_factory, mesh_noise_fn, mesh = (
+        (None, None, None) if args.eval_only else
+        _mesh_step_factory(args, margs, logger, shooting_variant))
+    device = _run_device(args, mesh)
+    plots = args.plots and main
     rng = np.random.RandomState(args.seed)
     build_gen = generator("cpu", args.seed, _BUILD)
 
     if shooting_variant:
         params = build_shooting(build_gen, margs, data.trn.ys, device=device)
         loss_fn = shooting_loss_fn(margs, args.kernels)
-        noise_fn = shooting_noise_fn(margs)
+        noise_fn = mesh_noise_fn or shooting_noise_fn(margs)
         frozen = default_frozen_predicate(margs)
     else:
         params = build_gpode(build_gen, margs, data.trn.ys, device=device)
@@ -436,41 +514,52 @@ def run_2d(args: ExperimentArgs, data, name: str,
         params = _load_eval_params(args, params, margs, logger)
         trainer = None
     else:
-        if args.plots:
+        if plots:
             _plot_initialization(args, params, data, margs, eval_cfg, device,
                                  "model_before_initialization.png",
                                  shooting_variant)
-        initialize_inducing(params.gp, data.trn.ys, float(data.trn.ts.max()),
-                            rng=rng)
-        x0_noise = _predict_noise(params, margs, _X0_DRAWS[shooting_variant],
-                                  generator(device, args.seed, _INIT), False)
-        init = (initialize_shooting_states_with_data if shooting_variant
-                else initialize_latents_with_data)
-        init(params, x0_noise, data.trn.ys, data.trn.ts, eval_cfg)
-        if args.plots:
+        if main:  # under a mesh rank 0 initializes, then broadcasts
+            initialize_inducing(params.gp, data.trn.ys,
+                                float(data.trn.ts.max()), rng=rng)
+            x0_noise = _predict_noise(params, margs,
+                                      _X0_DRAWS[shooting_variant],
+                                      generator(device, args.seed, _INIT),
+                                      False)
+            init = (initialize_shooting_states_with_data if shooting_variant
+                    else initialize_latents_with_data)
+            init(params, x0_noise, data.trn.ys, data.trn.ts, eval_cfg)
+        if plots:
             _plot_initialization(args, params, data, margs, eval_cfg, device,
                                  "model_after_initialization.png",
                                  shooting_variant)
 
         params, opt_state0, gen_state, start_iter = _maybe_resume(
-            args, params, margs, logger)
+            args, params, margs, logger, mesh)
+        train_ys = (_tensor(data.trn.ys, device) if mesh is None else
+                    _place_on_mesh(mesh, params, data.trn.ys, device))
         trainer = Trainer(loss_fn,
                           _train_config(args, args.num_iter,
                                         min(100, args.num_iter // 10),
                                         shooting_variant, data.trn.ts),
                           noise_fn, frozen_predicate=frozen, logger=logger,
-                          checkpoint_path=os.path.join(args.save,
-                                                       "checkpt.npz"),
+                          checkpoint_path=(os.path.join(args.save,
+                                                        "checkpt.npz")
+                                           if main else None),
                           pass_iteration=(shooting_variant
-                                          and margs.constraint_anneal_iters > 0))
+                                          and margs.constraint_anneal_iters > 0),
+                          step_factory=step_factory)
         params, opt_state, gen = trainer.train(
-            params, _train_generator(args, device, gen_state),
-            _tensor(data.trn.ys, device), _tensor(data.trn.ts, device),
-            start_iter=start_iter, opt_state=opt_state0)
+            params, _train_generator(args, device, gen_state), train_ys,
+            _tensor(data.trn.ts, device), start_iter=start_iter,
+            opt_state=opt_state0)
         logger.info("********** Optimization completed **********")
-        save_trace(trainer, os.path.join(args.save, "optimization_trace.json"))
-        _final_checkpoint(args, params, opt_state, gen)
+        if main:
+            save_trace(trainer, os.path.join(args.save,
+                                             "optimization_trace.json"))
+            _final_checkpoint(args, params, opt_state, gen)
 
+    if not main:  # rank 0 evaluates
+        return params, trainer, None
     train_pred, test_pred, metrics = _eval_and_log(
         logger, data, params, margs, eval_cfg, args.seed, device,
         args.eval_sample_size)
@@ -525,11 +614,18 @@ def _plot_mocap_results(args, params, data_pca, data_full, train_pred_zs,
 def run_mocap(args: ExperimentArgs, shooting_variant: bool = False):
     """MoCap experiment: dynamics in the PCA latent space, likelihood in the
     50-D data space. Returns (params, the last stage's Trainer or None,
-    metrics)."""
+    metrics; None on a mesh rank other than 0)."""
     _check_ported(args)
-    device = resolve_device(args.device)
     name = "mocap_gpode_shooting" if shooting_variant else "mocap_gpode"
-    logger = _setup_run(args, name)
+    main = _is_main(args)
+    logger = _setup_run(args, name, main)
+    margs = _shooting_margs(args.model_args(), shooting_variant)
+    # validate/construct the mesh before any expensive init work
+    step_factory, mesh_noise_fn, mesh = (
+        (None, None, None) if args.eval_only else
+        _mesh_step_factory(args, margs, logger, shooting_variant))
+    device = _run_device(args, mesh)
+    plots = args.plots and main
 
     data_pca = MocapDataset(data_path=args.data_path, subject=args.data_subject,
                             pca_components=args.num_latents,
@@ -542,7 +638,6 @@ def run_mocap(args: ExperimentArgs, shooting_variant: bool = False):
     proj = make_projector(projector, device)
     d_full = data_full.trn.ys.shape[-1]
 
-    margs = _shooting_margs(args.model_args(), shooting_variant)
     eval_cfg = _eval_cfg(margs.solver_config(args.kernels))
     rng = np.random.RandomState(args.seed)
     builder = build_shooting if shooting_variant else build_gpode
@@ -554,7 +649,7 @@ def run_mocap(args: ExperimentArgs, shooting_variant: bool = False):
         params = _load_eval_params(args, params, margs, logger)
         trainer = None
     else:
-        if args.plots:
+        if plots:
             # before initialization, from the observed first states; the
             # draws of the noise-variance init's stream, as in JAX
             pre_noise = _predict_noise(params, margs, _NOISEVAR_DRAWS,
@@ -565,41 +660,47 @@ def run_mocap(args: ExperimentArgs, shooting_variant: bool = False):
                                     *mocap_predictions(
                                         params, pre_noise, data_pca.trn.ts,
                                         data_pca.trn.ys[:, 0], eval_cfg, proj))
-        initialize_kernel_parameters(params.gp, lengthscale_value=1.25,
-                                     variance_value=0.5)
-        initialize_inducing(params.gp, data_pca.trn.ys,
-                            float(data_pca.trn.ts.max()), 1e0, rng=rng)
-        x0_noise = _predict_noise(params, margs, _X0_DRAWS[shooting_variant],
-                                  generator(device, args.seed, _INIT), False)
-        init = (initialize_shooting_states_with_data if shooting_variant
-                else initialize_latents_with_data)
-        init(params, x0_noise, data_pca.trn.ys, data_pca.trn.ts, eval_cfg)
+        if main:  # under a mesh rank 0 initializes, then broadcasts
+            initialize_kernel_parameters(params.gp, lengthscale_value=1.25,
+                                         variance_value=0.5)
+            initialize_inducing(params.gp, data_pca.trn.ys,
+                                float(data_pca.trn.ts.max()), 1e0, rng=rng)
+            x0_noise = _predict_noise(params, margs,
+                                      _X0_DRAWS[shooting_variant],
+                                      generator(device, args.seed, _INIT),
+                                      False)
+            init = (initialize_shooting_states_with_data if shooting_variant
+                    else initialize_latents_with_data)
+            init(params, x0_noise, data_pca.trn.ys, data_pca.trn.ts, eval_cfg)
 
-        # noise init from the residual variance of initial predictions
-        resid_noise = _predict_noise(params, margs, _NOISEVAR_DRAWS,
-                                     generator(device, args.seed, _NOISE), True)
-        with torch.no_grad():
-            init_zs = _predict(params, resid_noise, data_pca.trn.ts, eval_cfg,
-                               device)
-            init_ys = project(proj, init_zs)
-            resid_var = (_tensor(data_full.trn.ys, device)[None]
-                         - init_ys).var(dim=(0, 1, 2), unbiased=False) + 1e-4
-        initialize_noisevar(params.likelihood, 1.5 * resid_var.cpu().numpy())
-        if args.plots:
-            _plot_mocap_predictions(args, data_pca, data_full,
-                                    "after_initialization",
-                                    init_zs.cpu().numpy(),
-                                    init_ys.cpu().numpy())
+            # noise init from the residual variance of initial predictions
+            resid_noise = _predict_noise(params, margs, _NOISEVAR_DRAWS,
+                                         generator(device, args.seed, _NOISE),
+                                         True)
+            with torch.no_grad():
+                init_zs = _predict(params, resid_noise, data_pca.trn.ts,
+                                   eval_cfg, device)
+                init_ys = project(proj, init_zs)
+                resid_var = (_tensor(data_full.trn.ys, device)[None]
+                             - init_ys).var(dim=(0, 1, 2),
+                                            unbiased=False) + 1e-4
+            initialize_noisevar(params.likelihood,
+                                1.5 * resid_var.cpu().numpy())
+            if plots:
+                _plot_mocap_predictions(args, data_pca, data_full,
+                                        "after_initialization",
+                                        init_zs.cpu().numpy(),
+                                        init_ys.cpu().numpy())
 
         frozen = default_frozen_predicate(margs) if shooting_variant else None
         params, opt_state, gen_state, start_iter = _maybe_resume(
-            args, params, margs, logger)
+            args, params, margs, logger, mesh)
 
         # periodic validation: full-trajectory predictions from the observed
         # val x0, scored in the 50-D data space; best-val-LL params kept
         val_meters = {"val_ll": Meter(), "val_mse": Meter()}
         val_callback = None
-        if args.val_freq > 0:
+        if args.val_freq > 0 and main:
             best = {"ll": -np.inf}
 
             def val_callback(itr, p):
@@ -622,7 +723,8 @@ def run_mocap(args: ExperimentArgs, shooting_variant: bool = False):
                 logger.info(f"[VAL] iter {itr} LL {ll:.3f} | "
                             f"MSE {mse:.3f}{marker}")
 
-        train_ys = _tensor(data_full.trn.ys, device)
+        train_ys = (_tensor(data_full.trn.ys, device) if mesh is None else
+                    _place_on_mesh(mesh, params, data_full.trn.ys, device))
         train_ts = _tensor(data_pca.trn.ts, device)
         # --draw_stages: the same params through a schedule of MC draw
         # counts; each stage is a new Trainer whose schedule horizon is its
@@ -643,18 +745,26 @@ def run_mocap(args: ExperimentArgs, shooting_variant: bool = False):
                        else gpode_loss_fn(margs_s, args.kernels))
             noise_fn = (shooting_noise_fn(margs_s) if shooting_variant
                         else gpode_noise_fn(margs_s))
+            sf_s = step_factory
+            if mesh is not None:  # the stage's draws: its own mesh step
+                sf_s, noise_fn = step_factory, mesh_noise_fn
+                if s_draws != margs.num_samples:
+                    sf_s, noise_fn, _ = _mesh_step_factory(
+                        args, margs_s, logger, shooting_variant)
             prev = trainer
             trainer = Trainer(loss_fn,
                               _train_config(args, stage_end, 100,
                                             shooting_variant, data_pca.trn.ts),
                               noise_fn, frozen_predicate=frozen, logger=logger,
-                              checkpoint_path=os.path.join(args.save,
-                                                           "checkpt.npz"),
+                              checkpoint_path=(os.path.join(args.save,
+                                                            "checkpt.npz")
+                                               if main else None),
                               callback=val_callback,
                               callback_every=args.val_freq,
                               pass_iteration=(shooting_variant
                                               and margs.constraint_anneal_iters
-                                              > 0))
+                                              > 0),
+                              step_factory=sf_s)
             if prev is not None:
                 # meters continue across stages: one uninterrupted trace
                 for meter in ("loss_meter", "observ_nll_meter",
@@ -669,10 +779,14 @@ def run_mocap(args: ExperimentArgs, shooting_variant: bool = False):
                 start_iter=max(stage_start, start_iter), opt_state=opt_state)
             stage_start = stage_end + 1
         logger.info("********** Optimization completed **********")
-        save_trace(trainer, os.path.join(args.save, "optimization_trace.json"),
-                   extra=val_meters)
-        _final_checkpoint(args, params, opt_state, gen)
+        if main:
+            save_trace(trainer, os.path.join(args.save,
+                                             "optimization_trace.json"),
+                       extra=val_meters)
+            _final_checkpoint(args, params, opt_state, gen)
 
+    if not main:  # rank 0 evaluates
+        return params, trainer, None
     # evaluation from the observed first latent states
     def predictions(p, split, stream):
         noise = _predict_noise(p, margs, args.eval_sample_size,

@@ -195,14 +195,24 @@ class Trainer:
                  frozen_predicate: Optional[Callable[[str], bool]] = None,
                  logger=None, checkpoint_path: Optional[str] = None,
                  callback: Optional[Callable] = None,
-                 callback_every: int = 0, pass_iteration: bool = False):
+                 callback_every: int = 0, pass_iteration: bool = False,
+                 step_factory: Optional[Callable] = None):
         """`callback(itr, params)` runs every `callback_every` iterations
         after a drain (so the meters are current); its wall time is kept
         out of the step-time meter. `pass_iteration`: hand the loss a
         float32 device tensor holding the iteration (constraint
-        annealing)."""
+        annealing).
+
+        `step_factory(params, optimizer) -> step(noise, *batch) -> terms`
+        replaces the default step (`make_train_step` of `loss_fn`): the
+        hook the multi-device drivers use for a mesh step
+        (`parallel/train.py`, `parallel/shard_map_step.py`), with the loop,
+        meters, checkpoints and callbacks unchanged. It is the JAX hook's
+        counterpart: the port's steps update `params` in place, and the
+        frozen predicate lives in the optimizer."""
         self.cfg = cfg
         self.loss_fn = loss_fn
+        self.step_factory = step_factory
         self.noise_fn = noise_fn
         self.frozen_predicate = frozen_predicate
         self.pass_iteration = pass_iteration
@@ -337,7 +347,10 @@ class Trainer:
                                       frozen_predicate=self.frozen_predicate)
         if opt_state is not None:
             optimizer.load_state(opt_state)
-        step = make_train_step(self.loss_fn, params, optimizer)
+        if self.step_factory is None:
+            step = make_train_step(self.loss_fn, params, optimizer)
+        else:
+            step = self.step_factory(params, optimizer)
         itr_dev = None
         if self.pass_iteration:
             device = next(params.parameters()).device

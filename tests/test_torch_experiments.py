@@ -177,22 +177,18 @@ def test_pallas_rhs_maps_to_the_kernel_rule(flag, kernels):
 
 @pytest.mark.parametrize("flags,item", [
     ([], None),
-    (["--no_plots", "--mesh", "dp=2"], "A.7"),
-], ids=["plots", "mesh"])
+], ids=["plots"])
 def test_unported_options_raise_before_any_work(flags, item, tmp_path):
-    """`--mesh` (ROADMAP A.7) is refused before any work. The plots (A.8)
-    are ported: a plots-on run of the tiny MoCap shooting twin trains and
-    draws."""
+    """The plots (A.8) are ported: a
+    plots-on run of the tiny MoCap shooting twin trains and draws. `--mesh`
+    (A.7) is ported too; its refusals, as the JAX driver's, are in
+    tests/test_torch_parallel.py."""
     save = tmp_path / "run"
     argv = ["--device", "cpu", "--save", str(save)] + flags
-    if item is None:
-        plots_on = [a for a in MOCAP if a != "--no_plots"] + SHOOTING
-        assert train_mocap_gpode_shooting.main(plots_on + argv) == 0
-        assert (save / "plt_latents_3d.png").exists()
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        train_mocap_gpode_shooting.main(argv)
-    assert not save.exists()
+    assert item is None
+    plots_on = [a for a in MOCAP if a != "--no_plots"] + SHOOTING
+    assert train_mocap_gpode_shooting.main(plots_on + argv) == 0
+    assert (save / "plt_latents_3d.png").exists()
 
 
 @pytest.mark.parametrize("flags", [
