@@ -73,7 +73,8 @@ exit code and no result line:
      states at the data, noise variance from a 16-draw predict), then the
      train steps with every launch counter set to 0 just before the driver
      and read just after. It must return 0, set a finite noise variance
-     > 0, launch each rk4 segment kernel once per step and neither the
+     > 0, replay its captured step (phase 7g) in every step after the
+     warm-up, launch each rk4 segment kernel once per step and neither the
      dopri5 attempt nor `fused_rhs`, and end at a finite 128-draw test LL
      above phase 7's (read after 23 steps from a random start); prints its
      init seconds and steps/s;
@@ -85,7 +86,8 @@ exit code and no result line:
      validation and checkpoints every 100: its artifacts with the JAX
      driver's keys and shapes, finite losses and final LL/MSE, the dopri5
      attempt forward and backward once per step (counters set to 0 just
-     before, read just after); `--eval_only` on `checkpt_best.npz` must give
+     before, read just after), the `Trainer`'s captured step replayed
+     (phase 7g); `--eval_only` on `checkpt_best.npz` must give
      the logged best-val test LL (rtol 1e-6); RESUME_ITERS steps in one go
      against half of them and `--resume` (losses of the second half and the
      final parameters, rtol 1e-6; bit-equality printed); `--solver rk4`
@@ -118,6 +120,29 @@ exit code and no result line:
      `explicit_adams` with remat (every forward launched once more in the
      backward, the loss unchanged); the VDP twin with `--solver adams` and
      `--solver bdf` for TINY_ITERS steps (finite losses and test LL);
+  7g. captured step: the train step as captured CUDA graphs
+     (`gpode_tpu_torch/train/graph_step.py`) against the eager step at the
+     `official`, `fast` and `scale` presets (the bench problem at full
+     width, one copy of its parameters per run, the same noise):
+     CAPTURE_STEPS steps each — every loss within rtol 1e-6 of the eager
+     one and every parameter within 1e-5 of its largest magnitude
+     (bit-equality printed), each segment kernel once per step and
+     direction (`LAUNCHES`), two graphs split at the accept read (official,
+     `scale`) or one (`fast`), no reject; host syncs per step
+     (`torch.cuda.set_sync_debug_mode`): 1 on a captured official or
+     `scale` step, 0 on a captured `fast` one (the eager steps' printed);
+     CAPTURE_PROFILED steps of each under torch.profiler: device kernels per
+     step, the device's busy share of the wall, and each segment kernel's
+     device launches equal to its `LAUNCHES` count and to one per step;
+     steps/s in windows of CAPTURE_WINDOW steps, eager and captured in
+     turns (E, C, C, E) x CAPTURE_ROUNDS; the peak allocated and reserved
+     MiB of each run above what was live before it; a forced reject inside
+     the captured official step (the grid stretched at two replays by the
+     first power of 2 that rejects): attempts, losses and parameters equal
+     to the eager run's, both rejects run eagerly after graph A. `scale`
+     may instead be refused by `capture_refusal`, its reason printed. The
+     `Trainer`, `bench_time_to_nll` and `scripts/bench.py` take the
+     captured step too, so phases 7b, 7c, 7e and 7f run it;
   7e. plots, FHN and the neural ODE (run after phase 9: it reads phase 8's
      VDP GP): the native host library's branch and build seconds, and
      whether g++ and matplotlib are here (with g++ the native branch is
@@ -134,7 +159,9 @@ exit code and no result line:
      against their plain versions (forward rtol 1e-4, cotangents atol
      1e-3 * max|g|), timed, the step-0 loss against the plain path (rtol
      1e-4), then TINY_ITERS twin steps with the attempt forward once per
-     step and its backward once per accepted step; FHN interpolation,
+     step (and once more per reject after a replayed graph A: the twin's
+     step is captured, phase 7g) and its backward once per accepted step;
+     FHN interpolation,
      vanilla and `--shooting` at 6 draws (`fused_rhs` in both directions):
      finite interpolation LL/MSE; the VDP and MoCap neural-ODE twins: the
      step-0 loss on the card against the CPU (rtol 1e-4), finite MSE;
@@ -285,7 +312,13 @@ _T0 = time.perf_counter()
 
 
 def phase(name):
-    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
+    """Print the phase's name, the smoke's seconds so far and, once CUDA is
+    up, the device memory still allocated by the phases before it."""
+    torch = sys.modules.get("torch")
+    mem = ""
+    if torch is not None and torch.cuda.is_initialized():
+        mem = f", {torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated"
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s{mem})", flush=True)
 
 
 class CheckFailed(RuntimeError):
@@ -1177,13 +1210,21 @@ def driver_phase(random_start_ll):
     phase("time to test LL (driver)")
     from gpode_tpu_torch.ops import cuda_kernels as ck
     from gpode_tpu_torch.scripts import bench_time_to_nll
+    from gpode_tpu_torch.train.graph_step import WARMUP_STEPS
     out = os.path.join(ROOT, "chiprun_out", "chip_smoke_time_to_nll.json")
-    ck.reset_launch_counts()                     # main path starts here
-    rc = bench_time_to_nll.main([
-        "--preset", "fast", "--num_iter", str(DRIVER_ITERS), "--eval_every",
-        "250", "--eval_draws", str(EVAL_DRAWS), "--out", out])
-    launches = dict(ck.LAUNCHES)                 # main path ends here
+    rec = _Recorder()
+    try:
+        ck.reset_launch_counts()                 # main path starts here
+        rc = bench_time_to_nll.main([
+            "--preset", "fast", "--num_iter", str(DRIVER_ITERS), "--eval_every",
+            "250", "--eval_draws", str(EVAL_DRAWS), "--out", out])
+        launches = dict(ck.LAUNCHES)             # main path ends here
+    finally:
+        rec.restore()
     check(rc == 0, f"the time-to-LL driver returned {rc}")
+    print(f"captured step: {rec.replays} replays", flush=True)
+    check(rec.replays == DRIVER_ITERS - WARMUP_STEPS,
+          "the time-to-LL driver did not replay its captured step")
     with open(out) as f:
         res = json.load(f)
     noise_var = res["noise_variance"]
@@ -1221,19 +1262,25 @@ MOCAP_TRACE_KEYS = {"loss", "observ_nll", "state_kl", "x0_kl", "inducing_kl",
 class _Recorder:
     """Wraps the functions a run goes through, to read what the CLI does not
     print: each `Trainer.train` call's iterations and seconds, the rows of
-    each `fused_dopri5_attempt` call, and each shooting ELBO's loss
-    (detached, read after the run), solver attempts and annealed constraint
-    scale."""
+    each `fused_dopri5_attempt` call, and each step's loss (detached, read
+    after the run), solver attempts and annealed constraint scale. An eager
+    step's come from its ELBO; a captured step's (`graph_step.CapturedStep`,
+    whose replays call no ELBO and whose capture computes none) from the
+    terms it returns, its ELBO calls inside it not recorded; `replays` and
+    `rejects` count its replayed steps and its rejects after a replayed
+    graph A (no reference to a step is kept: its graphs' memory would stay
+    allocated into later phases)."""
 
     def __init__(self):
         from gpode_tpu_torch.models import flow, gpode, shooting
-        from gpode_tpu_torch.train import trainer
+        from gpode_tpu_torch.train import graph_step, trainer
         self.targets = [(trainer.Trainer, "train"),
                         (flow, "fused_dopri5_attempt"),
-                        (gpode, "elbo_loss"), (shooting, "elbo_loss")]
+                        (gpode, "elbo_loss"), (shooting, "elbo_loss"),
+                        (graph_step.CapturedStep, "__call__")]
         self.saved = [getattr(o, n) for o, n in self.targets]
         self.reset()
-        rec, (train, attempt, v_elbo, s_elbo) = self, self.saved
+        rec, (train, attempt, v_elbo, s_elbo, captured) = self, self.saved
 
         def train_w(trainer_self, params, gen, *batch, start_iter=1,
                     opt_state=None):
@@ -1256,18 +1303,32 @@ class _Recorder:
         def s_elbo_w(*a, constraint_raw_scale=None, **k):
             loss, terms = s_elbo(*a, constraint_raw_scale=constraint_raw_scale,
                                  **k)
-            rec.losses.append(loss.detach())
-            rec.natts.append(terms.natt)
+            if not rec.in_captured:
+                rec.losses.append(loss.detach())
+                rec.natts.append(terms.natt)
             rec.raw_scale = constraint_raw_scale
             return loss, terms
 
+        def captured_w(step_self, noise, *batch):
+            before = step_self.replays, step_self.rejects
+            rec.in_captured += 1
+            try:
+                terms = captured(step_self, noise, *batch)
+            finally:
+                rec.in_captured -= 1
+            rec.replays += step_self.replays - before[0]
+            rec.rejects += step_self.rejects - before[1]
+            rec.losses.append(terms.loss.detach())
+            rec.natts.append(terms.natt)
+            return terms
+
         for (o, n), w in zip(self.targets, (train_w, attempt_w, v_elbo_w,
-                                            s_elbo_w)):
+                                            s_elbo_w, captured_w)):
             setattr(o, n, w)
 
     def reset(self):
         self.trains, self.rows, self.losses, self.raw_scale = [], set(), [], None
-        self.natts = []
+        self.natts, self.in_captured, self.replays, self.rejects = [], 0, 0, 0
 
     def restore(self):
         for (o, n), f in zip(self.targets, self.saved):
@@ -1340,6 +1401,10 @@ def experiments_phase(tmp):
             check(launches[name] == EXPERIMENT_ITERS,
                   f"{name} launched {launches[name]} times in "
                   f"{EXPERIMENT_ITERS} steps of the shooting twin")
+        print(f"default: the Trainer's captured step replayed {rec.replays} "
+              f"of {EXPERIMENT_ITERS} steps", flush=True)
+        check(rec.replays > 0, "the shooting twin's Trainer did not replay a "
+              "captured step")
         for name in ("fused_rk4_segment_fwd", "fused_rk4_segment_bwd",
                      "fused_rhs_fwd", "fused_rhs_bwd"):
             check(launches[name] == 0, f"{name} launched on the dopri5 twin")
@@ -2126,7 +2191,9 @@ def fhn_shooting_check(dev, tmp):
         check(rec.rows == {FHN_ROWS}, f"FHN attempt rows {rec.rows}")
     finally:
         rec.restore()
-    check(launches["fused_dopri5_attempt_fwd"] == TINY_ITERS
+    # a captured step's reject replays graph A (one attempt forward) before
+    # running the step eagerly
+    check(launches["fused_dopri5_attempt_fwd"] == TINY_ITERS + rec.rejects
           and launches["fused_dopri5_attempt_bwd"] == TINY_ITERS - rejected,
           f"the attempt kernels launched {launches['fused_dopri5_attempt_fwd']}"
           f" / {launches['fused_dopri5_attempt_bwd']} times in {TINY_ITERS} "
@@ -2657,6 +2724,286 @@ def profile_train_steps(step, make_noise, ys, ts, n_steps, preset):
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
 
 
+CAPTURE_PRESETS = ("official", "fast", "scale")
+CAPTURE_STEPS = 30            # captured against eager from one start
+CAPTURE_REJECT_STEPS = 10     # the forced-reject run; its stretched steps:
+CAPTURE_REJECT_AT = (4, 7)    # replays (the capture is the third call)
+CAPTURE_SYNC_STEPS = 5
+CAPTURE_PROFILED = 5
+CAPTURE_WINDOW = 50           # steps per timing window
+CAPTURE_ROUNDS = 2            # rounds of eager, captured, captured, eager
+# the device function of each segment kernel (csrc/fused_dopri5.cu,
+# csrc/fused_rk4.cu), as the profiler names it
+KERNEL_SYMBOLS = {"fused_dopri5_attempt_fwd": "dp_attempt_fwd_kernel",
+                  "fused_dopri5_attempt_bwd": "dp_attempt_bwd_kernel",
+                  "fused_rk4_segment_fwd": "rk4_fwd_kernel",
+                  "fused_rk4_segment_bwd": "rk4_bwd_kernel"}
+
+
+def _device_us(event):
+    return getattr(event, "self_device_time_total", None) or getattr(
+        event, "self_cuda_time_total", 0.0)
+
+
+def _max_rel(got, ref):
+    """max |got - ref| / max |ref| over one tensor (0 when both are 0)."""
+    scale = float(ref.abs().max())
+    diff = float((got - ref).abs().max())
+    return diff / scale if scale else diff
+
+
+class _StepRun:
+    """One copy of a bench problem's parameters with its Adam and train step
+    (eager or captured), fed noise from its own generator."""
+
+    def __init__(self, problem, captured):
+        import copy
+        import torch
+        from gpode_tpu_torch.models.shooting import sample_step_noise
+        from gpode_tpu_torch.train.builders import shooting_loss_fn
+        from gpode_tpu_torch.train.graph_step import make_captured_train_step
+        from gpode_tpu_torch.train.trainer import (default_optimizer,
+                                                   make_train_step)
+        self.args, params, self.ys, self.ts = problem
+        dev = self.ys.device
+        torch.cuda.synchronize()
+        self.base = (torch.cuda.memory_allocated(dev),
+                     torch.cuda.memory_reserved(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        self.params = copy.deepcopy(params)
+        make = make_captured_train_step if captured else make_train_step
+        self.step = make(shooting_loss_fn(self.args), self.params,
+                         default_optimizer(self.params, 5e-3))
+        self.gen = torch.Generator(dev).manual_seed(11)
+        self.sample = lambda: sample_step_noise(
+            self.params, self.args.num_features, self.args.num_samples,
+            self.gen)
+
+    def run(self, n, grid=None):
+        """n steps; `grid(i)` the time grid of step i (default the data's).
+        Returns the losses (device) and solver attempts."""
+        losses, natts = [], []
+        for i in range(n):
+            terms = self.step(self.sample(), self.ys,
+                              self.ts if grid is None else grid(i))
+            losses.append(terms.loss.detach())
+            natts.append(terms.natt)
+        return losses, natts
+
+    def peak_mib(self):
+        """Peak allocated and reserved MiB above what was live before this
+        run's parameters were copied."""
+        import torch
+        dev = self.ys.device
+        return ((torch.cuda.max_memory_allocated(dev) - self.base[0]) / 2**20,
+                (torch.cuda.max_memory_reserved(dev) - self.base[1]) / 2**20)
+
+
+def _compare_runs(eager, captured, losses_e, losses_c, what):
+    """The largest relative loss difference, the largest parameter
+    difference (per leaf, relative to its largest magnitude) and whether
+    the two runs are bit-equal; held at rtol 1e-6 and 1e-5."""
+    import torch
+    le, lc = torch.stack(losses_e), torch.stack(losses_c)
+    loss_rel = float(((lc - le).abs() / le.abs()).max())
+    param_rel = max(_max_rel(c.detach(), e.detach()) for e, c in zip(
+        eager.params.parameters(), captured.params.parameters()))
+    bit_equal = bool(torch.equal(le, lc)) and all(
+        torch.equal(e, c) for e, c in zip(eager.params.parameters(),
+                                         captured.params.parameters()))
+    print(f"  {what}: {len(losses_e)} losses, largest relative difference "
+          f"{loss_rel:.3e}; parameters {param_rel:.3e}; bit-equal {bit_equal}")
+    check(torch.isfinite(lc).all() and loss_rel <= 1e-6 and param_rel <= 1e-5,
+          f"{what}: the captured steps differ from the eager ones")
+    return dict(loss_max_rel=loss_rel, param_max_rel=param_rel,
+                bit_equal=bit_equal)
+
+
+def _syncs_per_step(run, n):
+    """Host syncs per step (`torch.cuda.set_sync_debug_mode("warn")`:
+    each synchronizing CUDA call warns once)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run.run(n)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught) / n
+
+
+def _profile_run(run, n, kernels):
+    """torch.profiler over n steps: device kernels per step, device busy
+    share of the wall, each segment kernel's device launches against the
+    `LAUNCHES` count of the same steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    torch.cuda.synchronize()
+    before = dict(ck.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.run(n)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages() if "CUDA" in str(e.device_type)]
+    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    device = {name: sum(e.count for e in events if KERNEL_SYMBOLS[name] in e.key)
+              for name in kernels}
+    counted = {name: ck.LAUNCHES[name] - before[name] for name in kernels}
+    return dict(kernels_per_step=sum(e.count for e in events) / n,
+                busy_ms_per_step=busy_ms / n, wall_ms_per_step=wall_ms / n,
+                busy_share=busy_ms / wall_ms, device_launches=device,
+                counted_launches=counted)
+
+
+def _timed_window(run, n):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, _ = run.run(n)
+    float(losses[-1])               # the window ends in a host read
+    return n / (time.perf_counter() - t0)
+
+
+def _captured_preset(dev, preset):
+    """Phase 7g for one preset: see `captured_step_phase`."""
+    import statistics
+    import torch
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
+    from gpode_tpu_torch.train.graph_step import capture_refusal
+    problem = build_bench_problem(preset_model_args(preset), device=dev)
+    reason = capture_refusal(problem[0], dev, problem[1])
+    print(f" {preset}: capture_refusal {reason!r}", flush=True)
+    if reason is not None:
+        check(preset == "scale", f"the {preset} step is not captured: {reason}")
+        return dict(refused=reason)
+    kernels = MAIN_PATH_KERNELS[preset]
+    runs, out = {}, {}
+    for captured in (False, True):
+        run = _StepRun(problem, captured)
+        ck.reset_launch_counts()                 # main path starts here
+        losses, natts = run.run(CAPTURE_STEPS)
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)             # main path ends here
+        name = "captured" if captured else "eager"
+        print(f"  {name}: launches {', '.join(f'{k} {launches[k]}' for k in kernels)}"
+              f"; attempts {sorted(set(natts))}; peak MiB (allocated, "
+              f"reserved) above the problem's {run.peak_mib()}", flush=True)
+        check(all(launches[k] == CAPTURE_STEPS for k in kernels)
+              and set(natts) == {1},
+              f"{preset} {name}: the segment kernels did not launch once per "
+              f"step in each direction, or an attempt was rejected")
+        runs[captured] = run
+        out[name] = dict(launches={k: launches[k] for k in kernels},
+                         peak_mib=run.peak_mib())
+        out[name]["losses"] = losses
+    step = runs[True].step
+    check(len(step.graphs) == (2 if preset != "fast" else 1)
+          and step.replays == CAPTURE_STEPS - step.warmup,
+          f"{preset}: {len(step.graphs)} graphs, {step.replays} replays")
+    out.update(_compare_runs(runs[False], runs[True], out["eager"].pop("losses"),
+                             out["captured"].pop("losses"), preset))
+    out["graphs"] = len(step.graphs)
+    out["graph_launches"] = step.graph_launches
+    for name, captured in (("eager", False), ("captured", True)):
+        run = runs[captured]
+        syncs = _syncs_per_step(run, CAPTURE_SYNC_STEPS)
+        prof = _profile_run(run, CAPTURE_PROFILED, kernels)
+        print(f"  {name}: {syncs:.2f} host syncs per step; "
+              f"{prof['kernels_per_step']:.0f} device kernels per step; busy "
+              f"{prof['busy_ms_per_step']:.3f} of {prof['wall_ms_per_step']:.3f}"
+              f" ms = {100 * prof['busy_share']:.1f}%; segment kernels in "
+              f"{CAPTURE_PROFILED} steps: device {prof['device_launches']}, "
+              f"LAUNCHES {prof['counted_launches']}", flush=True)
+        check(all(prof["device_launches"][k] == prof["counted_launches"][k]
+                  == CAPTURE_PROFILED for k in kernels),
+              f"{preset} {name}: a segment kernel did not run once per step "
+              f"in each direction, or LAUNCHES disagrees with the device")
+        out[name].update(host_syncs_per_step=syncs, **prof)
+    reads = 1 if preset != "fast" else 0
+    check(out["captured"]["host_syncs_per_step"] == reads,
+          f"{preset}: {out['captured']['host_syncs_per_step']} host syncs per "
+          f"captured step, not {reads}")
+    rates = {"eager": [], "captured": []}
+    for _ in range(CAPTURE_ROUNDS):
+        for name in ("eager", "captured", "captured", "eager"):
+            rates[name].append(_timed_window(runs[name == "captured"],
+                                             CAPTURE_WINDOW))
+    for name, r in rates.items():
+        out[name]["steps_per_sec"] = r
+        out[name]["steps_per_sec_median"] = statistics.median(r)
+    print(f"  steps/s over windows of {CAPTURE_WINDOW} (eager, captured, "
+          f"captured, eager) x {CAPTURE_ROUNDS}: eager "
+          f"{[round(v, 2) for v in rates['eager']]}, captured "
+          f"{[round(v, 2) for v in rates['captured']]}; medians "
+          f"{out['eager']['steps_per_sec_median']:.2f} / "
+          f"{out['captured']['steps_per_sec_median']:.2f}", flush=True)
+    return out
+
+
+def _captured_reject(dev):
+    """A forced reject inside the captured official step: the data's grid
+    stretched at CAPTURE_REJECT_AT (by the first power of 2 whose
+    whole-span attempt the eager loss rejects); the captured run's losses,
+    attempts and parameters equal to the eager run's."""
+    import torch
+    from gpode_tpu_torch.models.shooting import sample_step_noise
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
+    from gpode_tpu_torch.train.builders import shooting_loss_fn
+    problem = build_bench_problem(preset_model_args("official"), device=dev)
+    args, params, ys, ts = problem
+    noise = sample_step_noise(params, args.num_features, args.num_samples,
+                              torch.Generator(dev).manual_seed(12))
+    for k in range(1, 12):
+        with torch.no_grad():
+            natt = shooting_loss_fn(args)(params, noise, ys, ts * 2 ** k)[1].natt
+        if natt > 1:
+            break
+    else:
+        raise CheckFailed("no stretch of the grid rejects the attempt")
+    long_ts = ts * 2 ** k
+
+    def grid(i):
+        return long_ts if i in CAPTURE_REJECT_AT else ts
+
+    runs, seqs = {}, {}
+    for captured in (False, True):
+        runs[captured] = _StepRun(problem, captured)
+        seqs[captured] = runs[captured].run(CAPTURE_REJECT_STEPS, grid)
+    step = runs[True].step
+    print(f"  forced reject: grid x {2 ** k} at steps {CAPTURE_REJECT_AT}; "
+          f"attempts eager {seqs[False][1]}, captured {seqs[True][1]}; "
+          f"captured replays {step.replays}, rejects {step.rejects}, host "
+          f"reads {step.host_reads}", flush=True)
+    check(seqs[True][1] == seqs[False][1]
+          and all(seqs[False][1][i] > 1 for i in CAPTURE_REJECT_AT)
+          and step.rejects == len(CAPTURE_REJECT_AT)
+          and step.replays == (CAPTURE_REJECT_STEPS - step.warmup
+                               - len(CAPTURE_REJECT_AT)),
+          "the forced reject was not taken eagerly inside the captured step")
+    out = _compare_runs(runs[False], runs[True], seqs[False][0], seqs[True][0],
+                        "forced reject")
+    return dict(stretch=2 ** k, attempts=seqs[True][1], rejects=step.rejects,
+                replays=step.replays, **out)
+
+
+def captured_step_phase(dev):
+    """Phase 7g: the train step as captured CUDA graphs
+    (`train/graph_step.py`) against the eager step."""
+    phase("captured step")
+    out = {preset: _captured_preset(dev, preset) for preset in CAPTURE_PRESETS}
+    out["official"]["forced_reject"] = _captured_reject(dev)
+    return out
+
+
 def eval_phase(dev, args, params):
     """The projected scorer of `scripts/bench_time_to_nll.py` on the port:
     EVAL_DRAWS posterior draws from the MoCap-09 test split's start states,
@@ -2764,6 +3111,7 @@ def main(argv=None) -> int:
         (scale_solvers, scale_rows, scale_launches, adjoint_launches,
          multistep_launches) = scale_solvers_phase(dev, tmp,
                                                    opts.profile_steps)
+    captured = captured_step_phase(dev)
     vdp, vdp_params, vdp_data = vdp_phase(dev, "default", opts.profile_steps)
     vdp_golden, _, _ = vdp_phase(dev, "golden", opts.profile_steps)
     field, field_launches, e_gram = field_phase(dev, vdp_params, vdp_data,
@@ -2813,6 +3161,10 @@ def main(argv=None) -> int:
                           "bound_by": f_by}
         if name in mesh_launches:  # the segment kernels under --mesh too
             row["mesh"] = mesh_launches[name]
+        for preset in ("official", "fast", "scale"):
+            got = captured[preset].get("captured", {}).get("launches", {})
+            if name in got:  # in CAPTURE_STEPS captured steps (phase 7g)
+                row.setdefault("captured", {})[preset] = got[name]
         if name in ("fused_rhs_fwd", "fused_rhs_bwd"):
             row["launches_per_step"] = {
                 "adjoint": adjoint_launches[name],
@@ -2834,7 +3186,8 @@ def main(argv=None) -> int:
                    "train_official_heuristic": heuristic,
                    "eval_fast": evaluation, "time_to_nll": driver,
                    "experiments": experiments,
-                   "scale_and_solvers": scale_solvers, "vdp": vdp,
+                   "scale_and_solvers": scale_solvers,
+                   "captured_step": captured, "vdp": vdp,
                    "vdp_golden": vdp_golden, "field": field,
                    "plots_fhn_neural_ode": plots_fhn_node, "mesh": mesh,
                    "wall_seconds": time.perf_counter() - t_start},

@@ -12,9 +12,11 @@ from its noise.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import warnings
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -61,16 +63,21 @@ class SolverConfig:
         return substeps_from_dense_scale(self.ts_dense_scale)
 
 
+def _segment_kernel(cfg: SolverConfig) -> Optional[str]:
+    """The kernel of a one-interval solve under `cfg`: the rk4 segment or
+    the dopri5 attempt, or None (the solver has no segment kernel)."""
+    if cfg.solver == "rk4":
+        return "rk4_segment"
+    if cfg.solver == "dopri5" and cfg.first_step == FIRST_STEP_SPAN:
+        return "dopri5_attempt"
+    return None
+
+
 def _kernel_of(cfg: SolverConfig, ts: torch.Tensor) -> str:
     """The kernel a solve over `ts` launches when it takes the kernels: the
     rk4 segment or the dopri5 attempt for one-interval shooting segments,
     else `fused_rhs` at every rhs evaluation."""
-    if ts.shape[0] == 2 and cfg.solver == "rk4":
-        return "rk4_segment"
-    if (ts.shape[0] == 2 and cfg.solver == "dopri5"
-            and cfg.first_step == FIRST_STEP_SPAN):
-        return "dopri5_attempt"
-    return "fused_rhs"
+    return (ts.shape[0] == 2 and _segment_kernel(cfg)) or "fused_rhs"
 
 
 def _kernels_active(cfg: SolverConfig, gp_params: gp.SVGPParams,
@@ -80,6 +87,20 @@ def _kernels_active(cfg: SolverConfig, gp_params: gp.SVGPParams,
     if cfg.kernels is None:
         return gp.kernel_rhs_active(gp_params, n_rows, num_features, kernel)
     return cfg.kernels and gp_params.dimwise
+
+
+def segment_kernel_taken(cfg: SolverConfig, gp_params: gp.SVGPParams,
+                         n_rows: int, num_features: int) -> Optional[str]:
+    """The segment kernel ("rk4_segment" or "dopri5_attempt") that a
+    one-interval solve of `n_rows` rows under `cfg` launches, or None when
+    it takes another path (the adjoint, `fused_rhs` or the plain rhs under
+    a host-controlled solver loop)."""
+    kernel = _segment_kernel(cfg)
+    if (cfg.use_adjoint or kernel is None
+            or not _kernels_active(cfg, gp_params, n_rows, num_features,
+                                   kernel)):
+        return None
+    return kernel
 
 
 def _rematerialized(rhs):
@@ -100,6 +121,48 @@ def _adjoint_leaves(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw):
     q = gp_params.u_diag_raw if gp_params.q_diag else gp_params.u_tril
     return (gp_params.kernel.raw_lengthscales, gp_params.kernel.raw_variance,
             gp_params.z, gp_params.u_mean, q, *draw)
+
+
+class AcceptSeam:
+    """Where the whole-span attempt's accept read goes in a captured train
+    step (`train/graph_step.py`), the counterpart of the JAX package's
+    device-side `lax.cond`.
+
+    Installed with :func:`accept_seam`, it takes the read: the attempt
+    branch hands it the global error RMS as a device scalar and takes the
+    accepted branch. `read` writes the RMS into `rms`, a device scalar the
+    owner keeps, counts the read in `reads` and calls `split()`, with which
+    the owner ends the graph that holds the attempt (the owner reads `rms`
+    on the host after replaying it, and on a reject runs the whole step
+    eagerly). Outside it, the attempt branch reads the RMS on the host
+    itself."""
+
+    def __init__(self, rms: torch.Tensor, split: Callable[[], None]):
+        self.rms = rms
+        self.split = split
+        self.reads = 0
+
+    def read(self, err_rms: torch.Tensor):
+        if self.reads:
+            raise RuntimeError("a second whole-span accept read in one "
+                               "captured step")
+        self.rms.copy_(err_rms)
+        self.reads += 1
+        self.split()
+
+
+_ACCEPT_SEAM: contextvars.ContextVar[Optional[AcceptSeam]] = (
+    contextvars.ContextVar("accept_seam", default=None))
+
+
+@contextlib.contextmanager
+def accept_seam(seam: AcceptSeam):
+    """Route the attempt branch's accept read to `seam` inside the block."""
+    token = _ACCEPT_SEAM.set(seam)
+    try:
+        yield seam
+    finally:
+        _ACCEPT_SEAM.reset(token)
 
 
 def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
@@ -151,7 +214,8 @@ def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
     # dopri5 whole-span shooting segments: one attempt kernel computes f0,
     # the six stages and the scaled embedded error for every row. The accept
     # test is ONE global RMS over the batch, decided on the host (one sync
-    # per call); a rejected attempt falls back to the adaptive solver with
+    # per call, or through an `AcceptSeam` in a captured step); a rejected
+    # attempt falls back to the adaptive solver with
     # the plain rhs, seeded with the controller-shrunk dt. An accepted
     # whole-span attempt IS that solver's first accepted step.
     if kernel == "dopri5_attempt" and use_kernel:
@@ -160,7 +224,14 @@ def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
             x0, dt, gp_params.z, gp_params.kernel.lengthscales,
             gp_params.kernel.variance, draw.omega, draw.phase,
             gp.kernel_rff_weights(draw.weights), draw.nu, cfg.rtol, cfg.atol)
-        err_ratio = float(torch.sqrt(torch.mean(torch.square(err_scaled))))
+        err_rms = torch.sqrt(torch.mean(torch.square(err_scaled)))
+        seam = _ACCEPT_SEAM.get()
+        if seam is not None:
+            # a captured step: its owner reads the RMS between two graphs
+            # and runs the whole step eagerly on a reject
+            seam.read(err_rms)
+            return torch.stack([x0, x5], dim=1), ODEStats(7, 1, 1, 2)
+        err_ratio = float(err_rms)
         if err_ratio <= 1.0:
             return torch.stack([x0, x5], dim=1), ODEStats(7, 1, 1, 2)
 

@@ -106,8 +106,10 @@ def sample_shooting_states(p: ShootingStatePosterior, x0_normals: torch.Tensor,
 
 
 def _jittered_chol_from_scale(tril: torch.Tensor, jitter: float) -> torch.Tensor:
-    """chol(L L^T + jitter I), batched."""
-    return om.cholesky_jittered(torch.matmul(tril, tril.mT), jitter)
+    """chol(L L^T + jitter I), batched. State dims are tiny (D <= 8 for
+    every dataset), so the factorization takes the unrolled algorithm
+    (`ops/math.cholesky_jittered_auto`), as in the JAX package."""
+    return om.cholesky_jittered_auto(torch.matmul(tril, tril.mT), jitter)
 
 
 def _mvn_log_prob(x, mean, tril, jitter):

@@ -2,7 +2,8 @@
 
 Counterpart of `gpode_tpu/ops/math.py`. Batched Cholesky factorizations and
 triangular solves go to `torch.linalg` (the JAX package leaves them to XLA,
-outside any Pallas kernel).
+outside any Pallas kernel), apart from batches of tiny factors, which take
+the unrolled elementwise algorithm (`cholesky_jittered_auto`).
 """
 
 from __future__ import annotations
@@ -65,6 +66,48 @@ def cholesky_jittered(mat: torch.Tensor,
     a failed factorization yields non-finite entries instead of raising
     (`cholesky_ex` also skips the host sync of the error check)."""
     return torch.linalg.cholesky_ex(add_jitter(mat, jitter))[0]
+
+
+# Trailing dim at or below this routes batched factorizations through the
+# unrolled elementwise algorithm instead of `torch.linalg` (the JAX package's
+# threshold). The (N, T-1, 5, 5) shooting-state factors are then plain
+# elementwise work that a captured CUDA graph holds whole, with no batched
+# solver library call inside the train step.
+SMALL_CHOL_MAX_DIM = 8
+
+
+def cholesky_small(a: torch.Tensor) -> torch.Tensor:
+    """Unrolled Cholesky–Crout for tiny trailing dims; batched over leading
+    dims. The JAX package's `cholesky_small`: the same triangle and the same
+    recurrence order, as D(D+1)/2 columns of plain tensor arithmetic,
+    differentiable through it."""
+    d = a.shape[-1]
+    col = [[None] * d for _ in range(d)]
+    for j in range(d):
+        s = a[..., j, j]
+        for k in range(j):
+            s = s - col[j][k] * col[j][k]
+        col[j][j] = torch.sqrt(s)
+        inv_d = 1.0 / col[j][j]
+        for i in range(j + 1, d):
+            t = a[..., i, j]
+            for k in range(j):
+                t = t - col[i][k] * col[j][k]
+            col[i][j] = t * inv_d
+    zero = torch.zeros_like(a[..., 0, 0])
+    rows = [torch.stack([col[i][j] if j <= i else zero for j in range(d)],
+                        dim=-1) for i in range(d)]
+    return torch.stack(rows, dim=-2)
+
+
+def cholesky_jittered_auto(mat: torch.Tensor,
+                           jitter: float = DEFAULT_JITTER) -> torch.Tensor:
+    """`cholesky_jittered`, but trailing dims up to SMALL_CHOL_MAX_DIM take
+    the unrolled algorithm: for batches of small state covariances. The
+    (D, M, M) GP factors keep `cholesky_jittered`."""
+    if mat.shape[-1] <= SMALL_CHOL_MAX_DIM:
+        return cholesky_small(add_jitter(mat, jitter))
+    return cholesky_jittered(mat, jitter)
 
 
 def solve_lower(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

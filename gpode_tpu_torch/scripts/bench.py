@@ -7,15 +7,16 @@ Counterpart of the single-device `measure_steps_per_sec` of `bench.py`: the
 bench problem of a preset (`train/bench_setup.py`: MoCap subject 09, seqlen
 100, 5 PCA latents, the likelihood in the 50-D data space, kernel and
 inducing init), the preset's shooting step with Adam (lr 5e-3, no frozen
-mask, as `bench.py` builds it), step noise from a generator seeded with 1 on
-the device. 3 warm-up steps, then 3 timing windows of `--iters` steps, each
+mask, as `bench.py` builds it) — captured as CUDA graphs where
+`train/graph_step.capture_refusal` allows, as `bench.py` jits it — step
+noise from a generator seeded with 1 on the device. 3 warm-up steps, then 3 timing windows of `--iters` steps, each
 ending in a host read of the loss; steps/s is the median window's.
 
 Prints one JSON line: `steps_per_sec`, `rhs_evals_per_sec` (steps/s x the
 last step's rhs evaluations x the segments of a step, draws x sequences x
 steps), the final `loss`, `platform` ("gpu" or "cpu") and `device` (the
-card's name), plus the preset, the iterations and the peak device memory
-in MiB (null on the CPU). The JAX script's CPU-baseline subprocess is not
+card's name), plus the preset, whether the step was `captured`, the
+iterations and the peak device memory in MiB (null on the CPU). The JAX script's CPU-baseline subprocess is not
 here. `--device cpu` runs on the CPU (the kernels' plain versions).
 
 `--mesh dp=2,mc=4` times the sharded train step the drivers run with
@@ -43,7 +44,9 @@ from gpode_tpu_torch.parallel.mesh import make_mesh, parse_mesh_spec
 from gpode_tpu_torch.train.bench_setup import (PRESETS, build_bench_problem,
                                                preset_model_args)
 from gpode_tpu_torch.train.builders import shooting_loss_fn
-from gpode_tpu_torch.train.trainer import default_optimizer, make_train_step
+from gpode_tpu_torch.train.graph_step import (MESH_REFUSAL, CapturedStep,
+                                              log_refusal, make_step)
+from gpode_tpu_torch.train.trainer import default_optimizer
 
 
 def measure_steps_per_sec(preset: str = "official", iters: int = 200,
@@ -62,10 +65,11 @@ def measure_steps_per_sec(preset: str = "official", iters: int = 200,
     opt = default_optimizer(params, 5e-3)
     n_seq = ys.shape[0]
     if mesh is None:
-        step = make_train_step(shooting_loss_fn(args), params, opt)
+        step = make_step(shooting_loss_fn(args), params, opt, args)
         noise_fn = None
     else:
         make, noise_maker = STYLES[parallel]
+        log_refusal(MESH_REFUSAL, dev)
         step = make(mesh, args, params, opt)
         noise_fn = noise_maker(mesh, args)
         multihost.broadcast_params(params)
@@ -104,6 +108,7 @@ def measure_steps_per_sec(preset: str = "official", iters: int = 200,
         "platform": "gpu" if cuda else "cpu",
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
         "preset": preset,
+        "captured": isinstance(step, CapturedStep),
         "iters": iters,
         "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
                      if cuda else None),

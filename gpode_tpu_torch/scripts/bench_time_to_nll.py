@@ -18,8 +18,9 @@ compiles nothing ahead, so nothing needs hiding behind a subprocess):
     step), then the noise variance 1.5 x (the residual variance of a 16-draw
     `predict` of the training split in data space + 1e-4);
   * training: the preset's step with Adam (lr 5e-3), the constraint frozen
-    (`default_frozen_predicate`, as the JAX driver does), step noise from a
-    device generator seeded from `--seed`;
+    (`default_frozen_predicate`, as the JAX driver does), captured as CUDA
+    graphs where `train/graph_step.capture_refusal` allows, step noise from
+    a device generator seeded from `--seed`;
   * evals: the mixture test LL and MSE of the posterior predictive in the
     50-D data space (`train/evaluation.make_projected_scorer`): a
     `--track_draws` eval every `--eval_every` iterations; a tracking LL at or
@@ -67,7 +68,8 @@ from gpode_tpu_torch.train.builders import (build_shooting,
                                             make_projector, shooting_loss_fn)
 from gpode_tpu_torch.train.evaluation import make_projected_scorer
 from gpode_tpu_torch.train.experiments import _eval_cfg, generator, view
-from gpode_tpu_torch.train.trainer import default_optimizer, make_train_step
+from gpode_tpu_torch.train.graph_step import make_step
+from gpode_tpu_torch.train.trainer import default_optimizer
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -179,8 +181,8 @@ def main(argv=None) -> int:
     # ---- train, track, confirm crossings ----
     ys = torch.as_tensor(data_full.trn.ys, device=dev)
     ts = torch.as_tensor(data_pca.trn.ts, device=dev)
-    step = make_train_step(shooting_loss_fn(margs), params, default_optimizer(
-        params, 5e-3, frozen_predicate=default_frozen_predicate(margs)))
+    step = make_step(shooting_loss_fn(margs), params, default_optimizer(
+        params, 5e-3, frozen_predicate=default_frozen_predicate(margs)), margs)
     train_gen = generator(dev, a.seed, _TRAIN)
     scorer = make_projected_scorer(eval_config(margs),
                                    latent_to_data_projector(data_pca),

@@ -547,7 +547,8 @@ def run_2d(args: ExperimentArgs, data, name: str,
                                            if main else None),
                           pass_iteration=(shooting_variant
                                           and margs.constraint_anneal_iters > 0),
-                          step_factory=step_factory)
+                          step_factory=step_factory, model_args=margs,
+                          kernels=args.kernels)
         params, opt_state, gen = trainer.train(
             params, _train_generator(args, device, gen_state), train_ys,
             _tensor(data.trn.ts, device), start_iter=start_iter,
@@ -764,7 +765,8 @@ def run_mocap(args: ExperimentArgs, shooting_variant: bool = False):
                               pass_iteration=(shooting_variant
                                               and margs.constraint_anneal_iters
                                               > 0),
-                              step_factory=sf_s)
+                              step_factory=sf_s, model_args=margs_s,
+                              kernels=args.kernels)
             if prev is not None:
                 # meters continue across stages: one uninterrupted trace
                 for meter in ("loss_meter", "observ_nll_meter",
@@ -920,7 +922,10 @@ def run_fhn_interpolation(args: ExperimentArgs, small: bool = False,
                                           shooting_variant, train_ts)),
                           noise_fn, frozen_predicate=frozen, logger=logger,
                           checkpoint_path=os.path.join(args.save,
-                                                       "checkpt.npz"))
+                                                       "checkpt.npz"),
+                          model_args=dataclasses.replace(
+                              margs, segment_minibatch=0),
+                          kernels=args.kernels)
         params, opt_state, gen = trainer.train(
             params, _train_generator(args, device, gen_state),
             _tensor(train_ys, device), _tensor(train_ts, device),

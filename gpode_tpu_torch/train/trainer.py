@@ -16,6 +16,7 @@ pinned host memory without blocking, and collected one window later.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import time
@@ -75,29 +76,67 @@ def cosine_decay(lr: float, decay_steps: int, alpha: float = 0.01):
                                                / f32(decay_steps)))
         return float(f32(lr) * ((f32(1.0) - f32(alpha)) * cosine + f32(alpha)))
 
+    schedule.horizon = decay_steps
+    return schedule
+
+
+def constant_schedule(lr: float):
+    """The lr `lr` at every count (horizon 0)."""
+
+    def schedule(count: int) -> float:
+        del count
+        return lr
+
+    schedule.horizon = 0
     return schedule
 
 
 def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     """The lr as a function of Adam's count for `cfg.lr_schedule`; the
-    cosine horizon is `cfg.num_iter`."""
+    cosine horizon is `cfg.num_iter`. A schedule carries `horizon`: the
+    count from which its lr stays constant."""
     if cfg.lr_schedule == "constant":
-        return lambda count: cfg.lr
+        return constant_schedule(cfg.lr)
     if cfg.lr_schedule == "cosine":
         return cosine_decay(cfg.lr, cfg.num_iter, alpha=0.01)
     raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def _bias_corrections(b1: float, b2: float) -> np.ndarray:
+    """(C, 2) float32: 1 - b1^(c+1) and 1 - b2^(c+1) at count c, each the
+    float32 expression of optax's update (a scalar power per count: numpy's
+    array power rounds otherwise), until both reach 1 and stay there."""
+    one, rows, c = np.float32(1.0), [], 0
+    while not rows or (rows[-1][0] < one or rows[-1][1] < one):
+        c += 1
+        rows.append((one - np.float32(b1) ** c, one - np.float32(b2) ** c))
+        if c > 10_000_000:
+            raise ValueError(f"Adam's bias corrections of b1={b1}, b2={b2} "
+                             f"do not reach 1 in float32")
+    table = np.asarray(rows, np.float32)
+    table.setflags(write=False)   # one cached array for every optimizer
+    return table
 
 
 class Adam:
     """optax's `adam` (b1=0.9, b2=0.999, eps=1e-8, eps_root=0), optionally
     behind `clip_by_global_norm`, over the parameters of `params`.
 
-    `lr` is a float or a function of the update count (0 at the first
-    update), as an optax schedule. Parameters whose dotted name satisfies
-    `frozen_predicate` get a zero gradient before the clip — their moments
-    still decay and their value never moves, as with the JAX package's
-    frozen mask. The update is written out so it rounds like optax:
-    m/(1-b1^t) / (sqrt(v/(1-b2^t)) + eps), times -lr.
+    `lr` is a float or a schedule of the update count (0 at the first
+    update) with a `horizon` attribute, the count from which its lr stays
+    constant (`constant_schedule`, `cosine_decay`). Parameters whose dotted
+    name satisfies `frozen_predicate` get a zero gradient before the clip —
+    their moments still decay and their value never moves, as with the JAX
+    package's frozen mask. The update is written out so it rounds like
+    optax: m/(1-b1^t) / (sqrt(v/(1-b2^t)) + eps), times -lr.
+
+    The update reads no host value that changes from step to step, so a
+    CUDA graph can hold it (`train/graph_step.py`): the count is a device
+    tensor, and the lr and both bias corrections are float32 tables made
+    on the host with the schedule's own expressions and indexed on the
+    device by the count (clamped at the table's end, past which none of
+    them changes). `count` reads the device count on the host.
     """
 
     def __init__(self, params: nn.Module,
@@ -107,12 +146,43 @@ class Adam:
         self.names, self.params = zip(*params.named_parameters())
         self.frozen = [bool(frozen_predicate and frozen_predicate(n))
                        for n in self.names]
-        self.lr = lr if callable(lr) else (lambda count: lr)
+        self.lr = lr if callable(lr) else constant_schedule(lr)
+        if not isinstance(getattr(self.lr, "horizon", None), int):
+            raise ValueError("Adam's lr schedule needs an int `horizon` "
+                             "(the count from which its lr is constant)")
         self.b1, self.b2, self.eps = b1, b2, eps
         self.grad_clip = grad_clip
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+        device = self.params[0].device
+        self._count = torch.zeros((), dtype=torch.int64, device=device)
+        self._table = self._make_table(device)
+
+    def _make_table(self, device) -> torch.Tensor:
+        """(C, 3) float32 on `device`: -lr, then both bias corrections, at
+        count c. On a card they are stored as float32 reciprocals: PyTorch
+        divides a CUDA tensor by a host scalar as a multiply by that
+        reciprocal (a CPU tensor by a true division), so each device keeps
+        the rounding of the update that read host floats."""
+        bc = _bias_corrections(self.b1, self.b2)
+        rows = max(len(bc), self.lr.horizon + 1)
+        bc = np.concatenate([bc, np.repeat(bc[-1:], rows - len(bc), 0)])
+        lrs = [np.float32(self.lr(c))
+               for c in range(min(rows, self.lr.horizon + 1))]
+        neg_lr = -np.asarray(lrs + lrs[-1:] * (rows - len(lrs)), np.float32)
+        if device.type == "cuda":
+            bc = np.float32(1.0) / bc
+        table = np.concatenate([neg_lr[:, None], bc], axis=1)
+        return torch.as_tensor(table, device=device)
+
+    @property
+    def count(self) -> int:
+        """The update count (a host read of the device count)."""
+        return int(self._count)
+
+    @count.setter
+    def count(self, value: int):
+        self._count.fill_(int(value))
 
     def zero_grad(self):
         for p in self.params:
@@ -126,15 +196,17 @@ class Adam:
             g_norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
             grads = [torch.where(g_norm < self.grad_clip, g,
                                  g / g_norm * self.grad_clip) for g in grads]
-        lr = float(np.float32(self.lr(self.count)))
-        self.count += 1
-        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** self.count)
-        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** self.count)
+        row = self._table.index_select(
+            0, torch.clamp(self._count, max=len(self._table) - 1).reshape(1))
+        neg_lr, bc1, bc2 = row[0].unbind()
+        self._count += 1
+        cuda = self._table.is_cuda   # bc1, bc2 hold reciprocals there
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
             mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
             nu.copy_((1.0 - self.b2) * torch.square(g) + self.b2 * nu)
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            p.add_(-lr * update)
+            m_hat = mu * bc1 if cuda else mu / bc1
+            v_hat = nu * bc2 if cuda else nu / bc2
+            p.add_(neg_lr * (m_hat / (torch.sqrt(v_hat) + self.eps)))
 
     def state(self) -> dict:
         """{"mu": {name: tensor}, "nu": {name: tensor}, "count": int}."""
@@ -196,7 +268,8 @@ class Trainer:
                  logger=None, checkpoint_path: Optional[str] = None,
                  callback: Optional[Callable] = None,
                  callback_every: int = 0, pass_iteration: bool = False,
-                 step_factory: Optional[Callable] = None):
+                 step_factory: Optional[Callable] = None,
+                 model_args=None, kernels: Optional[bool] = None):
         """`callback(itr, params)` runs every `callback_every` iterations
         after a drain (so the meters are current); its wall time is kept
         out of the step-time meter. `pass_iteration`: hand the loss a
@@ -209,10 +282,19 @@ class Trainer:
         (`parallel/train.py`, `parallel/shard_map_step.py`), with the loop,
         meters, checkpoints and callbacks unchanged. It is the JAX hook's
         counterpart: the port's steps update `params` in place, and the
-        frozen predicate lives in the optimizer."""
+        frozen predicate lives in the optimizer.
+
+        `model_args` (the model's `ModelArgs`) and `kernels` (its solver's
+        kernel rule) let the default step be the captured one
+        (`train/graph_step.make_step`: CUDA graphs wherever
+        `capture_refusal` is None, else the eager step with the reason
+        logged once); without them the default step is the eager
+        `make_train_step`."""
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.step_factory = step_factory
+        self.model_args = model_args
+        self.kernels = kernels
         self.noise_fn = noise_fn
         self.frozen_predicate = frozen_predicate
         self.pass_iteration = pass_iteration
@@ -347,10 +429,19 @@ class Trainer:
                                       frozen_predicate=self.frozen_predicate)
         if opt_state is not None:
             optimizer.load_state(opt_state)
-        if self.step_factory is None:
-            step = make_train_step(self.loss_fn, params, optimizer)
-        else:
+        # graph_step imports this module
+        from gpode_tpu_torch.train import graph_step
+        if self.step_factory is not None:
             step = self.step_factory(params, optimizer)
+            if self.model_args is not None:
+                graph_step.log_refusal(graph_step.MESH_REFUSAL,
+                                       optimizer.params[0].device, self.logger)
+        elif self.model_args is not None:
+            step = graph_step.make_step(self.loss_fn, params, optimizer,
+                                        self.model_args, kernels=self.kernels,
+                                        logger=self.logger)
+        else:
+            step = make_train_step(self.loss_fn, params, optimizer)
         itr_dev = None
         if self.pass_iteration:
             device = next(params.parameters()).device

@@ -648,3 +648,70 @@ def test_plots_grid_conditional_takes_rbf_gram_once(cuda):
     for got, want in ((mean, mean_c), (var, var_c)):
         np.testing.assert_allclose(got, want, rtol=1e-4,
                                    atol=1e-4 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("case", ["constant", "cosine", "clip"])
+def test_device_count_adam_is_bit_equal_to_host_float_adam_on_the_card(
+        cuda, case):
+    """The device-count Adam (lr and bias-correction tables indexed by the
+    count on the card) against the host-float Adam it replaced, 50 updates:
+    bit-equal, so the tables keep PyTorch's division of a CUDA tensor by a
+    host scalar (a multiply by its float32 reciprocal)."""
+    from gpode_tpu_torch.train import trainer as tt
+
+    from _torch_host_adam import HostFloatAdam, run_adam_pair
+
+    kw = {"constant": dict(lr=5e-3),
+          "cosine": dict(lr=tt.cosine_decay(5e-3, 50, alpha=0.01)),
+          "clip": dict(lr=5e-3, grad_clip=1.0)}[case]
+    (new_p, new), (host_p, host) = run_adam_pair(
+        lambda p: tt.Adam(p, **kw), lambda p: HostFloatAdam(p, **kw), 50,
+        reload_at=20, device=cuda)
+    assert new.count == host.count == 50
+    for a, b in zip(list(new_p.parameters()) + new.mu + new.nu,
+                    list(host_p.parameters()) + host.mu + host.nu):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("preset", ["official", "fast"])
+def test_captured_step_equals_the_eager_step(cuda, preset):
+    """10 steps of the bench problem through the captured step against 10
+    eager ones from the same start and noise: losses rtol 1e-6, every
+    parameter within 1e-5 of its largest magnitude; two graphs (official:
+    split at the accept read) or one (`fast`), each segment kernel once per
+    step and direction in both runs."""
+    import copy
+
+    from gpode_tpu_torch.models.shooting import sample_step_noise
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
+    from gpode_tpu_torch.train.builders import shooting_loss_fn
+    from gpode_tpu_torch.train.graph_step import (capture_refusal,
+                                                  make_captured_train_step)
+    from gpode_tpu_torch.train.trainer import default_optimizer, make_train_step
+
+    args, params, ys, ts = build_bench_problem(preset_model_args(preset),
+                                               device=cuda)
+    assert capture_refusal(args, cuda, params) is None
+    kernels = (("fused_rk4_segment_fwd", "fused_rk4_segment_bwd")
+               if preset == "fast" else
+               ("fused_dopri5_attempt_fwd", "fused_dopri5_attempt_bwd"))
+    runs = []
+    for make in (make_train_step, make_captured_train_step):
+        p = copy.deepcopy(params)
+        step = make(shooting_loss_fn(args), p, default_optimizer(p, 5e-3))
+        gen = torch.Generator(cuda).manual_seed(5)
+        before = dict(ck.LAUNCHES)
+        losses = torch.stack([step(sample_step_noise(
+            p, args.num_features, args.num_samples, gen), ys, ts).loss.detach()
+            for _ in range(10)])
+        torch.cuda.synchronize()
+        assert all(ck.LAUNCHES[k] - before[k] == 10 for k in kernels)
+        runs.append((losses, p, step))
+    (le, pe, _), (lc, pc, step) = runs
+    assert len(step.graphs) == (1 if preset == "fast" else 2)
+    assert step.replays == 10 - step.warmup and step.rejects == 0
+    torch.testing.assert_close(lc, le, rtol=1e-6, atol=0.0)
+    for a, b in zip(pc.parameters(), pe.parameters()):
+        torch.testing.assert_close(a.detach(), b.detach(), rtol=0.0,
+                                   atol=1e-5 * float(b.detach().abs().max()))
