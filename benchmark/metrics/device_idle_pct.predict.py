@@ -1,0 +1,3 @@
+"""The device's idle share of the profiled prediction requests' wall time."""
+
+from benchmark.readers import device_idle_pct as read  # noqa: F401
