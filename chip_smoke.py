@@ -2461,11 +2461,8 @@ def mesh_profile_check(tmp):
                                  steps=PROFILE_TRACE_STEPS, preset="official")
     summary = analyze_trace.report(prof.trace_path, top=10,
                                    steps=PROFILE_TRACE_STEPS)
-    kernels = [e for e in prof.key_averages()
-               if "CUDA" in str(e.device_type)]
-    busy_ms = sum(getattr(e, "self_device_time_total", None)
-                  or getattr(e, "self_cuda_time_total", 0.0)
-                  for e in kernels) / 1e3 / PROFILE_TRACE_STEPS
+    kernels = _device_rows(prof.key_averages())
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / PROFILE_TRACE_STEPS
     per_step = {g: v / 1e3 / PROFILE_TRACE_STEPS
                 for g, v in summary["groups"].items()}
     total = summary["total_us"] / 1e3 / PROFILE_TRACE_STEPS
@@ -2709,7 +2706,7 @@ def profile_train_steps(step, make_noise, ys, ts, n_steps, preset):
 
     # device-side events only (kernels, memcpy/memset): the CPU operators
     # that launched them report the same time again
-    kernels = [e for e in events if "CUDA" in str(e.device_type)]
+    kernels = _device_rows(events)
     busy_ms = sum(dev_self_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels) / n_steps
     print(f"wall {wall_ms / n_steps:.3f} ms/step (profiled); device busy "
@@ -2743,6 +2740,15 @@ KERNEL_SYMBOLS = {"fused_dopri5_attempt_fwd": "dp_attempt_fwd_kernel",
 def _device_us(event):
     return getattr(event, "self_device_time_total", None) or getattr(
         event, "self_cuda_time_total", 0.0)
+
+
+def _device_rows(events):
+    """The device's own rows of `key_averages()`: kernels, copies and sets.
+    A span of the program (`profiling.SPANS`) also has a row on the device,
+    which repeats the time of the kernels inside it; it is left out."""
+    from gpode_tpu_torch.utils.profiling import SPANS
+    return [e for e in events
+            if "CUDA" in str(e.device_type) and e.key not in SPANS]
 
 
 def _max_rel(got, ref):
@@ -2850,7 +2856,7 @@ def _profile_run(run, n, kernels):
         run.run(n)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.key_averages() if "CUDA" in str(e.device_type)]
+    events = _device_rows(prof.key_averages())
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     device = {name: sum(e.count for e in events if KERNEL_SYMBOLS[name] in e.key)
               for name in kernels}

@@ -30,6 +30,7 @@ from gpode_tpu_torch.ops import math as om
 from gpode_tpu_torch.ops.cuda_kernels import fused_rhs, kernel_refusal, rbf_gram
 from gpode_tpu_torch.ops.kernels import (RBFParams, init_rbf, rbf_K, rbf_K_diag,
                                          rbf_sample_freq)
+from gpode_tpu_torch.utils.profiling import span
 
 
 class SVGPParams(nn.Module):
@@ -160,21 +161,26 @@ def draw_posterior(params: SVGPParams, weight_normals: torch.Tensor,
     weight_normals (..., S, D), freq_normals (..., Din, S, D) [dimwise] or
     (..., Din, S), phase_uniforms in [0, 1) of shape (..., 1, S, D)
     [dimwise] or (..., 1, S), inducing_normals (..., M, D). A leading draw
-    axis gives that many draws sharing one Cholesky of K(Z, Z)."""
-    weights = weight_normals
-    omega = rbf_sample_freq(params.kernel, freq_normals)
-    phase = 2.0 * math.pi * phase_uniforms
-    v = sample_inducing(params, inducing_normals)             # (..., M, D)
-    if chol_zz is None:
-        chol_zz = precompute_chol(params)
-    u_prior = rff_eval(params, omega, phase, weights, params.z)  # (..., M, D)
-    if params.dimwise:
-        a = om.solve_lower(chol_zz, u_prior.mT[..., None])      # (..., D, M, 1)
-        nu = om.solve_upper_from_lower(chol_zz, v.mT[..., None] - a)[..., 0]
-    else:
-        a = om.solve_lower(chol_zz, u_prior)
-        nu = om.solve_upper_from_lower(chol_zz, v - a).mT
-    return PosteriorDraw(omega=omega, phase=phase, weights=weights, nu=nu)
+    axis gives that many draws sharing one Cholesky of K(Z, Z). The draw is
+    the span `gpode.draw`."""
+    with span("gpode.draw"):
+        weights = weight_normals
+        omega = rbf_sample_freq(params.kernel, freq_normals)
+        phase = 2.0 * math.pi * phase_uniforms
+        v = sample_inducing(params, inducing_normals)           # (..., M, D)
+        if chol_zz is None:
+            chol_zz = precompute_chol(params)
+        u_prior = rff_eval(params, omega, phase, weights,
+                           params.z)                            # (..., M, D)
+        if params.dimwise:
+            # (..., D, M, 1)
+            a = om.solve_lower(chol_zz, u_prior.mT[..., None])
+            nu = om.solve_upper_from_lower(chol_zz,
+                                           v.mT[..., None] - a)[..., 0]
+        else:
+            a = om.solve_lower(chol_zz, u_prior)
+            nu = om.solve_upper_from_lower(chol_zz, v - a).mT
+        return PosteriorDraw(omega=omega, phase=phase, weights=weights, nu=nu)
 
 
 # Kernel dispatch seam: dimwise evaluations of at least this many rows take

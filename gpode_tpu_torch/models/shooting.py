@@ -22,13 +22,11 @@ statistics over the ranks.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from gpode_tpu_torch.models import gp
 from gpode_tpu_torch.models.constraints import constraint_log_prob
@@ -38,9 +36,10 @@ from gpode_tpu_torch.models.states import (initial_state_kl,
                                            sample_shooting_states,
                                            shooting_entropy)
 from gpode_tpu_torch.ops.ode import ODEStats
+from gpode_tpu_torch.utils.profiling import span
 
-# the profiler range around a rank's segment solve under a mesh, which
-# `parallel/collective_audit.py` holds free of collectives
+# the span around the segments' solve, which `parallel/collective_audit.py`
+# holds free of collectives under a mesh
 SOLVE_RANGE = "gpode.segment_solve"
 
 
@@ -182,66 +181,70 @@ def elbo_loss(params: ShootingParams, noise: StepNoise, ys: torch.Tensor,
         if ys.shape[0] != n_hi - n_lo:
             raise ValueError(f"ys holds {ys.shape[0]} sequences; this rank's "
                              f"block of the model's is {n_hi - n_lo}")
-    ss = sample_shooting_states(params.states, noise.x0, noise.states,
-                                slice(n_lo, n_hi))
-    t = ss.shape[2]
-    idx = noise.segment_idx
-    if idx is None:
-        ss_batch, ys_batch = ss, ys
-    else:
-        k = idx.shape[0]
-        ss_batch = ss.index_select(2, idx)                       # (S,N,K,D)
-        ys_batch = ys.index_select(1, idx)
-        # continuity partner: state idx+1 (the final segment has none)
-        has_next = (idx < t - 1).to(ss.dtype)                     # (K,)
-        ss_next = ss.index_select(2, torch.clamp(idx + 1, max=t - 1))
+    with span("gpode.states"):
+        ss = sample_shooting_states(params.states, noise.x0, noise.states,
+                                    slice(n_lo, n_hi))
+        t = ss.shape[2]
+        idx = noise.segment_idx
+        if idx is None:
+            ss_batch, ys_batch = ss, ys
+        else:
+            k = idx.shape[0]
+            ss_batch = ss.index_select(2, idx)                   # (S,N,K,D)
+            ys_batch = ys.index_select(1, idx)
+            # continuity partner: state idx+1 (the final segment has none)
+            has_next = (idx < t - 1).to(ss.dtype)                 # (K,)
+            ss_next = ss.index_select(2, torch.clamp(idx + 1, max=t - 1))
     draw = gp.draw_posterior(params.gp, noise.rff_weights, noise.rff_freq,
                              noise.rff_phase, noise.inducing)
-    with (contextlib.nullcontext() if mesh is None
-          else record_function(SOLVE_RANGE)):
+    with span(SOLVE_RANGE):
         pred, stats = integrate_segments(params.gp, draw, ss_batch, ts[:2],
                                          cfg)
 
-    lp = likelihood_log_prob(params.likelihood, pred, ys_batch[None])
-    if obs_mask is None:
-        observ_loglik = torch.mean(lp)
-        num_obs = ys.numel()
-    else:
-        mask = obs_mask if idx is None else obs_mask.index_select(1, idx)
-        m_total = torch.sum(obs_mask)
-        batch_scale = 1.0 if idx is None else t / k
-        m = mask[None, :, :, None].to(lp.dtype)
-        observ_loglik = (batch_scale * torch.sum(lp * m)
-                         / (ss.shape[0] * m_total * lp.shape[-1]))
-        num_obs = m_total * lp.shape[-1]
+    with span("gpode.elbo"):
+        lp = likelihood_log_prob(params.likelihood, pred, ys_batch[None])
+        if obs_mask is None:
+            observ_loglik = torch.mean(lp)
+            num_obs = ys.numel()
+        else:
+            mask = obs_mask if idx is None else obs_mask.index_select(1, idx)
+            m_total = torch.sum(obs_mask)
+            batch_scale = 1.0 if idx is None else t / k
+            m = mask[None, :, :, None].to(lp.dtype)
+            observ_loglik = (batch_scale * torch.sum(lp * m)
+                             / (ss.shape[0] * m_total * lp.shape[-1]))
+            num_obs = m_total * lp.shape[-1]
 
-    def constraint(loc, y):
-        return constraint_log_prob(params.constraint, loc, y,
-                                   constraint_raw_scale).sum(dim=3)
+        def constraint(loc, y):
+            return constraint_log_prob(params.constraint, loc, y,
+                                       constraint_raw_scale).sum(dim=3)
 
-    if idx is None:
-        constr = constraint(ss[:, :, 1:, :], pred[:, :, :-1, :])  # (S,N,T-1)
-        scaled_constr = torch.mean(constr, dim=0).sum() / num_obs
-    else:
-        constr = constraint(ss_next, pred)                        # (S,N,K)
-        # Horvitz-Thompson: inclusion probability K/T per segment
-        scaled_constr = ((t / k) * torch.mean(constr * has_next, dim=0).sum()
-                         / num_obs)
-    if mesh is not None:
-        # this block's share of the global means: 1 / (its share of the
-        # samples and of the sequences), and of the mean over samples
-        dp, mc = mesh.axis_size("dp"), mesh.axis_size("mc")
-        num_obs = num_obs * dp
-        observ_loglik = observ_loglik / (dp * mc)
-        scaled_constr = scaled_constr / (dp * mc)
-    if mesh is None or mesh.rank == 0:
-        scaled_entropy = shooting_entropy(params.states).sum() / num_obs
-        x0_kl = initial_state_kl(params.states.x0) / num_obs
-        ind_kl = gp.kl(params.gp) / num_obs
-    else:
-        scaled_entropy = x0_kl = ind_kl = ss.new_zeros(())
+        if idx is None:
+            # (S, N, T-1)
+            constr = constraint(ss[:, :, 1:, :], pred[:, :, :-1, :])
+            scaled_constr = torch.mean(constr, dim=0).sum() / num_obs
+        else:
+            constr = constraint(ss_next, pred)                    # (S,N,K)
+            # Horvitz-Thompson: inclusion probability K/T per segment
+            scaled_constr = ((t / k)
+                             * torch.mean(constr * has_next, dim=0).sum()
+                             / num_obs)
+        if mesh is not None:
+            # this block's share of the global means: 1 / (its share of the
+            # samples and of the sequences), and of the mean over samples
+            dp, mc = mesh.axis_size("dp"), mesh.axis_size("mc")
+            num_obs = num_obs * dp
+            observ_loglik = observ_loglik / (dp * mc)
+            scaled_constr = scaled_constr / (dp * mc)
+        if mesh is None or mesh.rank == 0:
+            scaled_entropy = shooting_entropy(params.states).sum() / num_obs
+            x0_kl = initial_state_kl(params.states.x0) / num_obs
+            ind_kl = gp.kl(params.gp) / num_obs
+        else:
+            scaled_entropy = x0_kl = ind_kl = ss.new_zeros(())
 
-    loss = -(observ_loglik + scaled_constr + scaled_entropy - x0_kl - ind_kl)
+        loss = -(observ_loglik + scaled_constr + scaled_entropy - x0_kl
+                 - ind_kl)
     return loss, ShootingELBOTerms(
         loss=loss, observ_nll=-observ_loglik,
         state_kl=-(scaled_constr + scaled_entropy), x0_kl=x0_kl,

@@ -30,6 +30,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from gpode_tpu_torch.utils.profiling import clocked, span
+
 SOLVERS = ("dopri5", "rk4", "midpoint", "euler", "explicit_adams",
            "fixed_adams", "adams", "implicit_adams", "bdf")
 
@@ -377,23 +379,30 @@ def odeint_dopri5(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
     for _ in range(max_steps):
         if tau >= tau_final:
             break
-        remaining = _F32(tau_final - tau)
-        dt_step = _F32(min(dt, remaining))
-        x_new, err, k7 = _dopri5_step(f_tau, float(tau), x, float(dt_step), k1)
-        with torch.no_grad():
-            scale = atol + rtol * torch.maximum(torch.abs(x), torch.abs(x_new))
-            err_ratio = float(norm(err / scale))
-        accept = err_ratio <= 1.0
-        tau_end = tau_final if dt_step >= remaining else _F32(tau + dt_step)
-        if accept:
-            for j, tau_j in enumerate(taus):
-                if out[j] is None and tau_j <= tau_end:
-                    out[j] = _hermite(tau_j, tau, tau_end, x, k1, x_new, k7)
-            tau, x, k1 = tau_end, x_new, k7
-            nacc += 1
-        dt = _F32(dt_step * dopri5_controller(err_ratio, accept))
-        nfe += 6
-        natt += 1
+        with clocked("gpode.solve.attempt"):
+            remaining = _F32(tau_final - tau)
+            dt_step = _F32(min(dt, remaining))
+            x_new, err, k7 = _dopri5_step(f_tau, float(tau), x, float(dt_step),
+                                          k1)
+            with torch.no_grad():
+                scale = atol + rtol * torch.maximum(torch.abs(x),
+                                                    torch.abs(x_new))
+                ratio = norm(err / scale)
+            with clocked("gpode.solve.error_read"):
+                err_ratio = float(ratio)
+            accept = err_ratio <= 1.0
+            tau_end = (tau_final if dt_step >= remaining
+                       else _F32(tau + dt_step))
+            if accept:
+                for j, tau_j in enumerate(taus):
+                    if out[j] is None and tau_j <= tau_end:
+                        out[j] = _hermite(tau_j, tau, tau_end, x, k1, x_new,
+                                          k7)
+                tau, x, k1 = tau_end, x_new, k7
+                nacc += 1
+            dt = _F32(dt_step * dopri5_controller(err_ratio, accept))
+            nfe += 6
+            natt += 1
 
     covered = sum(o is not None for o in out)
     out = [x if o is None else o for o in out]
@@ -580,19 +589,24 @@ def odeint(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
     the JAX package's: `adams` is the adaptive VCABM, `explicit_adams` the
     fixed AB4, `fixed_adams` / `implicit_adams` the fixed PECE, `bdf` the
     fixed BDF2; the multistep solvers take at least 4 sub-steps per
-    interval and BDF at least 2."""
-    if solver == "dopri5":
-        return odeint_dopri5(f, x0, ts, rtol=rtol, atol=atol,
-                             max_steps=max_steps, first_step=first_step,
-                             norm=norm)
-    if solver == "adams":
-        return odeint_adams_adaptive(f, x0, ts, rtol=rtol, atol=atol,
-                                     max_steps=max_steps,
-                                     first_step=first_step, norm=norm)
-    if solver == "explicit_adams":
-        return odeint_adams(f, x0, ts, substeps=max(substeps, 4))
-    if solver in ("fixed_adams", "implicit_adams"):
-        return odeint_adams_moulton(f, x0, ts, substeps=max(substeps, 4))
-    if solver == "bdf":
-        return odeint_bdf(f, x0, ts, substeps=max(substeps, 2))
-    return odeint_fixed(f, x0, ts, solver=solver, substeps=substeps)
+    interval and BDF at least 2. The solve is the span `gpode.solve`; each
+    attempt of the adaptive dopri5 loop is a `gpode.solve.attempt` inside
+    it, with its host read of the error norm a `gpode.solve.error_read`
+    (both counted and timed on the host's clock when no profiler is
+    active: `profiling.UNTRACED`)."""
+    with span("gpode.solve"):
+        if solver == "dopri5":
+            return odeint_dopri5(f, x0, ts, rtol=rtol, atol=atol,
+                                 max_steps=max_steps, first_step=first_step,
+                                 norm=norm)
+        if solver == "adams":
+            return odeint_adams_adaptive(f, x0, ts, rtol=rtol, atol=atol,
+                                         max_steps=max_steps,
+                                         first_step=first_step, norm=norm)
+        if solver == "explicit_adams":
+            return odeint_adams(f, x0, ts, substeps=max(substeps, 4))
+        if solver in ("fixed_adams", "implicit_adams"):
+            return odeint_adams_moulton(f, x0, ts, substeps=max(substeps, 4))
+        if solver == "bdf":
+            return odeint_bdf(f, x0, ts, substeps=max(substeps, 2))
+        return odeint_fixed(f, x0, ts, solver=solver, substeps=substeps)

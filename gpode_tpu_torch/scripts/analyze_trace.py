@@ -20,6 +20,10 @@ Profiler annotations on the device tracks (`gpu_user_annotation`) repeat
 their kernels' time and are skipped. On a trace of the CPU alone, pass a
 filter that matches its threads (`--track-filter thread`): the sums are
 then operator times, nested operators counted in each parent too.
+
+Last comes the roll-up of the program's spans (`utils/profiling.SPANS`,
+the host's `gpode.*` ranges on every thread, whatever the filter): each
+name's count, total ms and self ms (its duration less its child spans').
 `--steps` divides every figure by the traced step count.
 """
 
@@ -47,6 +51,7 @@ _BLAS = re.compile(r"gemm|gemv|cublas|cutlass|xmma|trsm|trsv|potrf|potrs|"
                    r"cusolver|syrk|getrf|geqrf|magma", re.I)
 _COLLECTIVE = re.compile(r"nccl", re.I)
 _COPY = re.compile(r"^(Memcpy|Memset)|memcpy|memset", re.I)
+_SLACK_US = 0.01
 GROUPS = ("port kernels", "cuBLAS/cuSOLVER", "collectives", "memcpy/memset",
           "other kernels")
 
@@ -126,13 +131,41 @@ def summarize(events: list) -> dict:
             "groups": dict(groups)}
 
 
+def span_rollup(data: dict) -> dict:
+    """{name: (count, total us, self us)} of the program's spans: the
+    host's `gpode.*` ranges, each one's self time its duration less that
+    of the spans directly inside it on its thread."""
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    spans = sorted(((e.get("tid"), float(e["ts"]), float(e.get("dur", 0.0)),
+                     str(e["name"])) for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and str(e.get("name", "")).startswith("gpode.")),
+                   key=lambda s: (str(s[0]), s[1], -s[2]))
+    out = collections.defaultdict(lambda: [0, 0.0, 0.0])
+    stack: list = []
+    for tid, ts, dur, name in spans:
+        # spans on a thread nest: one that starts before the open span ends
+        # is inside it (10 ns of slack for the trace's rounding)
+        while stack and (stack[-1][0] != tid
+                         or stack[-1][1] + stack[-1][2] <= ts + _SLACK_US):
+            stack.pop()
+        if stack:
+            out[stack[-1][3]][2] -= dur
+        out[name][0] += 1
+        out[name][1] += dur
+        out[name][2] += dur
+        stack.append((tid, ts, dur, name))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def report(path: str, track_filter: str = "stream", top: int = 40,
            steps: int = 1) -> dict:
     """Print the summary of the trace at `path` (a file or a directory);
-    returns `summarize`'s dict plus "path" and "tracks". Raises when no
-    track matches."""
+    returns `summarize`'s dict plus "path", "tracks" and "spans"
+    (`span_rollup`'s). Raises when no track matches."""
     path = find_trace(path)
-    events, tracks = track_events(load_trace(path), track_filter)
+    data = load_trace(path)
+    events, tracks = track_events(data, track_filter)
     if not tracks:
         raise ValueError(f"no track of {path} matches {track_filter!r}")
     out = summarize(events)
@@ -150,7 +183,12 @@ def report(path: str, track_filter: str = "stream", top: int = 40,
     for name, (dur, n) in ranked[:top]:
         print(f"{dur / 1e3 / steps:9.4f} ms  n={n / steps:7.1f}  "
               f"{100 * dur / max(total, 1e-9):5.1f}%  {name[:110]}")
-    return dict(out, path=path, tracks=tracks)
+    spans = span_rollup(data)
+    print("\n== program spans (total ms, self ms) ==")
+    for name, (n, dur, own) in sorted(spans.items(), key=lambda kv: -kv[1][1]):
+        print(f"{dur / 1e3 / steps:9.4f} ms  {own / 1e3 / steps:9.4f} ms  "
+              f"n={n / steps:7.1f}  {name}")
+    return dict(out, path=path, tracks=tracks, spans=spans)
 
 
 def main(argv=None) -> int:

@@ -5,14 +5,19 @@
         [--device cuda]
 
 Counterpart of `scripts/capture_trace.py`: builds a preset's bench problem
-and train step (`scripts/bench.py`'s: Adam lr 5e-3, step noise from a
-generator seeded with 1), runs 5 warm-up steps OUTSIDE the trace window,
-then traces `--steps` steps ending in a device synchronize
-(`utils/profiling.trace`: CPU operators and, on a card, its kernels and
-copies) into a gzipped Chrome trace under `--out`. `--kernels` forces the
-CUDA kernels on (`true`, the default, as the JAX script's `--pallas true`),
-off (`false`) or leaves the auto rule (`auto`). Summarize the trace with
-`gpode_tpu_torch.scripts.analyze_trace`.
+and the train step the entry points run (`train/graph_step.make_step`:
+captured CUDA graphs wherever `capture_refusal` is None, else the eager
+step; `scripts/bench.py`'s Adam lr 5e-3, step noise from a generator seeded
+with 1), runs 5 warm-up steps OUTSIDE the trace window (a captured step's
+eager warm-up and its capture among them), then traces `--steps` steps
+ending in a device synchronize (`utils/profiling.trace`: CPU operators, the
+program's spans and, on a card, its kernels and copies) into a gzipped
+Chrome trace under `--out`. A captured step's trace holds its replay and
+accept-read spans; an eager one (the CPU, `--kernels false`) its phases,
+`gpode.draw` to `gpode.adam`. `--kernels` forces the CUDA kernels on
+(`true`, the default, as the JAX script's `--pallas true`), off (`false`)
+or leaves the auto rule (`auto`). Summarize the trace with
+`gpode_tpu_torch.scripts.analyze_trace`, which rolls the spans up too.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from gpode_tpu_torch.models.shooting import sample_step_noise
 from gpode_tpu_torch.train.bench_setup import (PRESETS, build_bench_problem,
                                                preset_model_args)
 from gpode_tpu_torch.train.builders import shooting_loss_fn
-from gpode_tpu_torch.train.trainer import default_optimizer, make_train_step
+from gpode_tpu_torch.train.graph_step import make_step
+from gpode_tpu_torch.train.trainer import default_optimizer
 from gpode_tpu_torch.utils import profiling
 
 KERNEL_RULES = {"true": True, "false": False, "auto": None}
@@ -41,8 +47,8 @@ def capture(out: str, steps: int = 5, preset: str = "official",
     dev = resolve_device(device)
     args, params, ys, ts = build_bench_problem(preset_model_args(preset),
                                                device=dev)
-    step = make_train_step(shooting_loss_fn(args, kernels), params,
-                           default_optimizer(params, 5e-3))
+    step = make_step(shooting_loss_fn(args, kernels), params,
+                     default_optimizer(params, 5e-3), args, kernels=kernels)
     gen = torch.Generator(dev).manual_seed(1)
 
     def run():

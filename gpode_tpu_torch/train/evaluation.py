@@ -20,6 +20,7 @@ from gpode_tpu_torch.models.flow import SolverConfig
 from gpode_tpu_torch.models.likelihoods import project
 from gpode_tpu_torch.train.builders import make_projector
 from gpode_tpu_torch.train.metrics import mixture_summary_device
+from gpode_tpu_torch.utils.profiling import span
 
 
 def make_projected_scorer(eval_cfg: SolverConfig,
@@ -37,6 +38,10 @@ def make_projected_scorer(eval_cfg: SolverConfig,
     a projector is given, latent space otherwise. x0: (N, D) start states,
     or None to sample q(x0) (the noise then needs its x0 normals).
     `device` defaults to CUDA and raises without a card.
+
+    A call is the span `gpode.predict`, holding the draw and the solve
+    (`gpode.draw`, `gpode.solve`); the projection and the score are its
+    own time.
     """
     device = resolve_device(device)
 
@@ -49,10 +54,11 @@ def make_projected_scorer(eval_cfg: SolverConfig,
 
     @torch.no_grad()
     def scorer(vparams: gpode.GPODEParams, noise: gpode.PredictNoise):
-        zs = gpode.predict(vparams, noise, ts, eval_cfg, x0=x0,
-                           t0_shift=t0_shift)
-        ys_pred = zs if proj is None else project(proj, zs)
-        return mixture_summary_device(ys_true, ys_pred,
-                                      vparams.likelihood.variance)
+        with span("gpode.predict"):
+            zs = gpode.predict(vparams, noise, ts, eval_cfg, x0=x0,
+                               t0_shift=t0_shift)
+            ys_pred = zs if proj is None else project(proj, zs)
+            return mixture_summary_device(ys_true, ys_pred,
+                                          vparams.likelihood.variance)
 
     return scorer

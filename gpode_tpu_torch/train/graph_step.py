@@ -33,7 +33,15 @@ terms`:
     on a reject;
   * `cuda_kernels.LAUNCHES` counts wrapper calls, and a replay makes none:
     the step records each graph's launches at capture (and takes them back
-    out, since a capture runs nothing) and adds them on every replay.
+    out, since a capture runs nothing) and adds them on every replay;
+  * under a profiler a call is the span `gpode.step`, holding
+    `gpode.step.copy_in`, a `gpode.step.replay` per graph launched, the
+    `gpode.step.accept_read` between A and B, and `gpode.step.eager`
+    around each eager step (the warm-up, a reject). A replay has no host
+    phases: the eager step's (`gpode.draw` ... `gpode.adam`) show only in
+    eager steps and the capture. With no profiler the calls and the
+    replays are counted and timed on the host's clock
+    (`profiling.UNTRACED`).
 
 On a CPU device there are no graphs: after the warm-up every step runs the
 same body eagerly with the accept seam in place, the seam reading the RMS on
@@ -65,6 +73,7 @@ from gpode_tpu_torch.models.shooting import ShootingParams
 from gpode_tpu_torch.ops.cuda_kernels import LAUNCHES
 from gpode_tpu_torch.ops.ode import FIRST_STEP_SPAN
 from gpode_tpu_torch.train.trainer import Adam, make_train_step
+from gpode_tpu_torch.utils.profiling import clocked, span
 
 # eager steps before the capture (on the capture stream: they set up the
 # libraries' per-stream state and build the kernels)
@@ -217,8 +226,10 @@ class CapturedStep:
         into a later eager step)."""
         self.optimizer.zero_grad()
         loss, terms = self.loss_fn(self.params, self._noise, *self._batch)
-        loss.backward()
-        self.optimizer.step()
+        with span("gpode.backward"):
+            loss.backward()
+        with span("gpode.adam"):
+            self.optimizer.step()
         self._fields = tuple(f for f in terms._fields
                              if isinstance(getattr(terms, f), torch.Tensor))
         block = torch.stack([getattr(terms, f).detach() for f in self._fields])
@@ -268,20 +279,26 @@ class CapturedStep:
     def _replay(self, noise, batch):
         last = len(self.graphs) - 1
         for i, graph in enumerate(self.graphs):
-            graph.replay()
+            with clocked("gpode.step.replay"):
+                graph.replay()
             _add_launches(self.graph_launches[i])
             if i < last and not self._accepted():
-                return self.eager(noise, *batch)
+                return self._eager(noise, batch)
         self.replays += 1
         return self._terms_copy()
 
     def _accepted(self) -> bool:
         """The accept read (a host read of the RMS, as the eager step's)."""
         self.host_reads += 1
-        if float(self._rms) <= 1.0:
-            return True
-        self.rejects += 1
-        return False
+        with span("gpode.step.accept_read"):
+            accepted = float(self._rms) <= 1.0
+        if not accepted:
+            self.rejects += 1
+        return accepted
+
+    def _eager(self, noise, batch):
+        with span("gpode.step.eager"):
+            return self.eager(noise, *batch)
 
     def _rehearse(self, noise, batch):
         """The CPU's stand-in for capture + replay: the body with the seam
@@ -294,22 +311,27 @@ class CapturedStep:
             with accept_seam(AcceptSeam(self._rms, split)):
                 self._block, self._terms = self._body()
         except _Rejected:
-            return self.eager(noise, *batch)
+            return self._eager(noise, batch)
         self.replays += 1
         return self._terms_copy()
 
     def __call__(self, noise, *batch):
+        with clocked("gpode.step"):
+            return self._step(noise, batch)
+
+    def _step(self, noise, batch):
         self.calls += 1
         if self.calls <= self.warmup:
             if not self.cuda:
-                return self.eager(noise, *batch)
+                return self._eager(noise, batch)
             current = torch.cuda.current_stream(self.device)
             self.stream.wait_stream(current)
             with torch.cuda.stream(self.stream):
-                terms = self.eager(noise, *batch)
+                terms = self._eager(noise, batch)
             current.wait_stream(self.stream)
             return terms
-        self._copy_in(noise, batch)
+        with span("gpode.step.copy_in"):
+            self._copy_in(noise, batch)
         if not self.cuda:
             return self._rehearse(noise, batch)
         if not self.graphs:

@@ -28,6 +28,7 @@ from torch import nn
 
 from gpode_tpu_torch.utils.checkpoint import save_checkpoint
 from gpode_tpu_torch.utils.meters import Meter
+from gpode_tpu_torch.utils.profiling import span
 
 # the solver statistics of a step's terms: host ints, not device scalars
 _STATS = ("nfe", "natt", "ncov")
@@ -239,13 +240,16 @@ def make_train_step(loss_fn: Callable, params: nn.Module, optimizer: Adam):
     """step(noise, *batch) -> terms: one loss, backward and Adam update of
     `params` in place. `loss_fn(params, noise, *batch)` returns
     (loss, terms); an iteration-dependent loss takes its iteration counter
-    as the first of `batch`."""
+    as the first of `batch`. The backward and the update are the spans
+    `gpode.backward` and `gpode.adam`."""
 
     def step(noise, *batch):
         optimizer.zero_grad()
         loss, terms = loss_fn(params, noise, *batch)
-        loss.backward()
-        optimizer.step()
+        with span("gpode.backward"):
+            loss.backward()
+        with span("gpode.adam"):
+            optimizer.step()
         return terms
 
     return step

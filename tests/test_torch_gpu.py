@@ -715,3 +715,56 @@ def test_captured_step_equals_the_eager_step(cuda, preset):
     for a, b in zip(pc.parameters(), pe.parameters()):
         torch.testing.assert_close(a.detach(), b.detach(), rtol=0.0,
                                    atol=1e-5 * float(b.detach().abs().max()))
+
+
+def test_captured_step_clocks_its_untraced_launches(cuda):
+    """The official captured step on the card: with no profiler each call
+    and each graph launch is counted and timed in `profiling.UNTRACED`
+    (two launches a replayed step); under a profiler the same calls add
+    nothing there and are spans instead, two replays and one accept read a
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpode_tpu_torch.models.shooting import sample_step_noise
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
+    from gpode_tpu_torch.train.builders import shooting_loss_fn
+    from gpode_tpu_torch.train.graph_step import make_captured_train_step
+    from gpode_tpu_torch.train.trainer import default_optimizer
+    from gpode_tpu_torch.utils import profiling
+
+    args, params, ys, ts = build_bench_problem(
+        preset_model_args("official"), device=cuda)
+    step = make_captured_train_step(shooting_loss_fn(args), params,
+                                    default_optimizer(params, 5e-3))
+    gen = torch.Generator(cuda).manual_seed(5)
+
+    def run(n):
+        for _ in range(n):
+            terms = step(sample_step_noise(params, args.num_features,
+                                           args.num_samples, gen), ys, ts)
+        float(terms.loss.detach())
+
+    def clock(name):
+        return tuple(profiling.UNTRACED[name])
+
+    before = {n: clock(n) for n in ("gpode.step", "gpode.step.replay")}
+    run(6)
+    assert step.rejects == 0 and step.replays == 6 - step.warmup
+    calls, seconds = (a - b for a, b in zip(clock("gpode.step"),
+                                            before["gpode.step"]))
+    launches, launch_s = (a - b for a, b in zip(clock("gpode.step.replay"),
+                                                before["gpode.step.replay"]))
+    assert calls == 6 and launches == 2 * step.replays
+    assert 0.0 < launch_s < seconds
+    untraced = {n: clock(n) for n in before}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(2)
+        torch.cuda.synchronize()
+    assert {n: clock(n) for n in before} == untraced
+    names = [e.name for e in prof.events()
+             if "CPU" in str(e.device_type) and e.name.startswith("gpode.")]
+    assert names.count("gpode.step") == 2
+    assert names.count("gpode.step.replay") == 4
+    assert names.count("gpode.step.accept_read") == 2

@@ -1,5 +1,6 @@
 """The rest of the JAX package in the port, on the CPU: the profiling hooks
-(`utils/profiling.py`) and the three profiling scripts' twins, the state
+(`utils/profiling.py`) and the profiling scripts' twins (`capture_trace`,
+`analyze_trace` with its roll-up of the program's spans), the state
 posteriors' log densities, and the MoCap `CombinedDataset`.
 
 Tolerances: the log densities against JAX rtol 1e-5 (atol 1e-5); the
@@ -23,7 +24,7 @@ from gpode_tpu.models import states as jstates
 
 from gpode_tpu_torch.data.mocap import CombinedDataset, MocapDataset
 from gpode_tpu_torch.models import states as tstates
-from gpode_tpu_torch.scripts import analyze_trace, capture_trace, profile_step
+from gpode_tpu_torch.scripts import analyze_trace, capture_trace
 from gpode_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -128,9 +129,12 @@ def _synthetic_cuda_trace(path):
         {"ph": "M", "name": "thread_name", "pid": 0, "tid": 13,
          "args": {"name": "stream 13 "}}]
 
-    def ev(name, dur, cat="kernel", pid=0, tid=7):
+    def ev(name, dur, cat="kernel", pid=0, tid=7, ts=0):
         return {"ph": "X", "name": name, "dur": dur, "cat": cat, "pid": pid,
-                "tid": tid, "ts": 0}
+                "tid": tid, "ts": ts}
+
+    def span(name, ts, dur, tid=7):
+        return ev(name, dur, cat="user_annotation", pid=7, tid=tid, ts=ts)
 
     events = meta + [
         ev("void dp_attempt_fwd_kernel<5, 2, 128>(float const*)", 10.0),
@@ -149,7 +153,16 @@ def _synthetic_cuda_trace(path):
         ev("Memset (Device)", 0.25, cat="gpu_memset"),
         ev("void at::native::vectorized_elementwise_kernel<4>(int)", 3.0),
         ev("gpode.segment_solve", 40.0, cat="gpu_user_annotation"),
-        ev("aten::mm", 100.0, cat="cpu_op", pid=7, tid=7)]
+        ev("aten::mm", 100.0, cat="cpu_op", pid=7, tid=7),
+        # two steps on thread 7 (the second's replay holds a copy_in, as
+        # no step does: nesting alone decides), a backward on thread 9
+        span("gpode.step", 1000.0, 100.0),
+        span("gpode.step.replay", 1010.0, 30.0),
+        span("gpode.step", 1200.0, 100.0),
+        span("gpode.step.replay", 1210.0, 50.0),
+        span("gpode.step.copy_in", 1220.0, 5.0),
+        span("gpode.backward", 1215.0, 60.0, tid=9),
+        ev("gpode.step", 100.0, cat="gpu_user_annotation", ts=1000.0)]
     with gzip.open(path, "wt") as f:
         json.dump({"traceEvents": events}, f)
 
@@ -174,36 +187,37 @@ def test_analyze_trace_groups_a_cuda_trace(tmp_path):
 
 
 def test_capture_trace_twin_on_the_cpu(tmp_path):
-    """The bench step's trace, one step of the `fast` preset after the
-    warm-up, read back by `analyze_trace`."""
+    """The entry points' step (`make_step`: eager on the CPU), one step of
+    the `fast` preset after the warm-up, read back by `analyze_trace`
+    with the eager step's phases among its spans."""
     out = str(tmp_path / "trace")
     assert capture_trace.main(["--device", "cpu", "--steps", "1",
                                "--preset", "fast", "--kernels", "auto",
                                "--out", out]) == 0
     summary = analyze_trace.report(out, track_filter="thread")
     assert any("cholesky" in name for name in summary["per_op"])
+    assert {name: n for name, (n, _, _) in summary["spans"].items()} == {
+        name: 1 for name in ("gpode.states", "gpode.draw",
+                             "gpode.segment_solve", "gpode.elbo",
+                             "gpode.backward", "gpode.adam")}
 
 
-def test_profile_step_twin_on_the_cpu(tmp_path, capsys):
-    """Every stage timed with the kernels forced on (their plain versions
-    on the CPU) and off; the report as JSON."""
-    out = tmp_path / "profile.json"
-    assert profile_step.main(["--device", "cpu", "--iters", "1",
-                              "--preset", "fast", "--out", str(out)]) == 0
-    report = json.loads(out.read_text())
-    assert report == json.loads(capsys.readouterr().out.splitlines()[-1])
-    assert report["rhs_rows"] == 5 * 6 * 99 and report["device"] == "cpu"
-    for tag in ("kernels", "plain"):
-        assert set(report[tag]) == {"draw_build_ms", "rhs_eval_ms",
-                                    "forward_ms", "grad_ms", "train_step_ms",
-                                    "bwd_over_fwd"}
-        assert all(np.isfinite(v) and v > 0
-                   for k, v in report[tag].items() if k.endswith("_ms"))
+def test_analyze_trace_rolls_up_the_spans(tmp_path, capsys):
+    """Count, total and self time (less the spans directly inside, on the
+    same thread) of every `gpode.*` host range; device-track annotations
+    and other threads' ranges are not children."""
+    path = str(tmp_path / "synthetic.trace.json.gz")
+    _synthetic_cuda_trace(path)
+    out = analyze_trace.report(path, steps=2)
+    assert out["spans"] == {
+        "gpode.step": (2, 200.0, 200.0 - 30.0 - 50.0),
+        "gpode.step.replay": (2, 30.0 + 50.0, 80.0 - 5.0),
+        "gpode.step.copy_in": (1, 5.0, 5.0),
+        "gpode.backward": (1, 60.0, 60.0)}
+    assert "== program spans" in capsys.readouterr().out
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         capture_trace.main(["--out", str(tmp_path)])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        profile_step.main(["--out", str(tmp_path / "p.json")])
