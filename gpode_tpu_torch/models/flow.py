@@ -6,15 +6,17 @@ applied to `eval_draw` of a fixed
 :class:`~gpode_tpu_torch.models.gp.PosteriorDraw`, with the segment kernels
 for one-interval shooting segments (the rk4 segment and the whole-span
 dopri5 attempt), the continuous adjoint, rematerialized rhs evaluations, the
-batched-draw solve of posterior prediction, and a solve under a draw built
-from its noise.
+batched-draw solve of posterior prediction (its dopri5 attempt a captured
+CUDA graph on the card), and a solve under a draw built from its noise.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import dataclasses
+import logging
 import warnings
 from typing import Callable, Optional
 
@@ -24,12 +26,15 @@ from torch.utils.checkpoint import checkpoint
 
 from gpode_tpu_torch.models import gp
 from gpode_tpu_torch.ops.adjoint import odeint_adjoint
-from gpode_tpu_torch.ops.cuda_kernels import (fused_dopri5_attempt,
+from gpode_tpu_torch.ops.cuda_kernels import (LAUNCHES, fused_dopri5_attempt,
                                               fused_rk4_segment)
 from gpode_tpu_torch.ops.ode import (FIRST_STEP_SPAN, ODEStats,
-                                     dopri5_controller, max_rms_over_axis0,
-                                     odeint)
+                                     dopri5_attempt, dopri5_controller,
+                                     max_rms_over_axis0, odeint)
+from gpode_tpu_torch.utils.profiling import clocked
 from gpode_tpu_torch.utils.time_grids import substeps_from_dense_scale
+
+_logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,6 +269,168 @@ def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
     return torch.movedim(xs, 0, 1), stats
 
 
+# eager attempts on the capture stream before a capture (they build the
+# kernels and set up the libraries' per-stream state)
+WARMUP_ATTEMPTS = 2
+
+
+class _EagerReplay:
+    """A graph's stand-in on the CPU: a replay runs the attempt eagerly and
+    copies its results into the static outputs."""
+
+    def __init__(self, attempt: Callable, out: tuple):
+        self.attempt, self.out = attempt, out
+
+    def replay(self):
+        for static, new in zip(self.out, self.attempt()):
+            static.copy_(new)
+
+
+class CapturedAttempt:
+    """The no-grad batched dopri5 attempt of :func:`flow_forward_batched` as
+    one CUDA graph: `odeint_dopri5`'s `attempt`, replayed once per attempt
+    under its unchanged host controller.
+
+    Static inputs: the state `x`, its FSAL `k1`, the step `dt` (a 0-d
+    float32 tensor; the time-invariant field reads no time) and copies of
+    the draws' leaves, which `load` refreshes for each solve. Static outputs:
+    `out`, the attempt's `(x_new, ratio, k7)`. `capture` runs
+    `WARMUP_ATTEMPTS` eager attempts on the capture stream, then captures
+    one in a private pool. A call copies in a state or FSAL value that is
+    not already in the static buffers (a solve's start), fills `dt` and
+    replays (the span `gpode.solve.replay`); `hand_over` copies an accepted
+    step into `x` and `k1` after the dense output read it, so that neither
+    a later replay nor a rejected one changes the state the solve holds.
+    The graph reads the GP's parameters where they live, so an in-place
+    update (Adam's) is seen at the next replay; the draws are copies.
+
+    `cuda_kernels.LAUNCHES` counts wrapper calls, and a replay makes none:
+    the capture's launches are taken back out and added on every replay.
+    On the CPU there are no graphs: a replay runs the same attempt eagerly
+    (`_EagerReplay`), which the CPU tests use."""
+
+    def __init__(self, gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
+                 x0: torch.Tensor, direction: float, rtol: float, atol: float,
+                 use_kernel: bool):
+        self.gp_params, self.use_kernel = gp_params, use_kernel
+        self.direction = direction
+        self.draws = gp.PosteriorDraw(*(leaf.clone() for leaf in draws))
+        self.x = x0.clone(memory_format=torch.contiguous_format)
+        self.k1 = torch.zeros_like(self.x)
+        self.dt = torch.zeros((), dtype=torch.float32, device=x0.device)
+        self._step = dopri5_attempt(self._field, rtol=rtol, atol=atol,
+                                    norm=max_rms_over_axis0)
+        self.graph = self.out = None
+        self.launches: dict = {}
+
+    def _field(self, t, x):
+        del t  # time-invariant ODE
+        return self.direction * gp.eval_draws(self.gp_params, self.draws, x,
+                                              self.use_kernel)
+
+    def _attempt(self):
+        return self._step(None, self.x, self.k1, self.dt)
+
+    def capture(self):
+        if self.x.device.type != "cuda":
+            self.out = self._attempt()
+            self.graph = _EagerReplay(self._attempt, self.out)
+            return
+        graph = torch.cuda.CUDAGraph()
+        capture = torch.cuda.graph(graph)
+        current = torch.cuda.current_stream(self.x.device)
+        capture.capture_stream.wait_stream(current)
+        with torch.cuda.stream(capture.capture_stream):
+            for _ in range(WARMUP_ATTEMPTS):
+                self._attempt()
+        current.wait_stream(capture.capture_stream)
+        before = dict(LAUNCHES)
+        with capture:
+            self.out = self._attempt()
+        self.launches = {k: n - before[k] for k, n in LAUNCHES.items()
+                         if n != before[k]}
+        for k, n in self.launches.items():  # a capture launches nothing
+            LAUNCHES[k] -= n
+        self.graph = graph
+
+    def load(self, draws: gp.PosteriorDraw):
+        """A solve's draws into the static leaves."""
+        for static, leaf in zip(self.draws, draws):
+            static.copy_(leaf)
+
+    def __call__(self, tau, x, k1, dt_step):
+        del tau  # the field reads no time
+        if x is not self.x:
+            self.x.copy_(x)
+        if k1 is not self.k1:
+            self.k1.copy_(k1)
+        self.dt.fill_(dt_step)
+        with clocked("gpode.solve.replay"):
+            self.graph.replay()
+        for k, n in self.launches.items():
+            LAUNCHES[k] += n
+        return self.out
+
+    def hand_over(self, x_new, k7):
+        self.x.copy_(x_new)
+        self.k1.copy_(k7)
+        return self.x, self.k1
+
+
+# the captured attempts, by everything a graph bakes in, least recently used
+# first: a process holds a few shapes (the validation's, the test
+# evaluation's)
+_ATTEMPTS: collections.OrderedDict = collections.OrderedDict()
+_MAX_ATTEMPTS = 4
+_REFUSALS_LOGGED: set = set()
+
+
+def _capture_gate(cfg: SolverConfig, x0: torch.Tensor) -> bool:
+    """Is the batched solve's attempt captured? Grad mode off, a state on
+    CUDA outside any capture, dopri5 without `remat`; everything else takes
+    the eager attempt."""
+    return (cfg.solver == "dopri5" and not cfg.remat
+            and not torch.is_grad_enabled() and x0.is_cuda
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _captured_attempt(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
+                      x0: torch.Tensor, ts: torch.Tensor, cfg: SolverConfig,
+                      use_kernel: bool) -> Optional[CapturedAttempt]:
+    """The cached captured attempt of this solve, its draws loaded, or None
+    where the capture failed (logged once per reason: the eager attempt)."""
+    t_host = ts.detach().cpu().numpy().astype(np.float32)
+    direction = float(np.sign(t_host[-1] - t_host[0]))
+    leaves = (gp_params.kernel.raw_lengthscales, gp_params.kernel.raw_variance,
+              gp_params.z)
+    key = (x0.shape, x0.dtype, x0.device,
+           tuple((leaf.shape, leaf.dtype) for leaf in draws), cfg.rtol,
+           cfg.atol, use_kernel, direction, gp._RFF_SCALE_FACTOR,
+           torch.backends.cuda.matmul.allow_tf32,
+           tuple((id(t), t.data_ptr()) for t in leaves))
+    if key in _ATTEMPTS:
+        _ATTEMPTS.move_to_end(key)
+        captured = _ATTEMPTS[key]
+    else:
+        captured = CapturedAttempt(gp_params, draws, x0, direction, cfg.rtol,
+                                   cfg.atol, use_kernel)
+        try:
+            captured.capture()
+        except RuntimeError as err:
+            reason = f"{tuple(x0.shape)}: {err}"
+            if reason not in _REFUSALS_LOGGED:
+                _REFUSALS_LOGGED.add(reason)
+                _logger.warning("the batched solve's attempt is not captured "
+                                "at %s: running it eagerly", reason)
+            captured = None
+        _ATTEMPTS[key] = captured
+        while len(_ATTEMPTS) > _MAX_ATTEMPTS:
+            _ATTEMPTS.popitem(last=False)
+    if captured is not None:
+        captured.load(draws)
+    return captured
+
+
 def flow_forward_batched(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
                          x0: torch.Tensor, ts: torch.Tensor,
                          cfg: SolverConfig) -> tuple[torch.Tensor, ODEStats]:
@@ -277,6 +444,11 @@ def flow_forward_batched(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
     would enforce. `remat` rematerializes each batched evaluation; the
     continuous adjoint is a train-path option that this forward-only eval
     route does not implement (a warning says so, as in the JAX package).
+
+    With grad mode off on a card, dopri5's attempt is a
+    :class:`CapturedAttempt`, captured once per shape and replayed per
+    attempt: the same kernels in the same order, the same controller, so
+    the same states and `ODEStats` as the eager attempt.
     """
     if cfg.use_adjoint:
         warnings.warn(
@@ -292,10 +464,12 @@ def flow_forward_batched(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
 
     if cfg.remat:
         rhs = _rematerialized(rhs)
+    attempt = (_captured_attempt(gp_params, draws, x0, ts, cfg, use_kernel)
+               if _capture_gate(cfg, x0) else None)
     xs, stats = odeint(rhs, x0, ts, solver=cfg.solver, rtol=cfg.rtol,
                        atol=cfg.atol, substeps=cfg.substeps,
                        max_steps=cfg.max_steps, first_step=cfg.first_step,
-                       norm=max_rms_over_axis0)
+                       norm=max_rms_over_axis0, attempt=attempt)
     return torch.movedim(xs, 0, 2), stats
 
 

@@ -25,7 +25,7 @@ Returns `(xs (T, *x0.shape), ODEStats)` like the JAX package.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -290,12 +290,13 @@ def _dopri5_step(f, t, x, dt, k1):
     """One Dormand-Prince step; FSAL: k1 = f(t, x) supplied, k7 returned.
 
     Returns (x5, err, k7): 5th-order solution, embedded error estimate, last
-    stage evaluation (equal to f(t+dt, x5)). 6 fresh rhs evaluations.
+    stage evaluation (equal to f(t+dt, x5)). 6 fresh rhs evaluations. `t`
+    None: a time-invariant `f`, called with t None at every stage.
     """
     ks = [k1]
     for i in range(1, 7):
         xi = x + dt * sum(a * k for a, k in zip(_DP_A[i], ks))
-        ks.append(f(t + _DP_C[i] * dt, xi))
+        ks.append(f(None if t is None else t + _DP_C[i] * dt, xi))
     x5 = x + dt * sum(b * k for b, k in zip(_DP_B5, ks) if b != 0.0)
     err = dt * sum((b5 - b4) * k for b5, b4, k in zip(_DP_B5, _DP_B4, ks))
     return x5, err, ks[6]
@@ -332,6 +333,24 @@ def _hermite(t, t0, t1, x0, f0, x1, f1, dtype=_F32):
             + float(h11 * h) * f1)
 
 
+def dopri5_attempt(f: Callable, *, rtol: float, atol: float,
+                   norm: Callable[[torch.Tensor], torch.Tensor] = _rms):
+    """`odeint_dopri5`'s attempt function on `f`: `attempt(t, x, k1, dt) ->
+    (x_new, ratio, k7)`, the step from `x` (FSAL `k1`) and its error norm,
+    a 0-d tensor that accepts the step at <= 1. `t` and `dt` are host
+    floats; or `t` is None and `dt` a 0-d device tensor, for a
+    time-invariant `f`, as a captured attempt runs it
+    (`models/flow.CapturedAttempt`)."""
+    def attempt(t, x, k1, dt):
+        x_new, err, k7 = _dopri5_step(f, t, x, dt, k1)
+        with torch.no_grad():
+            scale = atol + rtol * torch.maximum(torch.abs(x), torch.abs(x_new))
+            ratio = norm(err / scale)
+        return x_new, ratio, k7
+
+    return attempt
+
+
 def dopri5_controller(err_ratio: float, accepted: bool) -> np.float32:
     """Step-size factor after an attempt: safety * err^(-1/5), never below 1
     on an accepted step, clipped to [_DFACTOR, _IFACTOR]."""
@@ -344,13 +363,22 @@ def dopri5_controller(err_ratio: float, accepted: bool) -> np.float32:
 def odeint_dopri5(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
                   rtol: float = 1e-6, atol: float = 1e-6,
                   max_steps: int = 256, first_step: float | None = None,
-                  norm: Callable[[torch.Tensor], torch.Tensor] = _rms):
+                  norm: Callable[[torch.Tensor], torch.Tensor] = _rms,
+                  attempt: Optional[Callable] = None):
     """Adaptive Dormand-Prince 5(4) with dense output at `ts`.
 
     `first_step`: None -> Hairer's heuristic; FIRST_STEP_SPAN -> the whole
     span (shooting segments); a positive float -> that dt (e.g. the
     controller-shrunk step seeding the rejected-attempt fallback in
     `models/flow.py`). `ts` may be increasing or decreasing.
+
+    `attempt`: None -> :func:`dopri5_attempt` on `f`; else a function with
+    its signature and results, called with host floats
+    (`models/flow.CapturedAttempt`, which replays a CUDA graph). Where it
+    has a
+    `hand_over(x_new, k7) -> (x, k1)` method, an accepted step passes its
+    state through it after the dense output, since the next call may
+    overwrite the `x_new` and `k7` it returned.
     """
     t_host = ts.detach().cpu().numpy().astype(_F32)
     direction = _F32(np.sign(t_host[-1] - t_host[0]))
@@ -373,6 +401,9 @@ def odeint_dopri5(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
         dt = _F32(min(dt, tau_final))
         nfe = 1  # f0 only (FSAL seed)
 
+    if attempt is None:
+        attempt = dopri5_attempt(f_tau, rtol=rtol, atol=atol, norm=norm)
+    hand_over = getattr(attempt, "hand_over", None)
     out = [x0 if tau_j <= 0.0 else None for tau_j in taus]
     tau, x, k1 = _F32(0.0), x0, f0
     nacc = natt = 0
@@ -382,12 +413,7 @@ def odeint_dopri5(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
         with clocked("gpode.solve.attempt"):
             remaining = _F32(tau_final - tau)
             dt_step = _F32(min(dt, remaining))
-            x_new, err, k7 = _dopri5_step(f_tau, float(tau), x, float(dt_step),
-                                          k1)
-            with torch.no_grad():
-                scale = atol + rtol * torch.maximum(torch.abs(x),
-                                                    torch.abs(x_new))
-                ratio = norm(err / scale)
+            x_new, ratio, k7 = attempt(float(tau), x, k1, float(dt_step))
             with clocked("gpode.solve.error_read"):
                 err_ratio = float(ratio)
             accept = err_ratio <= 1.0
@@ -398,6 +424,8 @@ def odeint_dopri5(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
                     if out[j] is None and tau_j <= tau_end:
                         out[j] = _hermite(tau_j, tau, tau_end, x, k1, x_new,
                                           k7)
+                if hand_over is not None:
+                    x_new, k7 = hand_over(x_new, k7)
                 tau, x, k1 = tau_end, x_new, k7
                 nacc += 1
             dt = _F32(dt_step * dopri5_controller(err_ratio, accept))
@@ -584,7 +612,8 @@ def odeint(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
            solver: str = "dopri5", rtol: float = 1e-6, atol: float = 1e-6,
            substeps: int = 1, max_steps: int = 256,
            first_step: float | None = None,
-           norm: Callable[[torch.Tensor], torch.Tensor] = _rms):
+           norm: Callable[[torch.Tensor], torch.Tensor] = _rms,
+           attempt: Optional[Callable] = None):
     """Entry point over all solvers (`SOLVERS`). torchdiffeq's name map, as
     the JAX package's: `adams` is the adaptive VCABM, `explicit_adams` the
     fixed AB4, `fixed_adams` / `implicit_adams` the fixed PECE, `bdf` the
@@ -593,12 +622,13 @@ def odeint(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
     attempt of the adaptive dopri5 loop is a `gpode.solve.attempt` inside
     it, with its host read of the error norm a `gpode.solve.error_read`
     (both counted and timed on the host's clock when no profiler is
-    active: `profiling.UNTRACED`)."""
+    active: `profiling.UNTRACED`). `attempt` is dopri5's
+    (:func:`odeint_dopri5`); the other solvers take none."""
     with span("gpode.solve"):
         if solver == "dopri5":
             return odeint_dopri5(f, x0, ts, rtol=rtol, atol=atol,
                                  max_steps=max_steps, first_step=first_step,
-                                 norm=norm)
+                                 norm=norm, attempt=attempt)
         if solver == "adams":
             return odeint_adams_adaptive(f, x0, ts, rtol=rtol, atol=atol,
                                          max_steps=max_steps,

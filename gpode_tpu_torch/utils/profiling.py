@@ -55,11 +55,12 @@ SPANS = (
     "gpode.solve",                # one `ops/ode.odeint` call
     "gpode.solve.attempt",        # one attempt of the adaptive dopri5 loop
     "gpode.solve.error_read",     # the attempt's host read of its error norm
+    "gpode.solve.replay",         # a captured attempt's replay (models/flow.py)
 )
 # the spans whose untraced calls are counted and timed: {name: [calls, s]}
 UNTRACED = {name: [0, 0.0] for name in (
     "gpode.step", "gpode.step.replay", "gpode.solve.attempt",
-    "gpode.solve.error_read")}
+    "gpode.solve.error_read", "gpode.solve.replay")}
 _NO_SPAN = contextlib.nullcontext()
 
 

@@ -46,6 +46,7 @@ from gpode_tpu_torch.models import gpode
 from gpode_tpu_torch.models.flow import SolverConfig, flow_forward_batched
 from gpode_tpu_torch.models import gp as tgp
 from gpode_tpu_torch.ops import cuda_kernels as ck
+from gpode_tpu_torch.ops import ode
 from gpode_tpu_torch.ops.ode import max_rms_over_axis0
 from gpode_tpu_torch.train import bench_setup as tbench
 from gpode_tpu_torch.train import builders as tb
@@ -316,3 +317,145 @@ def test_projected_scorer_matches_jax(problem, solver):
     assert all(v.ndim == 0 for v in got)
     np.testing.assert_allclose([float(v) for v in got], want, rtol=1e-4)
     assert all(np.isfinite(want))
+
+
+# ---------------------------------------------------------------------------
+# the batched solve's attempt: the seam, the gate, the captured attempt
+# ---------------------------------------------------------------------------
+
+def _batched_solve(problem, seed, num_draws=NUM_DRAWS):
+    """(GP, draws of `seed`'s noise, x0 (S, 2, 5) from the test latents, ts)."""
+    jview, tview, _, tst_latent, _, tst_ts = problem
+    noise = _predict_noise(jax.random.PRNGKey(seed), jview, num_draws, False)
+    draws = tgp.draw_posterior(tview.gp, noise.rff_weights, noise.rff_freq,
+                               noise.rff_phase, noise.inducing)
+    x0 = _t(tst_latent[:, 0]).expand(num_draws, -1, -1)
+    return tview.gp, draws, x0, _t(tst_ts)
+
+
+@pytest.mark.parametrize("first_step", [None, ode.FIRST_STEP_SPAN],
+                         ids=["heuristic", "span_rejects"])
+def test_dopri5_with_the_default_attempt_passed_equals_without(problem,
+                                                               first_step):
+    """`odeint_dopri5` given `dopri5_attempt` on the (time-invariant)
+    batched field explicitly returns the states and `ODEStats` of the call
+    without one, bit for bit; from the whole span the first attempt is
+    rejected."""
+    gp_params, draws, x0, ts = _batched_solve(problem, 11)
+
+    def rhs(t, x):
+        return tgp.eval_draws(gp_params, draws, x)
+
+    kw = dict(rtol=1e-5, atol=1e-5, max_steps=64, first_step=first_step,
+              norm=max_rms_over_axis0)
+    with torch.no_grad():
+        want, wst = ode.odeint_dopri5(rhs, x0, ts, **kw)
+        got, st = ode.odeint_dopri5(rhs, x0, ts, attempt=ode.dopri5_attempt(
+            rhs, rtol=1e-5, atol=1e-5, norm=max_rms_over_axis0), **kw)
+    assert torch.equal(got, want) and st == wst
+    if first_step is not None:
+        assert wst.num_attempted > wst.num_accepted
+
+
+class _Cuda:
+    """A stand-in state that says it is on the card."""
+    is_cuda = True
+
+
+@pytest.mark.parametrize("case,captured", [
+    ("card", True), ("cpu", False), ("grad", False), ("remat", False),
+    ("rk4", False), ("adams", False), ("capturing", False)])
+def test_the_gate_captures_only_the_no_grad_dopri5_attempt_on_a_card(
+        monkeypatch, case, captured):
+    """The attempt is captured with grad mode off, a state on CUDA outside
+    any capture, dopri5 and no `remat`; every other case is eager."""
+    from gpode_tpu_torch.models import flow as tflow
+
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: case == "capturing")
+    cfg = SolverConfig(solver=case if case in ("rk4", "adams") else "dopri5",
+                       remat=case == "remat")
+    x0 = torch.zeros(2, 3) if case == "cpu" else _Cuda()
+    with torch.set_grad_enabled(case == "grad"):
+        assert tflow._capture_gate(cfg, x0) is captured
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
+def test_the_cpu_solve_passes_no_attempt_and_replays_nothing(problem,
+                                                             monkeypatch, grad):
+    """On the CPU, with grad mode on or off, `flow_forward_batched` leaves
+    dopri5 its eager attempt, and the clocked span of a captured attempt's
+    replay, `gpode.solve.replay`, counts no call."""
+    from gpode_tpu_torch.models import flow as tflow
+    from gpode_tpu_torch.utils import profiling
+
+    assert "gpode.solve.replay" in profiling.UNTRACED
+    assert "gpode.solve.replay" in profiling.SPANS
+    seen = []
+
+    def recorded(*args, **kw):
+        seen.append(kw["attempt"])
+        return ode.odeint(*args, **kw)
+
+    monkeypatch.setattr(tflow, "odeint", recorded)
+    gp_params, draws, x0, ts = _batched_solve(problem, 12)
+    before = tuple(profiling.UNTRACED["gpode.solve.replay"])
+    with torch.set_grad_enabled(grad):
+        flow_forward_batched(gp_params, draws, x0, ts,
+                             SolverConfig(solver="dopri5", max_steps=64))
+    assert seen == [None]
+    assert tuple(profiling.UNTRACED["gpode.solve.replay"]) == before
+
+
+def test_captured_attempt_rehearsal_equals_the_eager_solve(problem,
+                                                           monkeypatch):
+    """The captured attempt's control flow on the CPU (`CapturedAttempt`
+    with the eager stand-in of its graph, let through the gate): each solve
+    equals the eager one bit for bit, states and `ODEStats`: two requests'
+    noise, a solve with rejected attempts, and one after an in-place change
+    of the GP's parameters, all through the one cached attempt, one replay
+    per attempt; no output shares memory with its static buffers."""
+    from gpode_tpu_torch.models import flow as tflow
+    from gpode_tpu_torch.utils import profiling
+
+    gp_params = problem[1].gp
+    saved = [p.detach().clone() for p in gp_params.parameters()]
+    monkeypatch.setattr(tflow, "_ATTEMPTS", type(tflow._ATTEMPTS)())
+    kw = dict(solver="dopri5", max_steps=64, rtol=1e-5, atol=1e-5)
+
+    def solve(seed, captured, **cfg):
+        monkeypatch.setattr(tflow, "_capture_gate",
+                            lambda *a: captured)
+        _, draws, x0, ts = _batched_solve(problem, seed)
+        with torch.no_grad():
+            return flow_forward_batched(gp_params, draws, x0, ts,
+                                        SolverConfig(**kw, **cfg))
+
+    runs = [(13, {}, False), (14, {}, False),
+            (14, {"first_step": ode.FIRST_STEP_SPAN}, False), (13, {}, True)]
+    outs = []
+    try:
+        for seed, cfg, update in runs:
+            if update:  # an optimizer's in-place step
+                with torch.no_grad():
+                    gp_params.z.add_(0.05)
+                    gp_params.kernel.raw_lengthscales.mul_(0.9)
+            want, wst = solve(seed, False, **cfg)
+            before = tuple(profiling.UNTRACED["gpode.solve.replay"])
+            got, st = solve(seed, True, **cfg)
+            replays = profiling.UNTRACED["gpode.solve.replay"][0] - before[0]
+            assert torch.equal(got, want) and st == wst
+            assert replays == st.num_attempted
+            outs.append((got, got.clone(), st))
+    finally:
+        with torch.no_grad():
+            for p, v in zip(gp_params.parameters(), saved):
+                p.copy_(v)
+    (attempt,) = tflow._ATTEMPTS.values()
+    statics = [attempt.x, attempt.k1, attempt.dt, *attempt.out, *attempt.draws]
+    for got, copy, _ in outs:
+        assert torch.equal(got, copy)  # no later solve wrote over it
+        assert all(got.untyped_storage().data_ptr()
+                   != t.untyped_storage().data_ptr() for t in statics)
+    assert outs[2][2].num_attempted > outs[2][2].num_accepted
+    assert not torch.equal(outs[3][0], outs[0][0])

@@ -768,3 +768,122 @@ def test_captured_step_clocks_its_untraced_launches(cuda):
     assert names.count("gpode.step") == 2
     assert names.count("gpode.step.replay") == 4
     assert names.count("gpode.step.accept_read") == 2
+
+
+# the batched prediction solve's captured attempt (`models/flow.py`):
+# (draws, rows per draw, first step); the cell's shape is the validation
+# request's, 32 draws x 2 sequences with Hairer's start
+PREDICT_CASES = {"cell": (32, 2, None), "kernel_gate": (4, 256, None),
+                 "rejects": (8, 2, -1.0)}
+
+
+def _predict_problem(cuda, draws_n, rows, seed=7):
+    """The bench problem's GP (M=100, 256 features, D=5), `draws_n` draws of
+    a seeded noise, `rows` start states from the state means, and a grid of
+    120 of the data's steps."""
+    from gpode_tpu_torch.models import gp, gpode
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
+
+    _, params, _, ts = build_bench_problem(preset_model_args("official"),
+                                           device=cuda)
+    gp_params = params.gp
+    means = params.states.mean.detach()
+    x0 = means.reshape(-1, means.shape[-1])[:rows].expand(draws_n, -1, -1)
+    grid = float(ts[1] - ts[0]) * torch.arange(120, device=cuda,
+                                               dtype=torch.float32)
+
+    def draws(s):
+        noise = gpode.sample_draw_noise(gp_params, 256, draws_n,
+                                        torch.Generator(cuda).manual_seed(s))
+        return gp.draw_posterior(gp_params, noise.rff_weights, noise.rff_freq,
+                                 noise.rff_phase, noise.inducing)
+
+    return gp_params, draws, x0, grid
+
+
+def _predict_solver(monkeypatch, gp_params, x0, grid, first_step=None):
+    """`solve(draws, captured) -> (xs, stats, launches)`: the batched solve
+    with the eager attempt, or through the gate as the program takes it."""
+    from gpode_tpu_torch.models import flow
+
+    monkeypatch.setattr(flow, "_ATTEMPTS", type(flow._ATTEMPTS)())
+    gate = flow._capture_gate
+    cfg = flow.SolverConfig(solver="dopri5", max_steps=512,
+                            first_step=first_step)
+
+    def solve(draws, captured):
+        monkeypatch.setattr(flow, "_capture_gate",
+                            gate if captured else (lambda *a: False))
+        before = dict(ck.LAUNCHES)
+        with torch.no_grad():
+            xs, stats = flow.flow_forward_batched(gp_params, draws, x0, grid,
+                                                  cfg)
+        torch.cuda.synchronize()
+        return xs, stats, {k: ck.LAUNCHES[k] - before[k] for k in before}
+
+    return solve
+
+
+@pytest.mark.parametrize("case", list(PREDICT_CASES))
+def test_captured_prediction_attempt_equals_the_eager_one(cuda, monkeypatch,
+                                                          case):
+    """The batched solve with its attempt captured equals the eager solve
+    bit for bit, states and all four `ODEStats` fields: at the validation
+    request's shape, at the kernel gate's 256 rows a draw (`fused_rhs`
+    inside the graph, as many launches counted), and from the whole span,
+    whose first attempt is rejected. The first captured solve captures,
+    the second replays the cached graph."""
+    from gpode_tpu_torch.models import flow
+
+    draws_n, rows, first_step = PREDICT_CASES[case]
+    gp_params, draws, x0, grid = _predict_problem(cuda, draws_n, rows)
+    solve = _predict_solver(monkeypatch, gp_params, x0, grid, first_step)
+    d = draws(11)
+    want, wst, wl = solve(d, False)
+    for _ in range(2):
+        got, st, launches = solve(d, True)
+        assert torch.equal(got, want) and st == wst
+    assert launches == wl
+    (attempt,) = flow._ATTEMPTS.values()
+    assert attempt is not None and attempt.graph is not None
+    if case == "kernel_gate":
+        assert wl["fused_rhs_fwd"] == draws_n * (2 + 6 * wst.num_attempted)
+    if case == "rejects":
+        assert wst.num_attempted > wst.num_accepted
+
+
+def test_captured_prediction_attempt_reads_fresh_draws_and_parameters(
+        cuda, monkeypatch):
+    """Two requests' draws, then an in-place change of the GP's parameters
+    (as Adam makes between validations), each solve through the one cached
+    graph against the eager solve, bit for bit; one replay an attempt; no
+    output shares memory with a static buffer or changes after a later
+    solve."""
+    from gpode_tpu_torch.models import flow
+    from gpode_tpu_torch.utils import profiling
+
+    gp_params, draws, x0, grid = _predict_problem(cuda, 32, 2)
+    solve = _predict_solver(monkeypatch, gp_params, x0, grid)
+    outs = []
+    for seed, update in ((21, False), (22, False), (21, True)):
+        if update:
+            with torch.no_grad():
+                gp_params.z.add_(0.05)
+                gp_params.kernel.raw_lengthscales.mul_(0.9)
+        d = draws(seed)
+        want, wst, _ = solve(d, False)
+        replays = profiling.UNTRACED["gpode.solve.replay"][0]
+        got, st, _ = solve(d, True)
+        assert torch.equal(got, want) and st == wst
+        assert (profiling.UNTRACED["gpode.solve.replay"][0] - replays
+                == st.num_attempted)
+        outs.append((got, got.clone()))
+    (attempt,) = flow._ATTEMPTS.values()
+    statics = [attempt.x, attempt.k1, attempt.dt, *attempt.out, *attempt.draws]
+    for got, copy in outs:
+        assert torch.equal(got, copy)
+        assert all(got.untyped_storage().data_ptr()
+                   != t.untyped_storage().data_ptr() for t in statics)
+    assert not torch.equal(outs[0][0], outs[1][0])
+    assert not torch.equal(outs[0][0], outs[2][0])
