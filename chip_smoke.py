@@ -66,6 +66,18 @@ exit code and no result line:
      MSE in the 50-D data space of the MoCap-09 test split) on the params
      after phase 6, its device metric held against the host metric on the
      same predictions (rtol 1e-4);
+  7a. draws attempt: `dopri5_attempt_draws` at the validation request's 32
+     draws x 2 rows and the test evaluation's 128 x 2 (the bench problem's
+     GP, M=100, S=256, D=5, the FSAL k1 = f(x)) against its plain version:
+     x_new and k7 at dt=0.01 (rtol 1e-4, atol 1e-5 * max|ref|), the error
+     ratio over the shortest span 0.01 * 1.25^k whose plain ratio exceeds
+     1e3, far above the rounding of the stage sums (rel 1e-3), two launches
+     bit-identical; its time, the plain
+     version's and its bound (6 field evaluations, each draw's operands
+     read once), its resources and every built variant free of spills, and
+     the device ms of one replay of the captured attempt, fused and plain;
+     then the validation request's solve (`flow_forward_batched`, dopri5,
+     Hairer's start, 120 steps) a second time: the kernel once per attempt;
   7b. time to test LL: the time-to-LL driver
      (`gpode_tpu_torch.scripts.bench_time_to_nll.main`) in-process, `fast`
      preset, DRIVER_ITERS iterations, tracking evals every 250, 128-draw
@@ -248,7 +260,8 @@ SOURCES = {"fused_rhs_fwd": "gpode_tpu_torch/csrc/fused_rhs.cu",
            "rbf_gram": "gpode_tpu_torch/csrc/rbf_gram.cu",
            "fused_rhs_wide_fwd": "gpode_tpu_torch/csrc/fused_rhs_wide.cu",
            "fused_rhs_wide2_fwd": "gpode_tpu_torch/csrc/fused_rhs_wide.cu",
-           "fused_rhs_wide_bwd": "gpode_tpu_torch/csrc/fused_rhs_wide.cu"}
+           "fused_rhs_wide_bwd": "gpode_tpu_torch/csrc/fused_rhs_wide.cu",
+           "dopri5_attempt_draws": "gpode_tpu_torch/csrc/dopri5_draws.cu"}
 REPLACES = {
     "fused_rhs_fwd": "gpode_tpu/ops/pallas_kernels.py:252",
     "fused_rhs_bwd": "gpode_tpu/ops/pallas_kernels.py:467",
@@ -260,6 +273,7 @@ REPLACES = {
     "fused_rhs_wide_fwd": "scripts/proto_wide_rhs.py:112",
     "fused_rhs_wide2_fwd": "scripts/proto_wide_rhs.py:168",
     "fused_rhs_wide_bwd": "scripts/proto_wide_rhs.py:305",
+    "dopri5_attempt_draws": "none: the batched prediction solve's attempt",
 }
 # The ten redesigned kernels (six on the row tile, three wide-layout ones and
 # `rbf_gram`): device ms per launch before their redesign (`ms`; PERF.md,
@@ -298,6 +312,7 @@ MAIN_PATH_KERNELS = {
     "adjoint": ("fused_rhs_fwd", "fused_rhs_bwd"),
     "wide_ab": ("fused_rhs_fwd", "fused_rhs_bwd", "fused_rhs_wide_fwd",
                 "fused_rhs_wide2_fwd", "fused_rhs_wide_bwd"),
+    "predict": ("dopri5_attempt_draws",),
 }
 OFF_PATH_KERNELS = {
     "official": (),
@@ -3010,6 +3025,119 @@ def captured_step_phase(dev):
     return out
 
 
+def draws_attempt_ops(draws, n, din, d, m, s):
+    """(operations, bytes) of one `dopri5_attempt_draws` launch: 6 field
+    evaluations of every row, each draw's operands read once, the shared
+    ones once, x and k1 read, x_new and k7 written."""
+    per_draw = din * s * d + 2 * s * d + d * m
+    rows = draws * n
+    return (6 * rhs_ops(rows, din, d, m, s),
+            4 * (draws * per_draw + m * din + d * din + d + rows * (din + d)
+                 + 2 * rows * d + 2))
+
+
+DRAWS_ATTEMPT_CASES = {"validation": 32, "test_eval": 128}   # draws x 2 rows
+
+
+def draws_attempt_phase(dev):
+    """`dopri5_attempt_draws` against its plain version at the validation
+    and test-evaluation shapes, timed beside its bound and the plain
+    version, its resources, and the captured attempt's replay, fused and
+    plain, then the launches of the validation request's solve. Returns
+    (the kernel row at 32 x 2, details by shape, the solve's launches)."""
+    phase("draws attempt")
+    import torch
+    from gpode_tpu_torch.models import flow, gp, gpode
+    from gpode_tpu_torch.ops import cuda_build
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
+
+    _, params, _, _ = build_bench_problem(preset_model_args("official"),
+                                          device=dev)
+    g = params.gp
+    means = params.states.mean.detach().reshape(-1, 5)
+    details, row, solve = {}, None, None
+    for label, draws_n in DRAWS_ATTEMPT_CASES.items():
+        noise = gpode.sample_draw_noise(g, 256, draws_n,
+                                        torch.Generator(dev).manual_seed(5))
+        with torch.no_grad():
+            draw = gp.draw_posterior(g, noise.rff_weights, noise.rff_freq,
+                                     noise.rff_phase, noise.inducing)
+            x = means[:2].expand(draws_n, -1, -1).contiguous()
+            kern = g.kernel
+            ops = (g.z.detach(), kern.lengthscales.detach(),
+                   kern.variance.detach(), draw.omega, draw.phase,
+                   gp.kernel_rff_weights(draw.weights), draw.nu)
+            k1 = ck.draws_field_plain(x, *ops).contiguous()
+            dt = torch.tensor(0.01, device=dev)
+            got = ck.dopri5_attempt_draws(x, k1, dt, 1.0, *ops)
+            check(all(torch.equal(a, b) for a, b in zip(
+                got, ck.dopri5_attempt_draws(x, k1, dt, 1.0, *ops))),
+                f"two dopri5_attempt_draws runs differ ({label})")
+            want = ck.dopri5_attempt_draws_plain(x, k1, dt, 1.0, *ops)
+            err = max(compare_fwd(got[0], want[0], f"dopri5_attempt_draws x_new ({label})"),
+                      compare_fwd(got[2], want[2], f"dopri5_attempt_draws k7 ({label})"))
+            for k in range(40):
+                span = torch.tensor(0.01 * 1.25 ** k, device=dev)
+                ref = float(ck.dopri5_attempt_draws_plain(x, k1, span, 1.0, *ops)[1])
+                if ref > 1e3:
+                    break
+            ratio = float(ck.dopri5_attempt_draws(x, k1, span, 1.0, *ops)[1])
+            print(f"  dopri5_attempt_draws ratio at dt={float(span):.4g} ({label}): "
+                  f"{ratio:.6g} vs plain {ref:.6g}")
+            check(abs(ratio - ref) <= 1e-3 * ref,
+                  f"dopri5_attempt_draws error ratio disagrees ({label})")
+            ms = cuda_ms(lambda: ck.dopri5_attempt_draws(x, k1, dt, 1.0, *ops))
+            pms = cuda_ms(lambda: ck.dopri5_attempt_draws_plain(x, k1, dt, 1.0, *ops))
+            replay = {}
+            for fused in (True, False):
+                att = flow.CapturedAttempt(g, draw, x, 1.0, 1e-6, 1e-6, False,
+                                           fused)
+                att.load(draw)
+                att.k1.copy_(k1)
+                att.dt.fill_(0.01)
+                att.capture()
+                replay["fused" if fused else "plain"] = cuda_ms(att.graph.replay)
+        bms, by = bound(*draws_attempt_ops(draws_n, 2, 5, 5, 100, 256))
+        geo = ck.draws_attempt_geometry(draws_n, 2, 5, 5, 100, 256)
+        report = print_resources(f"dopri5_attempt_draws ({label})",
+                                 ck.draws_attempt_occupancy(5, 5, 100, 256, geo))
+        print(f"dopri5_attempt_draws ({label}: {draws_n} draws x 2 rows): "
+              f"{ms:.4f} ms kernel, {pms:.4f} ms plain, bound {bms:.5f} ms "
+              f"({by}), {100 * bms / ms:.2f}% of it; captured attempt replay "
+              f"{replay['fused']:.4f} ms fused, {replay['plain']:.4f} ms plain")
+        details[label] = dict(draws=draws_n, rows=2, max_abs_err=err, ms=ms,
+                              plain_ms=pms, bound_ms=bms, bound_by=by,
+                              replay_ms=replay, blocks=geo.blocks, **report)
+        if row is None:
+            row, solve = (err, ms, pms, bms, by), (draw, x)
+    # the validation request's solve as the program runs it: the first call
+    # captures (two warm-up launches), the second replays once an attempt
+    cfg = flow.SolverConfig(solver="dopri5", max_steps=512)
+    grid = 0.01 * torch.arange(120, device=dev, dtype=torch.float32)
+    with torch.no_grad():
+        for _ in range(2):
+            ck.reset_launch_counts()
+            _, stats = flow.flow_forward_batched(g, *solve, grid, cfg)
+    launches = dict(ck.LAUNCHES)
+    print(f"  validation solve: {stats}, launches {launches}")
+    check(launches["dopri5_attempt_draws"] == stats.num_attempted,
+          "the validation solve's attempt is not the draws kernel")
+    lib_name, kernel, _ = ck.DRAWS_KERNEL
+    built = {k: v for k, v in cuda_build.kernel_resources(lib_name).items()
+             if kernel in k}
+    check(len(built) == len(ck._DRAWS_VARIANTS),
+          f"dopri5_attempt_draws: {len(built)} variants built")
+    for key, rec in built.items():
+        print(f"  dopri5_attempt_draws variant {key}: {rec['registers']} "
+              f"registers, spill {rec['spill_stores']} B stores / "
+              f"{rec['spill_loads']} B loads")
+        check(rec["spill_stores"] == 0 and rec["spill_loads"] == 0,
+              f"dopri5_attempt_draws variant {key} spills registers")
+    return row, details, launches
+
+
 def eval_phase(dev, args, params):
     """The projected scorer of `scripts/bench_time_to_nll.py` on the port:
     EVAL_DRAWS posterior draws from the MoCap-09 test split's start states,
@@ -3111,6 +3239,8 @@ def main(argv=None) -> int:
     fast, fast_launches, fast_args, fast_params = train_phase(
         dev, "fast", opts.profile_steps)
     evaluation = eval_phase(dev, fast_args, fast_params)
+    (kernels["dopri5_attempt_draws"], draws_details,
+     predict_launches) = draws_attempt_phase(dev)
     driver, driver_launches = driver_phase(evaluation["ll"])
     with tempfile.TemporaryDirectory() as tmp:
         experiments, exp_launches, exp_rk4_launches = experiments_phase(tmp)
@@ -3135,7 +3265,8 @@ def main(argv=None) -> int:
                      "experiments": exp_launches,
                      "experiments_rk4": exp_rk4_launches,
                      "scale": scale_launches, "adjoint": adjoint_launches,
-                     "field": field_launches, "wide_ab": wide_ab_phase()}
+                     "field": field_launches, "wide_ab": wide_ab_phase(),
+                     "predict": predict_launches}
 
     phase("result")
     gemm_after = gemm_ms(dev)
@@ -3176,6 +3307,8 @@ def main(argv=None) -> int:
                 "adjoint": adjoint_launches[name],
                 **{k: v[name] for k, v in multistep_launches.items()},
                 "fhn_interpolation_shooting": p7e["interp"][name] / TINY_ITERS}
+        if name == "dopri5_attempt_draws":
+            row["shapes"] = draws_details
         if name == "rbf_gram":
             row["launches_per_run"] = {"plots_grid_conditional":
                                        p7e["grid"][name], **{

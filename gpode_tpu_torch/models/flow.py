@@ -7,7 +7,8 @@ applied to `eval_draw` of a fixed
 for one-interval shooting segments (the rk4 segment and the whole-span
 dopri5 attempt), the continuous adjoint, rematerialized rhs evaluations, the
 batched-draw solve of posterior prediction (its dopri5 attempt a captured
-CUDA graph on the card), and a solve under a draw built from its noise.
+CUDA graph on the card, of one fused attempt kernel for a dimwise GP), and a
+solve under a draw built from its noise.
 """
 
 from __future__ import annotations
@@ -26,8 +27,11 @@ from torch.utils.checkpoint import checkpoint
 
 from gpode_tpu_torch.models import gp
 from gpode_tpu_torch.ops.adjoint import odeint_adjoint
-from gpode_tpu_torch.ops.cuda_kernels import (LAUNCHES, fused_dopri5_attempt,
-                                              fused_rk4_segment)
+from gpode_tpu_torch.ops.cuda_kernels import (LAUNCHES, dopri5_attempt_draws,
+                                              fused_dopri5_attempt,
+                                              fused_rk4_segment,
+                                              kernel_order_draws,
+                                              kernel_refusal)
 from gpode_tpu_torch.ops.ode import (FIRST_STEP_SPAN, ODEStats,
                                      dopri5_attempt, dopri5_controller,
                                      max_rms_over_axis0, odeint)
@@ -291,18 +295,26 @@ class CapturedAttempt:
     one CUDA graph: `odeint_dopri5`'s `attempt`, replayed once per attempt
     under its unchanged host controller.
 
+    With `fused` (a dimwise GP at a shape `dopri5_attempt_draws` takes,
+    decided before the capture) the attempt is that kernel: the graph holds
+    its launch and its reduction. Else it is `ops/ode.dopri5_attempt` on the
+    batched field (`gp.eval_draws`: ~300 small kernels at the validation
+    request's 32 draws x 2 rows).
+
     Static inputs: the state `x`, its FSAL `k1`, the step `dt` (a 0-d
     float32 tensor; the time-invariant field reads no time) and copies of
-    the draws' leaves, which `load` refreshes for each solve. Static outputs:
-    `out`, the attempt's `(x_new, ratio, k7)`. `capture` runs
-    `WARMUP_ATTEMPTS` eager attempts on the capture stream, then captures
-    one in a private pool. A call copies in a state or FSAL value that is
-    not already in the static buffers (a solve's start), fills `dt` and
-    replays (the span `gpode.solve.replay`); `hand_over` copies an accepted
-    step into `x` and `k1` after the dense output read it, so that neither
-    a later replay nor a rejected one changes the state the solve holds.
-    The graph reads the GP's parameters where they live, so an in-place
-    update (Adam's) is seen at the next replay; the draws are copies.
+    the draws' leaves (with `fused`, in the kernel's memory order, and the
+    kernel's constrained lengthscales and variance), which `load` refreshes
+    for each solve. Static outputs: `out`, the attempt's `(x_new, ratio,
+    k7)`. `capture` runs `WARMUP_ATTEMPTS` eager attempts on the capture
+    stream, then captures one in a private pool. A call copies in a state or
+    FSAL value that is not already in the static buffers (a solve's start),
+    fills `dt` and replays (the span `gpode.solve.replay`); `hand_over`
+    copies an accepted step into `x` and `k1` after the dense output read
+    it, so that neither a later replay nor a rejected one changes the state
+    the solve holds. The graph reads Z (and without `fused` every GP
+    parameter) where it lives, so an in-place update (Adam's) is seen at
+    the next solve; the draws are copies.
 
     `cuda_kernels.LAUNCHES` counts wrapper calls, and a replay makes none:
     the capture's launches are taken back out and added on every replay.
@@ -311,10 +323,16 @@ class CapturedAttempt:
 
     def __init__(self, gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
                  x0: torch.Tensor, direction: float, rtol: float, atol: float,
-                 use_kernel: bool):
+                 use_kernel: bool, fused: bool):
         self.gp_params, self.use_kernel = gp_params, use_kernel
-        self.direction = direction
-        self.draws = gp.PosteriorDraw(*(leaf.clone() for leaf in draws))
+        self.direction, self.rtol, self.atol = direction, rtol, atol
+        self.fused = fused
+        if fused:
+            self.draws = gp.PosteriorDraw(*kernel_order_draws(*draws))
+            self.hyper = (gp_params.kernel.lengthscales.detach().clone(),
+                          gp_params.kernel.variance.detach().clone())
+        else:
+            self.draws = gp.PosteriorDraw(*(leaf.clone() for leaf in draws))
         self.x = x0.clone(memory_format=torch.contiguous_format)
         self.k1 = torch.zeros_like(self.x)
         self.dt = torch.zeros((), dtype=torch.float32, device=x0.device)
@@ -329,12 +347,23 @@ class CapturedAttempt:
                                               self.use_kernel)
 
     def _attempt(self):
+        if self.fused:
+            return dopri5_attempt_draws(
+                self.x, self.k1, self.dt, self.direction, self.gp_params.z,
+                *self.hyper, self.draws.omega, self.draws.phase,
+                gp.kernel_rff_weights(self.draws.weights), self.draws.nu,
+                self.rtol, self.atol)
         return self._step(None, self.x, self.k1, self.dt)
+
+    def rehearse(self):
+        """The graph's eager stand-in (`_EagerReplay`; the CPU's only
+        path): each replay launches the attempt."""
+        self.out = self._attempt()
+        self.graph = _EagerReplay(self._attempt, self.out)
 
     def capture(self):
         if self.x.device.type != "cuda":
-            self.out = self._attempt()
-            self.graph = _EagerReplay(self._attempt, self.out)
+            self.rehearse()
             return
         graph = torch.cuda.CUDAGraph()
         capture = torch.cuda.graph(graph)
@@ -354,9 +383,15 @@ class CapturedAttempt:
         self.graph = graph
 
     def load(self, draws: gp.PosteriorDraw):
-        """A solve's draws into the static leaves."""
+        """A solve's draws into the static leaves (with `fused`, also the
+        kernel's constrained hyperparameters as they are now)."""
         for static, leaf in zip(self.draws, draws):
             static.copy_(leaf)
+        if self.fused:
+            kernel = self.gp_params.kernel
+            for static, value in zip(self.hyper, (kernel.lengthscales,
+                                                  kernel.variance)):
+                static.copy_(value)
 
     def __call__(self, tau, x, k1, dt_step):
         del tau  # the field reads no time
@@ -394,6 +429,25 @@ def _capture_gate(cfg: SolverConfig, x0: torch.Tensor) -> bool:
             and not torch.cuda.is_current_stream_capturing())
 
 
+def _draws_kernel_taken(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
+                        x0: torch.Tensor) -> bool:
+    """Does the captured attempt take `dopri5_attempt_draws`? A dimwise GP,
+    float32 states and a shape the kernel takes (`kernel_refusal`), decided
+    from shapes alone before the capture; a refusal is logged once per
+    reason and leaves the plain attempt in the graph."""
+    if not (gp_params.dimwise and x0.dtype == torch.float32):
+        return False
+    s, n, _ = x0.shape
+    reason = kernel_refusal("dopri5_attempt_draws", n, gp_params.z.shape[1],
+                            gp_params.u_mean.shape[1], gp_params.num_inducing,
+                            draws.weights.shape[-2], draws=s)
+    if reason is not None and reason not in _REFUSALS_LOGGED:
+        _REFUSALS_LOGGED.add(reason)
+        _logger.warning("the batched solve's attempt kernel refuses this "
+                        "shape (%s): capturing the plain attempt", reason)
+    return reason is None
+
+
 def _captured_attempt(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
                       x0: torch.Tensor, ts: torch.Tensor, cfg: SolverConfig,
                       use_kernel: bool) -> Optional[CapturedAttempt]:
@@ -401,11 +455,12 @@ def _captured_attempt(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
     where the capture failed (logged once per reason: the eager attempt)."""
     t_host = ts.detach().cpu().numpy().astype(np.float32)
     direction = float(np.sign(t_host[-1] - t_host[0]))
+    fused = _draws_kernel_taken(gp_params, draws, x0)
     leaves = (gp_params.kernel.raw_lengthscales, gp_params.kernel.raw_variance,
               gp_params.z)
     key = (x0.shape, x0.dtype, x0.device,
            tuple((leaf.shape, leaf.dtype) for leaf in draws), cfg.rtol,
-           cfg.atol, use_kernel, direction, gp._RFF_SCALE_FACTOR,
+           cfg.atol, use_kernel, fused, direction, gp._RFF_SCALE_FACTOR,
            torch.backends.cuda.matmul.allow_tf32,
            tuple((id(t), t.data_ptr()) for t in leaves))
     if key in _ATTEMPTS:
@@ -413,7 +468,7 @@ def _captured_attempt(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
         captured = _ATTEMPTS[key]
     else:
         captured = CapturedAttempt(gp_params, draws, x0, direction, cfg.rtol,
-                                   cfg.atol, use_kernel)
+                                   cfg.atol, use_kernel, fused)
         try:
             captured.capture()
         except RuntimeError as err:
@@ -447,8 +502,10 @@ def flow_forward_batched(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
 
     With grad mode off on a card, dopri5's attempt is a
     :class:`CapturedAttempt`, captured once per shape and replayed per
-    attempt: the same kernels in the same order, the same controller, so
-    the same states and `ODEStats` as the eager attempt.
+    attempt under the same controller: for a dimwise GP at a shape it takes,
+    the fused `dopri5_attempt_draws` kernel (the same step as the eager
+    attempt up to the field's summation order), else the eager attempt's
+    kernels in the same order (the same states and `ODEStats`).
     """
     if cfg.use_adjoint:
         warnings.warn(

@@ -30,7 +30,8 @@ BUILD_DIR = _PKG / "_build"
 # One library per source; the header is shared by all of them.
 SOURCES = {"fused_rhs": "fused_rhs.cu", "fused_dopri5": "fused_dopri5.cu",
            "fused_rk4": "fused_rk4.cu", "rbf_gram": "rbf_gram.cu",
-           "fused_rhs_wide": "fused_rhs_wide.cu"}
+           "fused_rhs_wide": "fused_rhs_wide.cu",
+           "dopri5_draws": "dopri5_draws.cu"}
 HEADERS = ("rhs_tile.cuh",)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -13,7 +13,11 @@ Counterpart of `gpode_tpu/ops/pallas_kernels.py`:
     interval for a batch of rows, forward and the reverse sweep of the stage
     chain (`csrc/fused_rk4.cu`; the `fast` recipe);
   * :func:`rbf_gram` — the dimwise RBF cross-Gram K(x, Z) (D, N, M), forward
-    only (`csrc/rbf_gram.cu`; the vector-field posterior `gp.conditional`).
+    only (`csrc/rbf_gram.cu`; the vector-field posterior `gp.conditional`);
+  * :func:`dopri5_attempt_draws` — one adaptive dopri5 attempt of S field
+    draws at once with its max-over-draws error norm, forward only
+    (`csrc/dopri5_draws.cu`; the batched prediction solve's captured
+    attempt, `models/flow.CapturedAttempt`). It replaces no Pallas kernel.
 
 The wide-layout rhs kernels (`csrc/fused_rhs_wide.cu`) are bound in
 `ops/wide_rhs.py` and share this module's counters and helpers.
@@ -52,13 +56,18 @@ import math
 import torch
 
 from gpode_tpu_torch.ops import cuda_build
-from gpode_tpu_torch.ops.ode import _DP_A, _DP_B4, _DP_B5
+from gpode_tpu_torch.ops.kernels import _sqdist
+from gpode_tpu_torch.ops.ode import (_DP_A, _DP_B4, _DP_B5, dopri5_attempt,
+                                     max_rms_over_axis0)
 
 LAUNCHES = {"fused_rhs_fwd": 0, "fused_rhs_bwd": 0,
             "fused_dopri5_attempt_fwd": 0, "fused_dopri5_attempt_bwd": 0,
             "fused_rk4_segment_fwd": 0, "fused_rk4_segment_bwd": 0,
             "rbf_gram": 0, "fused_rhs_wide_fwd": 0, "fused_rhs_wide2_fwd": 0,
-            "fused_rhs_wide_bwd": 0}
+            "fused_rhs_wide_bwd": 0, "dopri5_attempt_draws": 0}
+# (draws, N, Din, D, M, S) of every `dopri5_attempt_draws` launch (a captured
+# graph's replays repeat its capture's shape)
+DRAWS_ATTEMPT_SHAPES: set = set()
 
 # Kernel limits (csrc/rhs_tile.cuh): Din unrolled up to 16 in registers; a
 # block holds at least one warp per output dim, so D is bounded by the
@@ -72,6 +81,7 @@ MAX_SMEM_BYTES = 232448
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    DRAWS_ATTEMPT_SHAPES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +170,41 @@ def rk4_segment_plain(x0, dt, z, lengthscales, variance, omega, phase,
     return x, torch.stack(xs)
 
 
+def draws_field_plain(x, z, lengthscales, variance, omega, phase, weights,
+                      nu):
+    """S dimwise field draws at x (S, N, Din) -> (S, N, D) as plain tensor
+    ops: the operations of `gp.eval_draws`'s batched plain evaluation, in
+    its order, so that on the same operands both give the same bits (the
+    draws' leaves carry the leading draw axis: omega (S, Din, Sf, D), phase
+    (S, 1, Sf, D), weights (S, Sf, D), nu (S, D, M))."""
+    scale = torch.sqrt(2.0 * variance / weights.shape[-2])
+    xo = torch.einsum("...nd,...dfk->...nfk", x, omega)
+    phi = torch.cos(xo + phase) * scale
+    f_prior = torch.einsum("...nfk,...fk->...nk", phi, weights)
+    sq = _sqdist(z[None, :, :] / lengthscales[:, None, :],
+                 x[..., None, :, :] / lengthscales[:, None, :])
+    kuf = variance[:, None, None] * torch.exp(-0.5 * sq)   # (S, D, M, N)
+    return f_prior + torch.einsum("...dm,...dmn->...nd", nu, kuf)
+
+
+def dopri5_attempt_draws_plain(x, k1, dt, direction, z, lengthscales,
+                               variance, omega, phase, weights, nu,
+                               rtol=1e-6, atol=1e-6):
+    """One adaptive dopri5 attempt of S draws as plain tensor ops: the
+    `ops/ode.dopri5_attempt` of the batched solve on the field `direction *
+    draws_field_plain` with the max-over-draws error norm
+    (`max_rms_over_axis0`). Returns (x_new, ratio, k7): the 5th-order step
+    (S, N, D), the 0-d error norm, which accepts the step at <= 1, and the
+    last stage's derivative, k1 of the next step (FSAL)."""
+    def field(t, xx):
+        del t  # time-invariant ODE
+        return direction * draws_field_plain(xx, z, lengthscales, variance,
+                                             omega, phase, weights, nu)
+
+    return dopri5_attempt(field, rtol=rtol, atol=atol,
+                          norm=max_rms_over_axis0)(None, x, k1, dt)
+
+
 # ---------------------------------------------------------------------------
 # Operand checks and layout
 # ---------------------------------------------------------------------------
@@ -224,6 +269,9 @@ _SIGNATURES = {
                        "gpode_wide_fwd_occupancy": [_I] * 9 + [_P],
                        "gpode_wide_bwd": [_P] * 11 + [_I] * 10 + [_P],
                        "gpode_wide_bwd_occupancy": [_I] * 8 + [_P]},
+    "dopri5_draws": {
+        "gpode_dp_draws_attempt": [_P] * 4 + [_F] * 3 + [_P] * 11 + [_I] * 10 + [_P],
+        "gpode_dp_draws_attempt_occupancy": [_I] * 8 + [_P]},
 }
 _TYPED: set = set()
 
@@ -454,18 +502,78 @@ def segment_bwd_geometry(n, din, d, m, s, stages, sms):
                          _SEG_BWD_BLOCKS_PER_SM * sms, smem, "segment backward")
 
 
+# `dopri5_attempt_draws` blocks (csrc/dopri5_draws.cu): one tile of RT rows
+# of one draw per block, G groups of D warps, about _DRAWS_WARPS warps. A
+# stage's latency is its warps' column units walked one after another, so
+# the block takes as many warps as its variant allows. Measured on an H100
+# at 32 draws x 2 rows, D=5, M=100, S=256: 30 warps 0.0331 ms, 20 0.0333,
+# 10 0.0398, 5 0.0557. (dp, rt, maxt) of the instantiated variants, smallest
+# dp first (csrc DRAWS_VARIANTS): the segment forward's; a shape takes the
+# first with Din <= dp.
+_DRAWS_WARPS = 32
+_DRAWS_VARIANTS = _SEG_FWD_VARIANTS[6]
+# grid limit: the draws' tiles are one flat grid
+_MAX_BLOCKS = 2 ** 31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DrawsAttemptGeometry:
+    """Launch geometry of `dopri5_attempt_draws`: `tiles` blocks of `rt`
+    rows per draw, draw-major, and one reduction block."""
+    dp: int               # the kernel variant's bound of its loops over Din
+    rt: int               # rows per tile and block
+    groups: int           # G: the block is G groups of D warps
+    maxt: int             # the variant's thread bound
+    threads: int
+    tiles: int            # blocks per draw
+    blocks: int           # draws * tiles
+    smem_bytes: int
+
+
+def draws_attempt_geometry(draws, n, din, d, m, s):
+    """Geometry of `dopri5_attempt_draws` for `draws` draws of N rows each;
+    raises ValueError on a shape the kernel does not take (Din != D, Din
+    past 16, more blocks than a grid holds, a block past the shared-memory
+    limit). Pure arithmetic: no device is touched."""
+    what = "dopri5_attempt_draws"
+    if din != d:
+        raise ValueError(f"{what} needs Din == D, got {din} and {d}")
+    if draws < 1:
+        raise ValueError(f"{what} needs at least one draw, got {draws}")
+    dp, rt, maxt, groups = _tile_variant(n, din, d, m, s, _DRAWS_VARIANTS,
+                                         _DRAWS_WARPS, what)
+    tiles = math.ceil(n / rt)
+    if draws * tiles > _MAX_BLOCKS:
+        raise ValueError(f"{what} takes at most {_MAX_BLOCKS} tiles of {rt} "
+                         f"rows; got {draws} draws x {tiles}")
+    warps = d * groups
+    # csrc FwdSmem<DP, RT, 7> and sq: xb, xi (rt, stride) | k1..k7 (7 planes
+    # of rt * dp) | il (dp, dp) | red (warps, 32) | sq (rt * dp)
+    smem = 4 * (2 * rt * _align4(dp) + 7 * _align4(rt * dp) + dp * dp
+                + 32 * warps + _align4(rt * dp))
+    _check_smem(smem, what)
+    return DrawsAttemptGeometry(dp=dp, rt=rt, groups=groups, maxt=maxt,
+                                threads=32 * warps, tiles=tiles,
+                                blocks=draws * tiles, smem_bytes=smem)
+
+
 # the kernels that `kernel_refusal` asks, and the stages of the segment ones
 KERNEL_STAGES = {"fused_rhs": None, "rk4_segment": 4, "dopri5_attempt": 6}
 
 
-def kernel_refusal(kernel, n, din, d, m, s):
-    """Why `kernel` (a key of KERNEL_STAGES) would refuse N rows of this
-    shape in either direction — its forward's or its backward's geometry's
-    ValueError message — or None when both take them. Pure arithmetic; one
-    multiprocessor stands in for the card, since the SM count sets only the
-    backward's rows per block, never whether a shape is taken."""
-    stages = KERNEL_STAGES[kernel]
+def kernel_refusal(kernel, n, din, d, m, s, draws=1):
+    """Why `kernel` (a key of KERNEL_STAGES, or "dopri5_attempt_draws" for
+    `draws` draws of N rows) would refuse N rows of this shape in either
+    direction — its forward's or its backward's geometry's ValueError
+    message — or None when both take them (the forward-only draws attempt:
+    its one geometry). Pure arithmetic; one multiprocessor stands in for the
+    card, since the SM count sets only the backward's rows per block, never
+    whether a shape is taken."""
     try:
+        if kernel == "dopri5_attempt_draws":
+            draws_attempt_geometry(draws, n, din, d, m, s)
+            return None
+        stages = KERNEL_STAGES[kernel]
         if stages is None:
             rhs_fwd_geometry(n, din, d, m, s)
             rhs_bwd_geometry(n, din, d, m, s, 1)
@@ -827,6 +935,120 @@ def fused_rk4_segment(x0, dt, z, lengthscales, variance, omega, phase,
 
 
 # ---------------------------------------------------------------------------
+# dopri5_attempt_draws
+# ---------------------------------------------------------------------------
+
+def _draws_layout(omega, phase, weights, nu):
+    """The draws' leaves in the kernel's D-major layout, as contiguous
+    tensors: omega (S, D, Din, Sf), phase and weights (S, D, Sf), nu
+    (S, D, M). Leaves kept in that memory order (`kernel_order_draws`)
+    come back as they are, with no copy."""
+    return (omega.permute(0, 3, 1, 2).contiguous(),
+            phase[:, 0].transpose(1, 2).contiguous(),
+            weights.transpose(1, 2).contiguous(), nu.contiguous())
+
+
+def kernel_order_draws(omega, phase, weights, nu):
+    """Copies of a draw batch's leaves in their own shapes, stored in the
+    memory order of the kernel's layout, so that `dopri5_attempt_draws`
+    reads them where they are (a captured attempt's static draws)."""
+    s, din, sf, d = omega.shape
+    out = (omega.new_empty(s, d, din, sf).permute(0, 2, 3, 1),
+           phase.new_empty(s, d, sf).transpose(1, 2)[:, None],
+           weights.new_empty(s, d, sf).transpose(1, 2),
+           nu.new_empty(nu.shape))
+    for static, leaf in zip(out, (omega, phase, weights, nu)):
+        static.copy_(leaf)
+    return out
+
+
+def _check_draws(x, k1, dt, z, lengthscales, variance, omega, phase, weights,
+                 nu):
+    """Operand checks of `dopri5_attempt_draws` on the card: float32 on the
+    device of x, x and k1 contiguous (S, N, D), the draws' leaves with the
+    leading draw axis S, a one-element dt; returns (draws, N, Din, D, M, S
+    features) and dt as a one-element vector."""
+    tensors = dict(x=x, k1=k1, z=z, lengthscales=lengthscales,
+                   variance=variance, omega=omega, phase=phase,
+                   weights=weights, nu=nu)
+    dev = x.device
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if x.ndim != 3 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous (S, N, D) tensor, got shape "
+                         f"{tuple(x.shape)}")
+    if k1.shape != x.shape or not k1.is_contiguous():
+        raise ValueError(f"k1 must be a contiguous tensor of x's shape "
+                         f"{tuple(x.shape)}, got {tuple(k1.shape)}")
+    draws, n, din = x.shape
+    d, m = nu.shape[-2:]
+    sf = weights.shape[-2]
+    expect = dict(z=(m, din), lengthscales=(d, din), variance=(d,),
+                  omega=(draws, din, sf, d), phase=(draws, 1, sf, d),
+                  weights=(draws, sf, d), nu=(draws, d, m))
+    for name, shape in expect.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(tensors[name].shape)}, "
+                             f"expected {shape}")
+    return (draws, n, din, d, m, sf), _check_dt(dt, dev)
+
+
+def _launch_draws_attempt(x, k1, dt, direction, rtol, atol, shared, leaves,
+                          dims):
+    dev = x.device
+    geo = draws_attempt_geometry(*dims)    # raises before any launch
+    draws, n, din, d, m, s = dims
+    f32 = dict(dtype=torch.float32, device=dev)
+    x_new, k7 = torch.empty_like(x), torch.empty_like(x)
+    part, ratio = torch.empty(geo.blocks, **f32), torch.empty((), **f32)
+    lib = _lib("dopri5_draws")
+    LAUNCHES["dopri5_attempt_draws"] += 1
+    DRAWS_ATTEMPT_SHAPES.add(tuple(dims))
+    rc = lib.gpode_dp_draws_attempt(
+        _ptr(x), _ptr(k1), _ptr(dt), _ptr(_dp_coefficients(dev)),
+        ctypes.c_float(direction), ctypes.c_float(rtol), ctypes.c_float(atol),
+        *map(_ptr, shared), *map(_ptr, leaves), _ptr(x_new), _ptr(k7),
+        _ptr(part), _ptr(ratio), draws, n, din, d, m, s, geo.dp, geo.rt,
+        geo.groups, geo.maxt, _stream(dev))
+    _raise_on(rc, "dopri5_attempt_draws")
+    return x_new, ratio, k7
+
+
+def dopri5_attempt_draws(x, k1, dt, direction, z, lengthscales, variance,
+                         omega, phase, weights, nu, rtol=1e-6, atol=1e-6):
+    """One adaptive dopri5 attempt of S field draws from x (S, N, D) with
+    its FSAL k1 (S, N, D) over the step dt (a 0-d or one-element tensor,
+    read on the device), on the field `direction` (+1 or -1) times the
+    draws' field: z (M, Din), lengthscales (D, Din) and variance (D,)
+    constrained, shared; omega (S, Din, Sf, D), phase (S, 1, Sf, D), the
+    kernels' RFF weights (S, Sf, D) (`gp.kernel_rff_weights`) and nu
+    (S, D, M) per draw. Returns (x_new, ratio, k7) as
+    :func:`dopri5_attempt_draws_plain` does.
+
+    Forward only: with grad mode on and an operand that requires grad it
+    raises. A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel (one launch and its fixed-order reduction) or raises."""
+    require_no_grad("dopri5_attempt_draws", x, k1, z, lengthscales, variance,
+                    omega, phase, weights, nu)
+    if x.device.type == "cpu":
+        return dopri5_attempt_draws_plain(x, k1, dt, direction, z,
+                                          lengthscales, variance, omega,
+                                          phase, weights, nu, rtol, atol)
+    if direction not in (1.0, -1.0):
+        raise ValueError(f"direction must be +1 or -1, got {direction}")
+    dims, dt = _check_draws(x, k1, dt, z, lengthscales, variance, omega, phase,
+                            weights, nu)
+    with torch.no_grad():
+        return _launch_draws_attempt(
+            x, k1, dt, float(direction), float(rtol), float(atol),
+            (z.contiguous(), lengthscales.contiguous(), variance.contiguous()),
+            _draws_layout(omega, phase, weights, nu), dims)
+
+
+# ---------------------------------------------------------------------------
 # What a kernel holds on the card
 # ---------------------------------------------------------------------------
 
@@ -868,6 +1090,10 @@ SEGMENT_KERNELS = {
     ("fwd", 4): ("fused_rk4", "rk4_fwd_kernel", "gpode_rk4_fwd_occupancy"),
     ("bwd", 4): ("fused_rk4", "rk4_bwd_kernel", "gpode_rk4_bwd_occupancy"),
 }
+# (library, kernel, occupancy query) of `dopri5_attempt_draws`; variant
+# (dp, rt, maxt)'s mangled name holds `variant_key(kernel, dp, rt, maxt)`
+DRAWS_KERNEL = ("dopri5_draws", "draws_attempt_kernel",
+                "gpode_dp_draws_attempt_occupancy")
 # the (dp, rt, maxt) variants each kernel instantiates
 RHS_VARIANTS = {"fwd": _RHS_FWD_VARIANTS, "bwd": _RHS_BWD_VARIANTS}
 SEGMENT_VARIANTS = {("fwd", st): _SEG_FWD_VARIANTS[st] for st in (6, 4)}
@@ -894,6 +1120,12 @@ def rhs_occupancy(direction, din, d, m, s, geo):
     """`kernel_occupancy` of the `fused_rhs` forward (`direction="fwd"`) or
     backward ("bwd") at geometry `geo`."""
     return _tile_occupancy(*RHS_KERNELS[direction], din, d, m, s, geo)
+
+
+def draws_attempt_occupancy(din, d, m, s, geo):
+    """`kernel_occupancy` of the `dopri5_attempt_draws` kernel at geometry
+    `geo`."""
+    return _tile_occupancy(*DRAWS_KERNEL, din, d, m, s, geo)
 
 
 def segment_occupancy(direction, stages, din, d, m, s, geo):

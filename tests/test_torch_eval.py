@@ -459,3 +459,150 @@ def test_captured_attempt_rehearsal_equals_the_eager_solve(problem,
                    != t.untyped_storage().data_ptr() for t in statics)
     assert outs[2][2].num_attempted > outs[2][2].num_accepted
     assert not torch.equal(outs[3][0], outs[0][0])
+
+
+# ---------------------------------------------------------------------------
+# the fused batched-draw attempt: its plain version, the kernel route
+# ---------------------------------------------------------------------------
+
+def _random_draws(num_draws, rows, dim, m, s, seed):
+    """A dimwise GP of `m` inducing points over `dim` latents with perturbed
+    hyperparameters, `num_draws` posterior draws of `s` features from seeded
+    noise, and start states (num_draws, rows, dim)."""
+    gen = torch.Generator().manual_seed(seed)
+    params = tgp.init_svgp(gen, dim, dim, m)
+    with torch.no_grad():
+        params.kernel.raw_lengthscales.add_(
+            0.3 * torch.randn(dim, dim, generator=gen))
+        params.kernel.raw_variance.add_(0.2 * torch.randn(dim, generator=gen))
+        params.u_mean.normal_(generator=gen)
+        draws = tgp.draw_posterior(
+            params, torch.randn(num_draws, s, dim, generator=gen),
+            torch.randn(num_draws, dim, s, dim, generator=gen),
+            torch.rand(num_draws, 1, s, dim, generator=gen),
+            torch.randn(num_draws, m, dim, generator=gen))
+    return params, draws, torch.randn(num_draws, rows, dim, generator=gen)
+
+
+# (draws, rows a draw, Din = D, M, features): the validation request's
+# 32 x 2 at the bench widths, the test evaluation's 128 x 2, a tile past
+# one block's rows, and small odd widths
+DRAWS_SHAPES = [(32, 2, 5, 100, 256), (128, 2, 5, 100, 256), (3, 19, 5, 16, 32),
+                (4, 1, 2, 7, 17), (2, 5, 9, 8, 40)]
+
+
+@pytest.mark.parametrize("direction", [1.0, -1.0], ids=["forward", "backward"])
+@pytest.mark.parametrize("shape", DRAWS_SHAPES,
+                         ids=["x".join(map(str, s)) for s in DRAWS_SHAPES])
+def test_dopri5_attempt_draws_plain_is_the_attempt_on_eval_draws(shape,
+                                                                 direction):
+    """`dopri5_attempt_draws_plain` (and the wrapper on CPU tensors) returns
+    the batched solve's attempt, `dopri5_attempt` on the `eval_draws` field
+    with the max-over-draws norm, bit for bit: x_new, the ratio and k7, from
+    the FSAL k1 = f(x), at a short step and at one whose error rejects."""
+    num_draws, rows, dim, m, s = shape
+    params, draws, x = _random_draws(num_draws, rows, dim, m, s, sum(shape))
+
+    def field(t, xx):
+        return direction * tgp.eval_draws(params, draws, xx, False)
+
+    kern = params.kernel
+    with torch.no_grad():
+        k1 = field(None, x)
+        operands = (params.z, kern.lengthscales, kern.variance, draws.omega,
+                    draws.phase, tgp.kernel_rff_weights(draws.weights),
+                    draws.nu)
+        ratios = []
+        for span in (0.01, 2.0):
+            dt = torch.tensor(span)
+            want = ode.dopri5_attempt(field, rtol=1e-5, atol=1e-5,
+                                      norm=max_rms_over_axis0)(None, x, k1, dt)
+            before = dict(ck.LAUNCHES)
+            for fn in (ck.dopri5_attempt_draws_plain, ck.dopri5_attempt_draws):
+                got = fn(x, k1, dt, direction, *operands, 1e-5, 1e-5)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+            assert ck.LAUNCHES == before
+            assert want[1].ndim == 0 and want[0].shape == want[2].shape == x.shape
+            ratios.append(float(want[1]))
+    assert ratios[0] < ratios[1] and ratios[1] > 1.0
+
+
+def test_dopri5_attempt_draws_is_forward_only():
+    params, draws, x = _random_draws(2, 3, 2, 4, 8, 0)
+    kern = params.kernel
+    k1 = torch.zeros_like(x)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ck.dopri5_attempt_draws(x, k1, torch.tensor(0.1), 1.0, params.z,
+                                kern.lengthscales, kern.variance, *draws)
+
+
+def test_kernel_order_draws_are_read_with_no_copy():
+    """A captured attempt's static draws (`kernel_order_draws`) hold the
+    leaves' values in their shapes, and the kernel's layout of them is a
+    view of the same memory: the graph holds no layout copy."""
+    _, draws, _ = _random_draws(3, 2, 5, 8, 16, 1)
+    static = ck.kernel_order_draws(*draws)
+    for leaf, copy in zip(draws, static):
+        assert copy.shape == leaf.shape and torch.equal(copy, leaf)
+    for got, want, leaf in zip(ck._draws_layout(*static),
+                               ck._draws_layout(*draws), static):
+        assert got.is_contiguous() and torch.equal(got, want)
+        assert got.data_ptr() == leaf.data_ptr()
+
+
+@pytest.mark.parametrize("case", ["forward", "backward", "draws32"])
+def test_kernel_route_captured_solve_equals_the_plain_attempt(problem,
+                                                             monkeypatch,
+                                                             case):
+    """`flow_forward_batched` through a `CapturedAttempt` that takes the
+    kernel route (on the CPU its eager stand-in runs the kernel's plain
+    version) returns the eager solve's states and `ODEStats`, bit for bit,
+    forward and backward in time and at the validation request's 32 draws;
+    one replay an attempt, and the attempt counted on no kernel."""
+    from gpode_tpu_torch.models import flow as tflow
+    from gpode_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(tflow, "_ATTEMPTS", type(tflow._ATTEMPTS)())
+    gp_params, draws, x0, ts = _batched_solve(
+        problem, 15, num_draws=32 if case == "draws32" else NUM_DRAWS)
+    if case == "backward":
+        ts = torch.flip(ts, [0])
+    cfg = SolverConfig(solver="dopri5", max_steps=64, rtol=1e-5, atol=1e-5)
+    outs = {}
+    for captured in (False, True):
+        monkeypatch.setattr(tflow, "_capture_gate", lambda *a: captured)
+        before = tuple(profiling.UNTRACED["gpode.solve.replay"])
+        launches = dict(ck.LAUNCHES)
+        with torch.no_grad():
+            outs[captured] = flow_forward_batched(gp_params, draws, x0, ts, cfg)
+        replays = profiling.UNTRACED["gpode.solve.replay"][0] - before[0]
+        assert replays == (outs[captured][1].num_attempted if captured else 0)
+        assert ck.LAUNCHES == launches
+    (attempt,) = tflow._ATTEMPTS.values()
+    assert attempt.fused and attempt.direction == (-1.0 if case == "backward"
+                                                   else 1.0)
+    (want, wst), (got, st) = outs[False], outs[True]
+    assert torch.equal(got, want) and st == wst
+    assert st.num_accepted > 1
+
+
+def test_the_kernel_route_is_decided_from_shapes_before_the_capture(
+        problem, monkeypatch, caplog):
+    """A dimwise GP in float32 at a shape the kernel takes captures the
+    kernel; float64 states, a GP that is not dimwise and a width the kernel
+    refuses (Din = D = 17) keep the plain attempt, a refusal logged once."""
+    from gpode_tpu_torch.models import flow as tflow
+
+    monkeypatch.setattr(tflow, "_REFUSALS_LOGGED", set())
+    gp_params, draws, x0, _ = _batched_solve(problem, 16)
+    assert tflow._draws_kernel_taken(gp_params, draws, x0)
+    assert not tflow._draws_kernel_taken(gp_params, draws, x0.double())
+    flat = tgp.init_svgp(torch.Generator().manual_seed(0), 5, 5, 8,
+                         dimwise=False)
+    assert not tflow._draws_kernel_taken(flat, draws, x0)
+    wide, wide_draws, wide_x0 = _random_draws(2, 2, 17, 8, 16, 2)
+    with caplog.at_level("WARNING", logger=tflow.__name__):
+        for _ in range(2):
+            assert not tflow._draws_kernel_taken(wide, wide_draws, wide_x0)
+    refusals = [r for r in caplog.records if "refuses" in r.getMessage()]
+    assert len(refusals) == 1 and "Din <= 16" in refusals[0].getMessage()

@@ -10,6 +10,9 @@ another order than the plain version). Also the time-to-LL driver's init
 on the card against the same init on the CPU.
 """
 
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -803,22 +806,38 @@ def _predict_problem(cuda, draws_n, rows, seed=7):
 
 
 def _predict_solver(monkeypatch, gp_params, x0, grid, first_step=None):
-    """`solve(draws, captured) -> (xs, stats, launches)`: the batched solve
-    with the eager attempt, or through the gate as the program takes it."""
+    """`solve(draws, mode) -> (xs, stats, launches)`: the batched solve with
+    the eager plain attempt ("plain"; "float64": the same on float64 copies
+    of the GP, the draws and the states), with the program's attempt
+    launched eagerly at every attempt ("eager": `CapturedAttempt.rehearse`,
+    a cache of its own), or through the gate as the program takes it
+    ("captured")."""
     from gpode_tpu_torch.models import flow
 
-    monkeypatch.setattr(flow, "_ATTEMPTS", type(flow._ATTEMPTS)())
-    gate = flow._capture_gate
+    attempts = {"eager": type(flow._ATTEMPTS)(),
+                "captured": type(flow._ATTEMPTS)()}
+    gate, capture = flow._capture_gate, flow.CapturedAttempt.capture
     cfg = flow.SolverConfig(solver="dopri5", max_steps=512,
                             first_step=first_step)
 
-    def solve(draws, captured):
+    def solve(draws, mode):
+        eager = mode in ("plain", "float64")
         monkeypatch.setattr(flow, "_capture_gate",
-                            gate if captured else (lambda *a: False))
+                            (lambda *a: False) if eager else gate)
+        monkeypatch.setattr(flow.CapturedAttempt, "capture",
+                            flow.CapturedAttempt.rehearse if mode == "eager"
+                            else capture)
+        if not eager:
+            monkeypatch.setattr(flow, "_ATTEMPTS", attempts[mode])
+        params, start, config = gp_params, x0, cfg
+        if mode == "float64":  # the plain field: the kernels take float32
+            params, start = copy.deepcopy(gp_params).double(), x0.double()
+            draws = type(draws)(*(leaf.double() for leaf in draws))
+            config = dataclasses.replace(cfg, kernels=False)
         before = dict(ck.LAUNCHES)
         with torch.no_grad():
-            xs, stats = flow.flow_forward_batched(gp_params, draws, x0, grid,
-                                                  cfg)
+            xs, stats = flow.flow_forward_batched(params, draws, start, grid,
+                                                  config)
         torch.cuda.synchronize()
         return xs, stats, {k: ck.LAUNCHES[k] - before[k] for k in before}
 
@@ -828,27 +847,45 @@ def _predict_solver(monkeypatch, gp_params, x0, grid, first_step=None):
 @pytest.mark.parametrize("case", list(PREDICT_CASES))
 def test_captured_prediction_attempt_equals_the_eager_one(cuda, monkeypatch,
                                                           case):
-    """The batched solve with its attempt captured equals the eager solve
-    bit for bit, states and all four `ODEStats` fields: at the validation
-    request's shape, at the kernel gate's 256 rows a draw (`fused_rhs`
-    inside the graph, as many launches counted), and from the whole span,
-    whose first attempt is rejected. The first captured solve captures,
-    the second replays the cached graph."""
+    """The batched solve with its attempt captured equals the same attempt
+    launched eagerly bit for bit, states and all four `ODEStats` fields: at
+    the validation request's shape, at 256 rows a draw (several tiles a
+    draw; f0 and Hairer's probe take `fused_rhs` per draw) and from the whole
+    span, whose first attempt is rejected. The attempt is the fused
+    `dopri5_attempt_draws` kernel, once per attempt; the first captured
+    solve captures, the second replays the cached graph. Against the plain
+    attempt the kernel sums the field in another order, which moves the
+    adaptive step sizes a little and can flip an accept decision near 1: the
+    attempts within 5% (or 2) of the plain solve's, and the states no
+    farther from the float64 plain solve than twice the float32 plain
+    solve's distance (+ 1e-6 * max|ref|)."""
     from gpode_tpu_torch.models import flow
 
     draws_n, rows, first_step = PREDICT_CASES[case]
     gp_params, draws, x0, grid = _predict_problem(cuda, draws_n, rows)
     solve = _predict_solver(monkeypatch, gp_params, x0, grid, first_step)
     d = draws(11)
-    want, wst, wl = solve(d, False)
+    for _ in range(2):  # the second run replays without a first attempt
+        want, wst, wl = solve(d, "eager")
     for _ in range(2):
-        got, st, launches = solve(d, True)
+        got, st, launches = solve(d, "captured")
         assert torch.equal(got, want) and st == wst
     assert launches == wl
     (attempt,) = flow._ATTEMPTS.values()
-    assert attempt is not None and attempt.graph is not None
-    if case == "kernel_gate":
-        assert wl["fused_rhs_fwd"] == draws_n * (2 + 6 * wst.num_attempted)
+    assert attempt is not None and attempt.graph is not None and attempt.fused
+    assert wl["dopri5_attempt_draws"] == wst.num_attempted
+    assert wl["fused_rhs_fwd"] == (2 * draws_n if rows >= 256 else 0)
+    plain, pst, _ = solve(d, "plain")
+    ref, _, _ = solve(d, "float64")
+    e_kernel = float((got.double() - ref).abs().max())
+    e_plain = float((plain.double() - ref).abs().max())
+    print(f"{case}: kernel {wst}, plain {pst}; max abs error against the "
+          f"float64 solve: kernel {e_kernel:.3e}, plain {e_plain:.3e} "
+          f"(max|ref| {float(ref.abs().max()):.3e})")
+    assert abs(wst.num_attempted - pst.num_attempted) <= max(
+        2, 0.05 * pst.num_attempted)
+    assert wst.num_covered == pst.num_covered == grid.shape[0]
+    assert e_kernel <= 2.0 * e_plain + 1e-6 * float(ref.abs().max())
     if case == "rejects":
         assert wst.num_attempted > wst.num_accepted
 
@@ -857,9 +894,9 @@ def test_captured_prediction_attempt_reads_fresh_draws_and_parameters(
         cuda, monkeypatch):
     """Two requests' draws, then an in-place change of the GP's parameters
     (as Adam makes between validations), each solve through the one cached
-    graph against the eager solve, bit for bit; one replay an attempt; no
-    output shares memory with a static buffer or changes after a later
-    solve."""
+    graph against the attempt launched eagerly, bit for bit; one replay an
+    attempt; no output shares memory with a static buffer or changes after
+    a later solve."""
     from gpode_tpu_torch.models import flow
     from gpode_tpu_torch.utils import profiling
 
@@ -872,18 +909,130 @@ def test_captured_prediction_attempt_reads_fresh_draws_and_parameters(
                 gp_params.z.add_(0.05)
                 gp_params.kernel.raw_lengthscales.mul_(0.9)
         d = draws(seed)
-        want, wst, _ = solve(d, False)
+        want, wst, _ = solve(d, "eager")
         replays = profiling.UNTRACED["gpode.solve.replay"][0]
-        got, st, _ = solve(d, True)
+        got, st, _ = solve(d, "captured")
         assert torch.equal(got, want) and st == wst
         assert (profiling.UNTRACED["gpode.solve.replay"][0] - replays
                 == st.num_attempted)
         outs.append((got, got.clone()))
     (attempt,) = flow._ATTEMPTS.values()
-    statics = [attempt.x, attempt.k1, attempt.dt, *attempt.out, *attempt.draws]
+    statics = [attempt.x, attempt.k1, attempt.dt, *attempt.out, *attempt.draws,
+               *attempt.hyper]
     for got, copy in outs:
         assert torch.equal(got, copy)
         assert all(got.untyped_storage().data_ptr()
                    != t.untyped_storage().data_ptr() for t in statics)
     assert not torch.equal(outs[0][0], outs[1][0])
     assert not torch.equal(outs[0][0], outs[2][0])
+
+
+# the draws kernel's shapes on the card: (draws, rows, Din = D, M, S)
+DRAWS_SHAPES = {"validation": (32, 2, 5, 100, 256),
+                "test_eval": (128, 2, 5, 100, 256),
+                "tiles": (3, 77, 5, 100, 256), "small": (4, 3, 2, 16, 32)}
+
+
+def _draws_inputs(dev, draws_n, rows, dim, m, s, seed):
+    """A dimwise GP of the given widths with seeded hyperparameters, its
+    draws, start states and their FSAL k1, all on `dev`."""
+    from gpode_tpu_torch.models import gp
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = gp.init_svgp(torch.Generator().manual_seed(seed), dim, dim, m,
+                          device=dev)
+    with torch.no_grad():
+        params.kernel.raw_lengthscales.add_(
+            0.3 * torch.randn(dim, dim, device=dev, generator=gen))
+        params.u_mean.normal_(generator=gen)
+        draws = gp.draw_posterior(
+            params, torch.randn(draws_n, s, dim, device=dev, generator=gen),
+            torch.randn(draws_n, dim, s, dim, device=dev, generator=gen),
+            torch.rand(draws_n, 1, s, dim, device=dev, generator=gen),
+            torch.randn(draws_n, m, dim, device=dev, generator=gen))
+        x = torch.randn(draws_n, rows, dim, device=dev, generator=gen)
+    k = params.kernel
+    operands = (params.z.detach(), k.lengthscales.detach(),
+                k.variance.detach(), draws.omega, draws.phase,
+                gp.kernel_rff_weights(draws.weights), draws.nu)
+    return params, draws, x, operands
+
+
+@pytest.mark.parametrize("direction", [1.0, -1.0], ids=["forward", "backward"])
+@pytest.mark.parametrize("shape", list(DRAWS_SHAPES))
+def test_dopri5_attempt_draws_matches_plain(cuda, shape, direction):
+    """The kernel against `dopri5_attempt_draws_plain` on the card. At a
+    short step, x_new and k7 at the forward tolerance (rtol 1e-4, atol 1e-5
+    * max|ref|: the field is summed in another order, the stage
+    combinations round alike), and the accept decision where the plain
+    ratio is not within 5% of 1 (there the embedded error is float32
+    rounding of the stage sums in both versions). Over the shortest step
+    0.02 * 1.25^k whose plain error ratio stands far above that rounding
+    (> 1e3; near 10 the two still part by up to ~0.5% at D=2), the ratio
+    at rtol 1e-3; x_new and k7 are not held there, since a long
+    step amplifies the field's rounding. Two launches are bit-identical;
+    each launch is counted."""
+    draws_n, rows, dim, m, s = DRAWS_SHAPES[shape]
+    _, _, x, operands = _draws_inputs(cuda, draws_n, rows, dim, m, s, 31)
+    with torch.no_grad():
+        k1 = (direction * ck.draws_field_plain(x, *operands)).contiguous()
+
+        def plain_ratio(span):
+            return float(ck.dopri5_attempt_draws_plain(
+                x, k1, torch.tensor(span, device=cuda), direction,
+                *operands)[1])
+
+        long_span = next(0.02 * 1.25 ** k for k in range(60)
+                         if plain_ratio(0.02 * 1.25 ** k) > 1e3)
+        for span, long in ((0.02, False), (long_span, True)):
+            dt = torch.tensor(span, device=cuda)
+            before = ck.LAUNCHES["dopri5_attempt_draws"]
+            got = ck.dopri5_attempt_draws(x, k1, dt, direction, *operands)
+            again = ck.dopri5_attempt_draws(x, k1, dt, direction, *operands)
+            assert ck.LAUNCHES["dopri5_attempt_draws"] == before + 2
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            want = ck.dopri5_attempt_draws_plain(x, k1, dt, direction,
+                                                 *operands)
+            ratio, ref = float(got[1]), float(want[1])
+            if not long:
+                _assert_close(got[0], want[0], f"x_new at dt={span}")
+                _assert_close(got[2], want[2], f"k7 at dt={span}")
+                if abs(ref - 1.0) > 0.05:
+                    assert (ratio <= 1.0) == (ref <= 1.0)
+            else:
+                assert ref > 1e3
+                assert ratio == pytest.approx(ref, rel=1e-3)
+
+
+def test_dopri5_attempt_draws_raises_instead_of_falling_back(cuda):
+    _, _, x, operands = _draws_inputs(cuda, 2, 3, 5, 16, 32, 32)
+    dt = torch.tensor(0.1, device=cuda)
+    k1 = torch.zeros_like(x)
+    before = dict(ck.LAUNCHES)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.dopri5_attempt_draws(x.transpose(0, 1).contiguous().transpose(0, 1),
+                                k1, dt, 1.0, *operands)
+    with pytest.raises(ValueError):  # dt on the host
+        ck.dopri5_attempt_draws(x, k1, dt.cpu(), 1.0, *operands)
+    with pytest.raises(TypeError):   # float64 states
+        ck.dopri5_attempt_draws(x.double(), k1.double(), dt, 1.0, *operands)
+    with pytest.raises(ValueError, match="direction"):
+        ck.dopri5_attempt_draws(x, k1, dt, 0.5, *operands)
+    assert ck.LAUNCHES == before
+
+
+def test_a_refused_shape_captures_the_plain_attempt(cuda, monkeypatch):
+    """Din = D = 17, which the draws kernel refuses: the captured attempt is
+    the plain one (no draws kernel launched) and equals the eager plain solve
+    bit for bit."""
+    from gpode_tpu_torch.models import flow
+
+    params, draws, x, _ = _draws_inputs(cuda, 4, 2, 17, 16, 32, 33)
+    solve = _predict_solver(monkeypatch, params, x, torch.linspace(
+        0.0, 0.5, 6, device=cuda))
+    want, wst, _ = solve(draws, "plain")
+    got, st, launches = solve(draws, "captured")
+    assert torch.equal(got, want) and st == wst
+    (attempt,) = flow._ATTEMPTS.values()
+    assert attempt is not None and not attempt.fused
+    assert launches["dopri5_attempt_draws"] == 0
