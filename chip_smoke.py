@@ -77,7 +77,14 @@ exit code and no result line:
      read once), its resources and every built variant free of spills, and
      the device ms of one replay of the captured attempt, fused and plain;
      then the validation request's solve (`flow_forward_batched`, dopri5,
-     Hairer's start, 120 steps) a second time: the kernel once per attempt;
+     Hairer's start, 120 steps) a second time: the kernel once per attempt,
+     and the commit kernel (`draws_commit`) once per attempt too; then
+     `draws_commit` at the same two shapes' states and 120 output times
+     against its plain version (the host's `_hermite` ops and hand-over
+     copies) bit for bit, over a step of two output times and over the whole
+     span, its time at the two-point step beside its bound and the plain
+     version's device ms, its registers free of spills, and the captured
+     attempt's replay with the commit;
   7b. time to test LL: the time-to-LL driver
      (`gpode_tpu_torch.scripts.bench_time_to_nll.main`) in-process, `fast`
      preset, DRIVER_ITERS iterations, tracking evals every 250, 128-draw
@@ -261,7 +268,8 @@ SOURCES = {"fused_rhs_fwd": "gpode_tpu_torch/csrc/fused_rhs.cu",
            "fused_rhs_wide_fwd": "gpode_tpu_torch/csrc/fused_rhs_wide.cu",
            "fused_rhs_wide2_fwd": "gpode_tpu_torch/csrc/fused_rhs_wide.cu",
            "fused_rhs_wide_bwd": "gpode_tpu_torch/csrc/fused_rhs_wide.cu",
-           "dopri5_attempt_draws": "gpode_tpu_torch/csrc/dopri5_draws.cu"}
+           "dopri5_attempt_draws": "gpode_tpu_torch/csrc/dopri5_draws.cu",
+           "draws_commit": "gpode_tpu_torch/csrc/dopri5_draws.cu"}
 REPLACES = {
     "fused_rhs_fwd": "gpode_tpu/ops/pallas_kernels.py:252",
     "fused_rhs_bwd": "gpode_tpu/ops/pallas_kernels.py:467",
@@ -274,6 +282,7 @@ REPLACES = {
     "fused_rhs_wide2_fwd": "scripts/proto_wide_rhs.py:168",
     "fused_rhs_wide_bwd": "scripts/proto_wide_rhs.py:305",
     "dopri5_attempt_draws": "none: the batched prediction solve's attempt",
+    "draws_commit": "none: the dense output is XLA's in the JAX package",
 }
 # The ten redesigned kernels (six on the row tile, three wide-layout ones and
 # `rbf_gram`): device ms per launch before their redesign (`ms`; PERF.md,
@@ -312,7 +321,7 @@ MAIN_PATH_KERNELS = {
     "adjoint": ("fused_rhs_fwd", "fused_rhs_bwd"),
     "wide_ab": ("fused_rhs_fwd", "fused_rhs_bwd", "fused_rhs_wide_fwd",
                 "fused_rhs_wide2_fwd", "fused_rhs_wide_bwd"),
-    "predict": ("dopri5_attempt_draws",),
+    "predict": ("dopri5_attempt_draws", "draws_commit"),
 }
 OFF_PATH_KERNELS = {
     "official": (),
@@ -3124,6 +3133,8 @@ def draws_attempt_phase(dev):
     print(f"  validation solve: {stats}, launches {launches}")
     check(launches["dopri5_attempt_draws"] == stats.num_attempted,
           "the validation solve's attempt is not the draws kernel")
+    check(launches["draws_commit"] == stats.num_attempted,
+          "the validation solve's attempt does not commit on the device")
     lib_name, kernel, _ = ck.DRAWS_KERNEL
     built = {k: v for k, v in cuda_build.kernel_resources(lib_name).items()
              if kernel in k}
@@ -3136,6 +3147,110 @@ def draws_attempt_phase(dev):
         check(rec["spill_stores"] == 0 and rec["spill_loads"] == 0,
               f"dopri5_attempt_draws variant {key} spills registers")
     return row, details, launches
+
+
+COMMIT_POINTS = 120
+
+
+def draws_commit_ops(written, elements, points):
+    """(operations, bytes) of one `draws_commit` launch that writes
+    `written` of `points` output times of `elements` states: per point and
+    element 4 products and 3 sums (the coefficients are per point); x, k1,
+    x_new and k7 read, x and k1 written, the points written, the times, the
+    ratio and the three scalars read."""
+    return (7 * written * elements,
+            4 * ((6 + written) * elements + points + 4))
+
+
+def draws_commit_phase(dev):
+    """`draws_commit` at the validation request's and the test
+    evaluation's states (32 and 128 draws x 2 rows x 5) and COMMIT_POINTS
+    output times against its plain version, bit for bit, over a step of two
+    output times and over the whole span; its device ms at the two-point
+    step beside its bound and the plain version's (the two points'
+    `_hermite` ops and the hand-over copies, as the host issues them), its
+    registers free of spills, and one replay of the captured fused attempt
+    with the commit. Returns (the kernel row at 32 x 2, details by shape)."""
+    phase("draws commit")
+    import numpy as np
+    import torch
+    from gpode_tpu_torch.models import flow, gp, gpode
+    from gpode_tpu_torch.ops import cuda_build, ode
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
+
+    _, params, _, _ = build_bench_problem(preset_model_args("official"),
+                                          device=dev)
+    g = params.gp
+    taus_np = (0.01 * np.arange(COMMIT_POINTS)).astype(np.float32)
+    taus = torch.from_numpy(taus_np).to(dev)
+    steps = {"two_points": (np.float32(taus_np[40] + np.float32(0.003)),
+                            np.float32(taus_np[42] + np.float32(0.004))),
+             "whole_span": (np.float32(0.0), taus_np[-1])}
+    ratio = torch.tensor(0.5, device=dev)
+    details, row = {}, None
+    for label, draws_n in DRAWS_ATTEMPT_CASES.items():
+        gen = torch.Generator(dev).manual_seed(9)
+        x, k1, x_new, k7 = (torch.randn(draws_n, 2, 5, device=dev, generator=gen)
+                            for _ in range(4))
+        dense = torch.zeros(COMMIT_POINTS, draws_n, 2, 5, device=dev)
+        scalars = {}
+        for step, (tau, tau_end) in steps.items():
+            scalars[step] = torch.tensor([0.01, tau, tau_end], device=dev)
+            got = [dense.clone(), x.clone(), k1.clone()]
+            want = [dense.clone(), x.clone(), k1.clone()]
+            ck.draws_commit(ratio, scalars[step], taus, *got, x_new, k7)
+            ck.draws_commit_plain(ratio, scalars[step], taus, *want, x_new, k7)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"draws_commit differs from its plain version ({label}, {step})")
+        tau, tau_end = steps["two_points"]
+        buf = [dense.clone(), x.clone(), k1.clone()]
+        ms = cuda_ms(lambda: ck.draws_commit(ratio, scalars["two_points"], taus,
+                                             *buf, x_new, k7))
+
+        def host_commit():
+            for j in (41, 42):
+                ode._hermite(taus_np[j], tau, tau_end, x, k1, x_new, k7)
+            buf[1].copy_(x_new)
+            buf[2].copy_(k7)
+
+        pms = cuda_ms(host_commit)
+        noise = gpode.sample_draw_noise(g, 256, draws_n,
+                                        torch.Generator(dev).manual_seed(5))
+        with torch.no_grad():
+            draw = gp.draw_posterior(g, noise.rff_weights, noise.rff_freq,
+                                     noise.rff_phase, noise.inducing)
+            att = flow.CapturedAttempt(g, draw, x, 1.0, 1e-6, 1e-6, False,
+                                       True, COMMIT_POINTS)
+            att.load(draw)
+            att.dense_output(taus_np, x)
+            att.k1.copy_(k1)
+            att.scalars.copy_(scalars["two_points"])
+            att.capture()
+            replay = cuda_ms(att.graph.replay)
+        elements = draws_n * 2 * 5
+        bms, by = bound(*draws_commit_ops(2, elements, COMMIT_POINTS))
+        print(f"draws_commit ({label}: {draws_n} draws x 2 rows x 5, "
+              f"{COMMIT_POINTS} times, 2 written): {ms:.4f} ms kernel, "
+              f"{pms:.4f} ms plain (2 _hermite points and the hand-over "
+              f"copies), bound {bms:.6f} ms ({by}), {100 * bms / ms:.2f}% of "
+              f"it; captured fused attempt with the commit {replay:.4f} ms")
+        details[label] = dict(draws=draws_n, rows=2, points=COMMIT_POINTS,
+                              written=2, ms=ms, plain_ms=pms, bound_ms=bms,
+                              bound_by=by, replay_with_commit_ms=replay)
+        if row is None:
+            row = (0.0, ms, pms, bms, by)
+    built = {k: v for k, v in cuda_build.kernel_resources("dopri5_draws").items()
+             if "draws_commit_kernel" in k}
+    check(len(built) == 1, f"draws_commit: {len(built)} kernels built")
+    for key, rec in built.items():
+        print(f"  draws_commit {key}: {rec['registers']} registers, spill "
+              f"{rec['spill_stores']} B stores / {rec['spill_loads']} B loads")
+        check(rec["spill_stores"] == 0 and rec["spill_loads"] == 0,
+              "draws_commit spills registers")
+        details["registers"] = rec["registers"]
+    return row, details
 
 
 def eval_phase(dev, args, params):
@@ -3241,6 +3356,7 @@ def main(argv=None) -> int:
     evaluation = eval_phase(dev, fast_args, fast_params)
     (kernels["dopri5_attempt_draws"], draws_details,
      predict_launches) = draws_attempt_phase(dev)
+    kernels["draws_commit"], commit_details = draws_commit_phase(dev)
     driver, driver_launches = driver_phase(evaluation["ll"])
     with tempfile.TemporaryDirectory() as tmp:
         experiments, exp_launches, exp_rk4_launches = experiments_phase(tmp)
@@ -3309,6 +3425,8 @@ def main(argv=None) -> int:
                 "fhn_interpolation_shooting": p7e["interp"][name] / TINY_ITERS}
         if name == "dopri5_attempt_draws":
             row["shapes"] = draws_details
+        if name == "draws_commit":
+            row["shapes"] = commit_details
         if name == "rbf_gram":
             row["launches_per_run"] = {"plots_grid_conditional":
                                        p7e["grid"][name], **{

@@ -32,6 +32,10 @@
 // constrained and var (D,) shared; per draw, in the kernel layout, omega
 // (S, D, Din, Sf), phase and w (S, D, Sf), nu (S, D, M). dt is read from
 // device memory, so a graph replay sees each new fill.
+//
+// draws_commit_kernel, the captured attempt's last node, commits an accepted
+// attempt on the device: the cubic Hermite dense output at every output time
+// in (tau, tau_end] and the hand-over x <- x_new, k1 <- k7 (see below).
 
 #include "rhs_tile.cuh"
 
@@ -244,4 +248,103 @@ extern "C" int gpode_dp_draws_attempt_occupancy(int din, int d, int m, int s,
                    nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                    nullptr, nullptr, nullptr, 1, rt, din, d, m, s, dp, rt, groups,
                    maxt, out, nullptr);
+}
+
+// ---------------------------------------------------------------------------
+// draws_commit_kernel: an accepted attempt's commit (models/flow.py
+// `CapturedAttempt`, after the attempt in the captured graph).
+//
+// Replaces no Pallas kernel: the JAX package's dense output is XLA's. It was
+// added because on the host the commit is ~7 small launches an output point
+// and two copies an accepted step, issued one by one between the attempts.
+//
+// Bound: latency. The launch, one read of the T output times spread over a
+// block's threads and two barriers; the bytes (x, k1, x_new, k7 read, x and
+// k1 written, a few points' outputs) are ~10 KB at the validation request's
+// 32 x 2 x 5 states.
+//
+// Reads the attempt's error ratio and on !(ratio <= 1) (a reject, or NaN)
+// writes nothing, as the host's `float(ratio) <= 1.0` decides. Else each
+// block takes the output times COMMIT_THREADS at a time: the thread of time
+// j, where tau < taus[j] <= tau_end, forms that point's four coefficients
+// once and lists them in shared memory (an integer atomic orders the list;
+// the points are independent, so the order changes no bit); then the thread
+// of element i of the (S, N, D) state writes every listed point, out[j, i] =
+// ops/ode.py `_hermite(taus[j], tau, tau_end, x, k1, x_new, k7)` with its
+// roundings: the coefficients in float32 in numpy's order, each product and
+// sum rounded once (no contraction into FMA), the four terms added left to
+// right as the host's tensor ops add them. It then sets x[i] = x_new[i] and
+// k1[i] = k7[i]: the thread owns its element, so it has read the old state
+// before it writes. scalars = {dt, tau, tau_end}, read on the device, so a
+// replay sees each new copy. No float atomics; elements past n are masked.
+
+#define COMMIT_THREADS 256
+
+static __global__ void __launch_bounds__(COMMIT_THREADS)
+draws_commit_kernel(const float* __restrict__ ratio,
+                    const float* __restrict__ scalars,
+                    const float* __restrict__ taus, int points,
+                    float* __restrict__ out, float* __restrict__ x,
+                    float* __restrict__ k1, const float* __restrict__ x_new,
+                    const float* __restrict__ k7, int n) {
+  __shared__ float coef[4][COMMIT_THREADS];  // h00, h10 * h, h01, h11 * h
+  __shared__ int time_of[COMMIT_THREADS];
+  __shared__ int listed;
+  if (!(*ratio <= 1.f)) return;  // the same for every thread of the block
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  const float t0 = scalars[1], t1 = scalars[2];
+  float h = __fsub_rn(t1, t0);
+  if (h == 0.f) h = 1.f;
+  float x0 = 0.f, f0 = 0.f, x1 = 0.f, f1 = 0.f;
+  if (live) {
+    x0 = x[i];
+    f0 = k1[i];
+    x1 = x_new[i];
+    f1 = k7[i];
+  }
+  for (int first = 0; first < points; first += COMMIT_THREADS) {
+    if (threadIdx.x == 0) listed = 0;
+    __syncthreads();
+    const int j = first + threadIdx.x;
+    const float t = j < points ? taus[j] : 0.f;
+    if (j < points && t0 < t && t <= t1) {
+      const float s = __fdiv_rn(__fsub_rn(t, t0), h);
+      const float s2 = __fmul_rn(s, s);
+      const float s3 = __fmul_rn(s2, s);
+      const int k = atomicAdd(&listed, 1);
+      time_of[k] = j;
+      coef[0][k] = __fadd_rn(__fsub_rn(__fmul_rn(2.f, s3), __fmul_rn(3.f, s2)), 1.f);
+      coef[1][k] = __fmul_rn(__fadd_rn(__fsub_rn(s3, __fmul_rn(2.f, s2)), s), h);
+      coef[2][k] = __fadd_rn(__fmul_rn(-2.f, s3), __fmul_rn(3.f, s2));
+      coef[3][k] = __fmul_rn(__fsub_rn(s3, s2), h);
+    }
+    __syncthreads();
+    if (live) {
+      for (int k = 0; k < listed; ++k) {
+        float v = __fadd_rn(__fmul_rn(coef[0][k], x0), __fmul_rn(coef[1][k], f0));
+        v = __fadd_rn(v, __fmul_rn(coef[2][k], x1));
+        v = __fadd_rn(v, __fmul_rn(coef[3][k], f1));
+        out[(size_t)time_of[k] * n + i] = v;
+      }
+    }
+    __syncthreads();  // the list is read before the next chunk's
+  }
+  if (live) {
+    x[i] = x1;
+    k1[i] = f1;
+  }
+}
+
+// The commit on `stream`: out (points, n), x, k1, x_new, k7 (n) contiguous.
+extern "C" int gpode_dp_draws_commit(const float* ratio, const float* scalars,
+                                     const float* taus, float* out, float* x,
+                                     float* k1, const float* x_new,
+                                     const float* k7, int points, int n,
+                                     void* stream) {
+  if (points < 0 || n < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + COMMIT_THREADS - 1) / COMMIT_THREADS;
+  draws_commit_kernel<<<blocks, COMMIT_THREADS, 0, (cudaStream_t)stream>>>(
+      ratio, scalars, taus, points, out, x, k1, x_new, k7, n);
+  return (int)cudaGetLastError();
 }

@@ -7,8 +7,9 @@ applied to `eval_draw` of a fixed
 for one-interval shooting segments (the rk4 segment and the whole-span
 dopri5 attempt), the continuous adjoint, rematerialized rhs evaluations, the
 batched-draw solve of posterior prediction (its dopri5 attempt a captured
-CUDA graph on the card, of one fused attempt kernel for a dimwise GP), and a
-solve under a draw built from its noise.
+CUDA graph on the card, of one fused attempt kernel for a dimwise GP, which
+also commits an accepted step's dense output on the device), and a solve
+under a draw built from its noise.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from gpode_tpu_torch.models import gp
 from gpode_tpu_torch.ops.adjoint import odeint_adjoint
 from gpode_tpu_torch.ops.cuda_kernels import (LAUNCHES, dopri5_attempt_draws,
+                                              draws_commit,
                                               fused_dopri5_attempt,
                                               fused_rk4_segment,
                                               kernel_order_draws,
@@ -279,15 +281,16 @@ WARMUP_ATTEMPTS = 2
 
 
 class _EagerReplay:
-    """A graph's stand-in on the CPU: a replay runs the attempt eagerly and
-    copies its results into the static outputs."""
+    """A graph's stand-in on the CPU: a replay runs the attempt eagerly,
+    copies its results into the static outputs and commits them."""
 
-    def __init__(self, attempt: Callable, out: tuple):
-        self.attempt, self.out = attempt, out
+    def __init__(self, attempt: Callable, out: tuple, commit: Callable):
+        self.attempt, self.out, self.commit = attempt, out, commit
 
     def replay(self):
         for static, new in zip(self.out, self.attempt()):
             static.copy_(new)
+        self.commit(self.out)
 
 
 class CapturedAttempt:
@@ -301,20 +304,32 @@ class CapturedAttempt:
     batched field (`gp.eval_draws`: ~300 small kernels at the validation
     request's 32 draws x 2 rows).
 
-    Static inputs: the state `x`, its FSAL `k1`, the step `dt` (a 0-d
-    float32 tensor; the time-invariant field reads no time) and copies of
-    the draws' leaves (with `fused`, in the kernel's memory order, and the
-    kernel's constrained lengthscales and variance), which `load` refreshes
-    for each solve. Static outputs: `out`, the attempt's `(x_new, ratio,
-    k7)`. `capture` runs `WARMUP_ATTEMPTS` eager attempts on the capture
-    stream, then captures one in a private pool. A call copies in a state or
-    FSAL value that is not already in the static buffers (a solve's start),
-    fills `dt` and replays (the span `gpode.solve.replay`); `hand_over`
-    copies an accepted step into `x` and `k1` after the dense output read
-    it, so that neither a later replay nor a rejected one changes the state
-    the solve holds. The graph reads Z (and without `fused` every GP
-    parameter) where it lives, so an in-place update (Adam's) is seen at
-    the next solve; the draws are copies.
+    With `points` > 0 (float32 states, `SolverConfig.kernels` not False)
+    the graph also commits an accepted attempt: its last node is the
+    `draws_commit` kernel, which on a ratio <= 1 writes the cubic Hermite
+    dense output at the solve's output times in (tau, tau_end] into the
+    static `dense` (points, *x.shape) and hands the step over (x <- x_new,
+    k1 <- k7), as `odeint_dopri5` does on the host otherwise.
+
+    Static inputs: the state `x`, its FSAL `k1`, `scalars` = [dt, tau,
+    tau_end] (float32; `dt` is its first element, a 0-d view; the
+    time-invariant field reads no time), with `points` the solve's output
+    times `taus`, and copies of the draws' leaves (with `fused`, in the
+    kernel's memory order, and the kernel's constrained lengthscales and
+    variance), which `load` refreshes for each solve. Static outputs: `out`,
+    the attempt's `(x_new, ratio, k7)`, and `dense`. `capture` runs
+    `WARMUP_ATTEMPTS` eager attempts (and commits) on the capture stream,
+    then captures one in a private pool. `dense_output` starts a solve: its
+    `taus` in, x0 into the points at or before its start. A call copies in
+    a state or FSAL value that is not already in the static buffers (a
+    solve's start), copies in the scalars from pinned host memory and
+    replays (the span `gpode.solve.replay`). Without the commit
+    `hand_over` copies an accepted step into `x` and `k1` after the host's
+    dense output read it, so that neither a later replay nor a rejected one
+    changes the state the solve holds; with it the graph has done so. The
+    graph reads Z (and without `fused` every GP parameter) where it lives,
+    so an in-place update (Adam's) is seen at the next solve; the draws are
+    copies.
 
     `cuda_kernels.LAUNCHES` counts wrapper calls, and a replay makes none:
     the capture's launches are taken back out and added on every replay.
@@ -323,7 +338,7 @@ class CapturedAttempt:
 
     def __init__(self, gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
                  x0: torch.Tensor, direction: float, rtol: float, atol: float,
-                 use_kernel: bool, fused: bool):
+                 use_kernel: bool, fused: bool, points: int = 0):
         self.gp_params, self.use_kernel = gp_params, use_kernel
         self.direction, self.rtol, self.atol = direction, rtol, atol
         self.fused = fused
@@ -335,7 +350,16 @@ class CapturedAttempt:
             self.draws = gp.PosteriorDraw(*(leaf.clone() for leaf in draws))
         self.x = x0.clone(memory_format=torch.contiguous_format)
         self.k1 = torch.zeros_like(self.x)
-        self.dt = torch.zeros((), dtype=torch.float32, device=x0.device)
+        f32 = dict(dtype=torch.float32, device=x0.device)
+        self.scalars = torch.zeros(3, **f32)
+        self.dt = self.scalars[0]
+        self.host_scalars = torch.zeros(3, dtype=torch.float32,
+                                        pin_memory=x0.is_cuda)
+        self._host = self.host_scalars.numpy()
+        self.points = points
+        self.taus = torch.zeros(points, **f32)
+        self.dense = torch.zeros((points, *self.x.shape), dtype=x0.dtype,
+                                 device=x0.device)
         self._step = dopri5_attempt(self._field, rtol=rtol, atol=atol,
                                     norm=max_rms_over_axis0)
         self.graph = self.out = None
@@ -355,11 +379,17 @@ class CapturedAttempt:
                 self.rtol, self.atol)
         return self._step(None, self.x, self.k1, self.dt)
 
+    def _commit(self, out):
+        if self.points:
+            x_new, ratio, k7 = out
+            draws_commit(ratio, self.scalars, self.taus, self.dense, self.x,
+                         self.k1, x_new.contiguous(), k7.contiguous())
+
     def rehearse(self):
         """The graph's eager stand-in (`_EagerReplay`; the CPU's only
-        path): each replay launches the attempt."""
+        path): each replay launches the attempt and the commit."""
         self.out = self._attempt()
-        self.graph = _EagerReplay(self._attempt, self.out)
+        self.graph = _EagerReplay(self._attempt, self.out, self._commit)
 
     def capture(self):
         if self.x.device.type != "cuda":
@@ -371,11 +401,12 @@ class CapturedAttempt:
         capture.capture_stream.wait_stream(current)
         with torch.cuda.stream(capture.capture_stream):
             for _ in range(WARMUP_ATTEMPTS):
-                self._attempt()
+                self._commit(self._attempt())
         current.wait_stream(capture.capture_stream)
         before = dict(LAUNCHES)
         with capture:
             self.out = self._attempt()
+            self._commit(self.out)
         self.launches = {k: n - before[k] for k, n in LAUNCHES.items()
                          if n != before[k]}
         for k, n in self.launches.items():  # a capture launches nothing
@@ -393,13 +424,26 @@ class CapturedAttempt:
                                                   kernel.variance)):
                 static.copy_(value)
 
-    def __call__(self, tau, x, k1, dt_step):
-        del tau  # the field reads no time
+    def dense_output(self, taus: np.ndarray, x0: torch.Tensor):
+        """A solve's start (`odeint_dopri5`): with the commit, its output
+        times `taus` (float32, one per point) into the static ones and x0
+        into the points at or before the start; returns `dense`, which the
+        replays fill. Without it None: the host forms the dense output."""
+        if not self.points:
+            return None
+        self.taus.copy_(torch.from_numpy(taus))
+        for j in np.flatnonzero(taus <= 0.0):
+            self.dense[j].copy_(x0)
+        return self.dense
+
+    def __call__(self, tau, x, k1, dt_step, tau_end=0.0):
         if x is not self.x:
             self.x.copy_(x)
         if k1 is not self.k1:
             self.k1.copy_(k1)
-        self.dt.fill_(dt_step)
+        # the last call's copy is done: the host read its ratio since
+        self._host[:] = (dt_step, tau, tau_end)
+        self.scalars.copy_(self.host_scalars, non_blocking=True)
         with clocked("gpode.solve.replay"):
             self.graph.replay()
         for k, n in self.launches.items():
@@ -407,8 +451,9 @@ class CapturedAttempt:
         return self.out
 
     def hand_over(self, x_new, k7):
-        self.x.copy_(x_new)
-        self.k1.copy_(k7)
+        if not self.points:
+            self.x.copy_(x_new)
+            self.k1.copy_(k7)
         return self.x, self.k1
 
 
@@ -456,11 +501,16 @@ def _captured_attempt(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
     t_host = ts.detach().cpu().numpy().astype(np.float32)
     direction = float(np.sign(t_host[-1] - t_host[0]))
     fused = _draws_kernel_taken(gp_params, draws, x0)
+    # the dense output and hand-over on the device (`draws_commit`), unless
+    # the kernels are off; the graph bakes in the output buffer's size
+    points = (len(t_host) if cfg.kernels is not False
+              and x0.dtype == torch.float32 else 0)
     leaves = (gp_params.kernel.raw_lengthscales, gp_params.kernel.raw_variance,
               gp_params.z)
     key = (x0.shape, x0.dtype, x0.device,
            tuple((leaf.shape, leaf.dtype) for leaf in draws), cfg.rtol,
-           cfg.atol, use_kernel, fused, direction, gp._RFF_SCALE_FACTOR,
+           cfg.atol, use_kernel, fused, points, direction,
+           gp._RFF_SCALE_FACTOR,
            torch.backends.cuda.matmul.allow_tf32,
            tuple((id(t), t.data_ptr()) for t in leaves))
     if key in _ATTEMPTS:
@@ -468,7 +518,7 @@ def _captured_attempt(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
         captured = _ATTEMPTS[key]
     else:
         captured = CapturedAttempt(gp_params, draws, x0, direction, cfg.rtol,
-                                   cfg.atol, use_kernel, fused)
+                                   cfg.atol, use_kernel, fused, points)
         try:
             captured.capture()
         except RuntimeError as err:
@@ -505,7 +555,10 @@ def flow_forward_batched(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
     attempt under the same controller: for a dimwise GP at a shape it takes,
     the fused `dopri5_attempt_draws` kernel (the same step as the eager
     attempt up to the field's summation order), else the eager attempt's
-    kernels in the same order (the same states and `ODEStats`).
+    kernels in the same order (the same states and `ODEStats`). Unless
+    `cfg.kernels` is False, float32 states also take the `draws_commit`
+    kernel in the graph: the dense output and hand-over of an accepted step
+    on the device, bit for bit the host's.
     """
     if cfg.use_adjoint:
         warnings.warn(

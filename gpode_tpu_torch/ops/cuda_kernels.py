@@ -17,7 +17,11 @@ Counterpart of `gpode_tpu/ops/pallas_kernels.py`:
   * :func:`dopri5_attempt_draws` — one adaptive dopri5 attempt of S field
     draws at once with its max-over-draws error norm, forward only
     (`csrc/dopri5_draws.cu`; the batched prediction solve's captured
-    attempt, `models/flow.CapturedAttempt`). It replaces no Pallas kernel.
+    attempt, `models/flow.CapturedAttempt`). It replaces no Pallas kernel;
+  * :func:`draws_commit` — an accepted attempt's commit on the device: the
+    cubic Hermite dense output of `ops/ode.odeint_dopri5` at the step's
+    output times and the hand-over of its state (`csrc/dopri5_draws.cu`;
+    the captured attempt's last node). It replaces no Pallas kernel either.
 
 The wide-layout rhs kernels (`csrc/fused_rhs_wide.cu`) are bound in
 `ops/wide_rhs.py` and share this module's counters and helpers.
@@ -57,14 +61,15 @@ import torch
 
 from gpode_tpu_torch.ops import cuda_build
 from gpode_tpu_torch.ops.kernels import _sqdist
-from gpode_tpu_torch.ops.ode import (_DP_A, _DP_B4, _DP_B5, dopri5_attempt,
-                                     max_rms_over_axis0)
+from gpode_tpu_torch.ops.ode import (_DP_A, _DP_B4, _DP_B5, _hermite,
+                                     dopri5_attempt, max_rms_over_axis0)
 
 LAUNCHES = {"fused_rhs_fwd": 0, "fused_rhs_bwd": 0,
             "fused_dopri5_attempt_fwd": 0, "fused_dopri5_attempt_bwd": 0,
             "fused_rk4_segment_fwd": 0, "fused_rk4_segment_bwd": 0,
             "rbf_gram": 0, "fused_rhs_wide_fwd": 0, "fused_rhs_wide2_fwd": 0,
-            "fused_rhs_wide_bwd": 0, "dopri5_attempt_draws": 0}
+            "fused_rhs_wide_bwd": 0, "dopri5_attempt_draws": 0,
+            "draws_commit": 0}
 # (draws, N, Din, D, M, S) of every `dopri5_attempt_draws` launch (a captured
 # graph's replays repeat its capture's shape)
 DRAWS_ATTEMPT_SHAPES: set = set()
@@ -205,6 +210,22 @@ def dopri5_attempt_draws_plain(x, k1, dt, direction, z, lengthscales,
                           norm=max_rms_over_axis0)(None, x, k1, dt)
 
 
+def draws_commit_plain(ratio, scalars, taus, out, x, k1, x_new, k7):
+    """An accepted attempt's commit, in place, as `odeint_dopri5` makes it
+    on the host: where the 0-d `ratio` accepts (<= 1), each output time
+    tau < taus[j] <= tau_end (scalars = [dt, tau, tau_end]) gets the cubic
+    Hermite point `ops/ode._hermite` into out[j], then x <- x_new and
+    k1 <- k7; a reject (or NaN) changes nothing."""
+    if not float(ratio) <= 1.0:
+        return
+    _, tau, tau_end = scalars.cpu().numpy()
+    for j, tau_j in enumerate(taus.cpu().numpy()):
+        if tau < tau_j <= tau_end:
+            out[j].copy_(_hermite(tau_j, tau, tau_end, x, k1, x_new, k7))
+    x.copy_(x_new)
+    k1.copy_(k7)
+
+
 # ---------------------------------------------------------------------------
 # Operand checks and layout
 # ---------------------------------------------------------------------------
@@ -271,7 +292,8 @@ _SIGNATURES = {
                        "gpode_wide_bwd_occupancy": [_I] * 8 + [_P]},
     "dopri5_draws": {
         "gpode_dp_draws_attempt": [_P] * 4 + [_F] * 3 + [_P] * 11 + [_I] * 10 + [_P],
-        "gpode_dp_draws_attempt_occupancy": [_I] * 8 + [_P]},
+        "gpode_dp_draws_attempt_occupancy": [_I] * 8 + [_P],
+        "gpode_dp_draws_commit": [_P] * 8 + [_I] * 2 + [_P]},
 }
 _TYPED: set = set()
 
@@ -1046,6 +1068,59 @@ def dopri5_attempt_draws(x, k1, dt, direction, z, lengthscales, variance,
             x, k1, dt, float(direction), float(rtol), float(atol),
             (z.contiguous(), lengthscales.contiguous(), variance.contiguous()),
             _draws_layout(omega, phase, weights, nu), dims)
+
+
+def _check_commit(ratio, scalars, taus, out, x, k1, x_new, k7):
+    """Operand checks of `draws_commit` on the card: float32 on one device,
+    contiguous; x, k1, x_new, k7 of one shape, out (T, *x.shape), taus (T,),
+    ratio one element, scalars three."""
+    tensors = dict(ratio=ratio, scalars=scalars, taus=taus, out=out, x=x,
+                   k1=k1, x_new=x_new, k7=k7)
+    for name, t in tensors.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    points, n = taus.numel(), x.numel()
+    if (ratio.numel() != 1 or scalars.numel() != 3 or taus.ndim != 1
+            or tuple(out.shape) != (points, *x.shape)
+            or any(t.shape != x.shape for t in (k1, x_new, k7))):
+        raise ValueError(
+            f"draws_commit: ratio {tuple(ratio.shape)}, scalars "
+            f"{tuple(scalars.shape)}, taus {tuple(taus.shape)}, out "
+            f"{tuple(out.shape)}, x {tuple(x.shape)}, k1 {tuple(k1.shape)}, "
+            f"x_new {tuple(x_new.shape)}, k7 {tuple(k7.shape)}: expected one "
+            f"ratio, three scalars, T times, out (T, *x.shape) and the states "
+            f"of x's shape")
+    if n >= 2 ** 31:
+        raise ValueError(f"draws_commit takes fewer than 2**31 elements, got "
+                         f"{n}")
+    return points, n
+
+
+def draws_commit(ratio, scalars, taus, out, x, k1, x_new, k7):
+    """An accepted attempt's commit, in place: where the 0-d `ratio` of
+    the attempt (x_new, ratio, k7) from (x, k1) accepts (<= 1), each output
+    time tau < taus[j] <= tau_end gets the cubic Hermite point into out[j]
+    (T, *x.shape), then x <- x_new and k1 <- k7; a reject or a NaN ratio
+    changes nothing. `scalars` is [dt, tau, tau_end] and `taus` (T,),
+    float32 on the device: both, like the ratio, are read there, so a
+    captured graph sees each new value.
+
+    Bit for bit :func:`draws_commit_plain`, which is `odeint_dopri5`'s host
+    dense output (`ops/ode._hermite`) and hand-over. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (one launch on the
+    current stream, counted in `LAUNCHES`) or raises."""
+    if x.device.type == "cpu":
+        return draws_commit_plain(ratio, scalars, taus, out, x, k1, x_new, k7)
+    points, n = _check_commit(ratio, scalars, taus, out, x, k1, x_new, k7)
+    LAUNCHES["draws_commit"] += 1
+    rc = _lib("dopri5_draws").gpode_dp_draws_commit(
+        *map(_ptr, (ratio, scalars, taus, out, x, k1, x_new, k7)), points, n,
+        _stream(x.device))
+    _raise_on(rc, "draws_commit")
 
 
 # ---------------------------------------------------------------------------

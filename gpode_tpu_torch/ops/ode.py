@@ -62,6 +62,11 @@ _DP_B4 = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200,
 
 _F32 = np.float32
 
+# Dense output points of the adaptive solvers, by where they were formed: on
+# the host (`_hermite`, a few tensor ops a point) or on the device (an
+# attempt that commits its accepted steps there, `models/flow.CapturedAttempt`).
+DENSE_POINTS = {"host": 0, "device": 0}
+
 
 class ODEStats(NamedTuple):
     """Solver diagnostics (host integers)."""
@@ -378,7 +383,12 @@ def odeint_dopri5(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
     has a
     `hand_over(x_new, k7) -> (x, k1)` method, an accepted step passes its
     state through it after the dense output, since the next call may
-    overwrite the `x_new` and `k7` it returned.
+    overwrite the `x_new` and `k7` it returned. Where it has a
+    `dense_output(taus, x0)` method that returns a (T, *x0.shape) buffer
+    (not None), the attempt commits its accepted steps itself: it is called
+    with the step's end as a fifth argument, writes the dense output at the
+    output times in (tau, tau_end] into that buffer and hands the state
+    over; the host forms no point and returns a copy of the buffer.
     """
     t_host = ts.detach().cpu().numpy().astype(_F32)
     direction = _F32(np.sign(t_host[-1] - t_host[0]))
@@ -404,6 +414,8 @@ def odeint_dopri5(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
     if attempt is None:
         attempt = dopri5_attempt(f_tau, rtol=rtol, atol=atol, norm=norm)
     hand_over = getattr(attempt, "hand_over", None)
+    dense_output = getattr(attempt, "dense_output", None)
+    dense = None if dense_output is None else dense_output(taus, x0)
     out = [x0 if tau_j <= 0.0 else None for tau_j in taus]
     tau, x, k1 = _F32(0.0), x0, f0
     nacc = natt = 0
@@ -413,17 +425,23 @@ def odeint_dopri5(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
         with clocked("gpode.solve.attempt"):
             remaining = _F32(tau_final - tau)
             dt_step = _F32(min(dt, remaining))
-            x_new, ratio, k7 = attempt(float(tau), x, k1, float(dt_step))
+            tau_end = (tau_final if dt_step >= remaining
+                       else _F32(tau + dt_step))
+            if dense is None:
+                x_new, ratio, k7 = attempt(float(tau), x, k1, float(dt_step))
+            else:
+                x_new, ratio, k7 = attempt(float(tau), x, k1, float(dt_step),
+                                           float(tau_end))
             with clocked("gpode.solve.error_read"):
                 err_ratio = float(ratio)
             accept = err_ratio <= 1.0
-            tau_end = (tau_final if dt_step >= remaining
-                       else _F32(tau + dt_step))
             if accept:
-                for j, tau_j in enumerate(taus):
-                    if out[j] is None and tau_j <= tau_end:
-                        out[j] = _hermite(tau_j, tau, tau_end, x, k1, x_new,
-                                          k7)
+                if dense is None:
+                    for j, tau_j in enumerate(taus):
+                        if out[j] is None and tau_j <= tau_end:
+                            out[j] = _hermite(tau_j, tau, tau_end, x, k1,
+                                              x_new, k7)
+                            DENSE_POINTS["host"] += 1
                 if hand_over is not None:
                     x_new, k7 = hand_over(x_new, k7)
                 tau, x, k1 = tau_end, x_new, k7
@@ -432,6 +450,15 @@ def odeint_dopri5(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
             nfe += 6
             natt += 1
 
+    if dense is not None:
+        # the accepted steps cover (0, tau] and each wrote its points; the
+        # points at or before the start hold x0, those past tau the last x
+        covered = int(np.count_nonzero(taus <= tau))
+        DENSE_POINTS["device"] += covered - int(np.count_nonzero(taus <= 0.0))
+        xs = dense.clone()
+        for j in np.flatnonzero(taus > tau):
+            xs[j] = x
+        return xs, ODEStats(nfe, nacc, natt, covered)
     covered = sum(o is not None for o in out)
     out = [x if o is None else o for o in out]
     return torch.stack(out), ODEStats(nfe, nacc, natt, covered)
@@ -592,6 +619,7 @@ def odeint_adams_adaptive(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
                 if out[j] is None and tau_j <= tau_end:
                     out[j] = _hermite(tau_j, tau, tau_end, x, phi[0], y1, f_c,
                                       dt_)
+                    DENSE_POINTS["host"] += 1
             tau, x = tau_end, y1
             prev_t = [tau_end] + prev_t[:-1]
             phi = phi_c[:K + 2]

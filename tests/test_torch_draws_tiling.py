@@ -96,7 +96,9 @@ def test_the_kernel_table_names_the_source_and_its_entry_points():
     assert re.search(rf"\b{kernel}\(", text)
     assert re.search(r"\bdraws_ratio_kernel\(", text)
     assert f'extern "C" int {query}(' in text
-    assert set(ck._SIGNATURES[lib]) == {"gpode_dp_draws_attempt", query}
+    assert re.search(r"\bdraws_commit_kernel\(", text)
+    assert set(ck._SIGNATURES[lib]) == {"gpode_dp_draws_attempt", query,
+                                        "gpode_dp_draws_commit"}
 
 
 def _c_parameters(text, fn):

@@ -917,8 +917,8 @@ def test_captured_prediction_attempt_reads_fresh_draws_and_parameters(
                 == st.num_attempted)
         outs.append((got, got.clone()))
     (attempt,) = flow._ATTEMPTS.values()
-    statics = [attempt.x, attempt.k1, attempt.dt, *attempt.out, *attempt.draws,
-               *attempt.hyper]
+    statics = [attempt.x, attempt.k1, attempt.scalars, attempt.taus,
+               attempt.dense, *attempt.out, *attempt.draws, *attempt.hyper]
     for got, copy in outs:
         assert torch.equal(got, copy)
         assert all(got.untyped_storage().data_ptr()
@@ -1036,3 +1036,111 @@ def test_a_refused_shape_captures_the_plain_attempt(cuda, monkeypatch):
     (attempt,) = flow._ATTEMPTS.values()
     assert attempt is not None and not attempt.fused
     assert launches["dopri5_attempt_draws"] == 0
+
+
+# the commit's shapes on the card: (draws, rows, D), 120 output times
+COMMIT_SHAPES = {"validation": (32, 2, 5), "test_eval": (128, 2, 5)}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", ["random", "h_zero", "at_end", "at_start",
+                                  "no_point", "whole_span", "decreasing",
+                                  "rejected", "nan", "ratio_one"])
+@pytest.mark.parametrize("shape", list(COMMIT_SHAPES))
+def test_draws_commit_matches_plain(cuda, shape, case, seed):
+    """The commit kernel against `draws_commit_plain` on the card (the
+    host's `_hermite` tensor ops and hand-over copies, as the solve makes
+    them without the kernel), bit for bit, at 120 output times: random
+    intervals and the edges of `tests/test_torch_commit.py`, a rejected or
+    NaN ratio writing nothing; two launches bit-identical, each counted."""
+    from test_torch_commit import _commit_inputs, _states
+
+    dims = COMMIT_SHAPES[shape]
+    taus, _, _, ratio, scalars, dense = _commit_inputs(case, seed, dims)
+    taus = torch.from_numpy(taus).to(cuda)
+    ratio, scalars, dense = ratio.to(cuda), scalars.to(cuda), dense.to(cuda)
+    x, k1, x_new, k7 = (t.to(cuda) for t in _states(seed, dims))
+    want = (dense.clone(), x.clone(), k1.clone())
+    ck.draws_commit_plain(ratio, scalars, taus, *want, x_new, k7)
+    runs = []
+    for _ in range(2):
+        got = (dense.clone(), x.clone(), k1.clone())
+        before = ck.LAUNCHES["draws_commit"]
+        ck.draws_commit(ratio, scalars, taus, *got, x_new, k7)
+        assert ck.LAUNCHES["draws_commit"] == before + 1
+        runs.append(got)
+    torch.cuda.synchronize()
+    for got in runs:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_draws_commit_raises_instead_of_falling_back(cuda):
+    x = torch.zeros(2, 3, 5, device=cuda)
+    ratio, scalars = torch.zeros((), device=cuda), torch.zeros(3, device=cuda)
+    taus, dense = torch.zeros(4, device=cuda), torch.zeros(4, 2, 3, 5,
+                                                          device=cuda)
+    before = dict(ck.LAUNCHES)
+    with pytest.raises(ValueError, match="draws_commit"):   # out of 3 times
+        ck.draws_commit(ratio, scalars, taus[:3], dense, x, x.clone(), x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.draws_commit(ratio, scalars, taus, dense, x.transpose(1, 2),
+                        x.clone(), x, x)
+    with pytest.raises(TypeError):   # float64 states
+        ck.draws_commit(ratio, scalars, taus, dense.double(), x.double(),
+                        x.double(), x.double(), x.double())
+    assert ck.LAUNCHES == before
+
+
+def test_draws_commit_compiles_without_spills(cuda):
+    from gpode_tpu_torch.ops import cuda_build
+
+    found = {k: v for k, v in cuda_build.kernel_resources("dopri5_draws").items()
+             if "draws_commit_kernel" in k}
+    assert len(found) == 1
+    (rec,) = found.values()
+    assert rec["spill_stores"] == 0 and rec["spill_loads"] == 0
+
+
+@pytest.mark.parametrize("case", ["cell", "rejects", "max_steps"])
+def test_the_device_commit_equals_the_host_dense_output(cuda, monkeypatch,
+                                                        case):
+    """At the validation request's shape (32 draws x 2 rows, 120 output
+    times) the captured solve that commits on the device returns the
+    captured solve under `kernels=False`, whose host forms the dense output
+    with `_hermite` and copies the hand-over, bit for bit, states and
+    `ODEStats`: with Hairer's start, from the whole span (rejects) and out
+    of `max_steps` (the uncovered tail). One commit launch a replayed
+    attempt, none with the kernels off; the counter reads the device's
+    points on one side and the host's on the other."""
+    from gpode_tpu_torch.models import flow
+    from gpode_tpu_torch.ops import ode
+
+    gp_params, draws, x0, grid = _predict_problem(cuda, 32, 2)
+    monkeypatch.setattr(flow, "_ATTEMPTS", type(flow._ATTEMPTS)())
+    first_step, max_steps = {"cell": (None, 512), "rejects": (-1.0, 512),
+                             "max_steps": (None, 20)}[case]
+    cfg = flow.SolverConfig(solver="dopri5", max_steps=max_steps,
+                            first_step=first_step)
+    d = draws(41)
+    outs = {}
+    for kernels in (None, False, None, False):  # capture, then replay
+        before, points = dict(ck.LAUNCHES), dict(ode.DENSE_POINTS)
+        with torch.no_grad():
+            xs, st = flow.flow_forward_batched(
+                gp_params, d, x0, grid,
+                dataclasses.replace(cfg, kernels=kernels))
+        torch.cuda.synchronize()
+        outs[kernels] = (xs, st, ck.LAUNCHES["draws_commit"]
+                         - before["draws_commit"],
+                         {k: ode.DENSE_POINTS[k] - points[k] for k in points})
+    (got, st, commits, dev), (want, wst, host_commits, host) = outs.values()
+    assert torch.equal(got, want) and st == wst
+    formed = wst.num_covered - 1
+    assert commits == st.num_attempted and host_commits == 0
+    assert dev == {"host": 0, "device": formed}
+    assert host == {"host": formed, "device": 0}
+    assert sorted(a.points for a in flow._ATTEMPTS.values()) == [0, 120]
+    if case == "rejects":
+        assert st.num_attempted > st.num_accepted
+    if case == "max_steps":
+        assert st.num_covered < grid.shape[0]
