@@ -244,12 +244,13 @@ import sys
 import tempfile
 import time
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+# the work counts and the card's peaks behind every bound: the benchmark's
+# (one operation per flop or transcendental)
+from benchmark.opcounts import (bound_s, gram_ops, param_floats, rhs_ops,
+                                vjp_ops)
+from benchmark.opcounts_eval import dp_attempt_draws
 
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
-# HBM3 bandwidth. Bounds count one operation per flop or transcendental.
-PEAK_F32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 KERNEL_ITERS = 50
@@ -358,31 +359,10 @@ def check(cond, what):
 # work counts for the bounds
 # ---------------------------------------------------------------------------
 
-def rhs_ops(n, din, d, m, s):
-    """One rhs evaluation: flops plus cos/exp."""
-    return n * d * (s * (2 * din + 3) + m * (3 * din + 3)) + n * d * (s + m)
-
-
-def vjp_ops(n, din, d, m, s):
-    """One rhs VJP (csrc/rhs_tile.cuh rhs_vjp_tile): per feature 6*Din+13
-    flops and sin+cos, per inducing point 14*Din+9 flops and one exp, the
-    counts of the plain chain rule (the tile forms dvar from dw and dnu)."""
-    return n * d * (s * (6 * din + 13) + m * (14 * din + 9)) + n * d * (2 * s + m)
-
-
-def gram_ops(n, din, d, m):
-    """One dimwise Gram: 3*Din+3 flops and one exp per output element."""
-    return n * d * m * (3 * din + 3) + n * d * m
-
-
-def param_floats(din, d, m, s):
-    return m * din + d * din + d + din * s * d + 2 * s * d + d * m
-
-
 def bound(ops, nbytes):
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    """`bound_s` in ms: (the least time the card could take, its limit)."""
+    t, by = bound_s(ops, nbytes)
+    return 1e3 * t, by
 
 
 # ---------------------------------------------------------------------------
@@ -1234,7 +1214,7 @@ def driver_phase(random_start_ll):
     phase("time to test LL (driver)")
     from gpode_tpu_torch.ops import cuda_kernels as ck
     from gpode_tpu_torch.scripts import bench_time_to_nll
-    from gpode_tpu_torch.train.graph_step import WARMUP_STEPS
+    from gpode_tpu_torch.ops.capture import WARMUP
     out = os.path.join(ROOT, "chiprun_out", "chip_smoke_time_to_nll.json")
     rec = _Recorder()
     try:
@@ -1247,7 +1227,7 @@ def driver_phase(random_start_ll):
         rec.restore()
     check(rc == 0, f"the time-to-LL driver returned {rc}")
     print(f"captured step: {rec.replays} replays", flush=True)
-    check(rec.replays == DRIVER_ITERS - WARMUP_STEPS,
+    check(rec.replays == DRIVER_ITERS - WARMUP,
           "the time-to-LL driver did not replay its captured step")
     with open(out) as f:
         res = json.load(f)
@@ -2905,6 +2885,7 @@ def _captured_preset(dev, preset):
     import statistics
     import torch
     from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.ops.capture import WARMUP
     from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
                                                    preset_model_args)
     from gpode_tpu_torch.train.graph_step import capture_refusal
@@ -2936,7 +2917,7 @@ def _captured_preset(dev, preset):
         out[name]["losses"] = losses
     step = runs[True].step
     check(len(step.graphs) == (2 if preset != "fast" else 1)
-          and step.replays == CAPTURE_STEPS - step.warmup,
+          and step.replays == CAPTURE_STEPS - WARMUP,
           f"{preset}: {len(step.graphs)} graphs, {step.replays} replays")
     out.update(_compare_runs(runs[False], runs[True], out["eager"].pop("losses"),
                              out["captured"].pop("losses"), preset))
@@ -2985,6 +2966,7 @@ def _captured_reject(dev):
     attempts and parameters equal to the eager run's."""
     import torch
     from gpode_tpu_torch.models.shooting import sample_step_noise
+    from gpode_tpu_torch.ops.capture import WARMUP
     from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
                                                    preset_model_args)
     from gpode_tpu_torch.train.builders import shooting_loss_fn
@@ -3016,7 +2998,7 @@ def _captured_reject(dev):
     check(seqs[True][1] == seqs[False][1]
           and all(seqs[False][1][i] > 1 for i in CAPTURE_REJECT_AT)
           and step.rejects == len(CAPTURE_REJECT_AT)
-          and step.replays == (CAPTURE_REJECT_STEPS - step.warmup
+          and step.replays == (CAPTURE_REJECT_STEPS - WARMUP
                                - len(CAPTURE_REJECT_AT)),
           "the forced reject was not taken eagerly inside the captured step")
     out = _compare_runs(runs[False], runs[True], seqs[False][0], seqs[True][0],
@@ -3032,17 +3014,6 @@ def captured_step_phase(dev):
     out = {preset: _captured_preset(dev, preset) for preset in CAPTURE_PRESETS}
     out["official"]["forced_reject"] = _captured_reject(dev)
     return out
-
-
-def draws_attempt_ops(draws, n, din, d, m, s):
-    """(operations, bytes) of one `dopri5_attempt_draws` launch: 6 field
-    evaluations of every row, each draw's operands read once, the shared
-    ones once, x and k1 read, x_new and k7 written."""
-    per_draw = din * s * d + 2 * s * d + d * m
-    rows = draws * n
-    return (6 * rhs_ops(rows, din, d, m, s),
-            4 * (draws * per_draw + m * din + d * din + d + rows * (din + d)
-                 + 2 * rows * d + 2))
 
 
 DRAWS_ATTEMPT_CASES = {"validation": 32, "test_eval": 128}   # draws x 2 rows
@@ -3102,13 +3073,13 @@ def draws_attempt_phase(dev):
             replay = {}
             for fused in (True, False):
                 att = flow.CapturedAttempt(g, draw, x, 1.0, 1e-6, 1e-6, False,
-                                           fused)
+                                           fused, COMMIT_POINTS)
                 att.load(draw)
                 att.k1.copy_(k1)
                 att.dt.fill_(0.01)
                 att.capture()
                 replay["fused" if fused else "plain"] = cuda_ms(att.graph.replay)
-        bms, by = bound(*draws_attempt_ops(draws_n, 2, 5, 5, 100, 256))
+        bms, by = bound(*dp_attempt_draws(draws_n, 2, 5, 5, 100, 256))
         geo = ck.draws_attempt_geometry(draws_n, 2, 5, 5, 100, 256)
         report = print_resources(f"dopri5_attempt_draws ({label})",
                                  ck.draws_attempt_occupancy(5, 5, 100, 256, geo))

@@ -7,9 +7,9 @@ applied to `eval_draw` of a fixed
 for one-interval shooting segments (the rk4 segment and the whole-span
 dopri5 attempt), the continuous adjoint, rematerialized rhs evaluations, the
 batched-draw solve of posterior prediction (its dopri5 attempt a captured
-CUDA graph on the card, of one fused attempt kernel for a dimwise GP, which
-also commits an accepted step's dense output on the device), and a solve
-under a draw built from its noise.
+CUDA graph on the card, of one fused attempt kernel for a dimwise GP, that
+commits an accepted step's dense output on the device), and a solve under a
+draw built from its noise.
 """
 
 from __future__ import annotations
@@ -27,10 +27,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from gpode_tpu_torch.models import gp
+from gpode_tpu_torch.ops import capture
 from gpode_tpu_torch.ops.adjoint import odeint_adjoint
-from gpode_tpu_torch.ops.cuda_kernels import (LAUNCHES, dopri5_attempt_draws,
-                                              draws_commit,
-                                              fused_dopri5_attempt,
+from gpode_tpu_torch.ops.cuda_kernels import (dopri5_attempt_draws,
+                                              draws_commit, fused_dopri5_attempt,
                                               fused_rk4_segment,
                                               kernel_order_draws,
                                               kernel_refusal)
@@ -275,11 +275,6 @@ def flow_forward(gp_params: gp.SVGPParams, draw: gp.PosteriorDraw,
     return torch.movedim(xs, 0, 1), stats
 
 
-# eager attempts on the capture stream before a capture (they build the
-# kernels and set up the libraries' per-stream state)
-WARMUP_ATTEMPTS = 2
-
-
 class _EagerReplay:
     """A graph's stand-in on the CPU: a replay runs the attempt eagerly,
     copies its results into the static outputs and commits them."""
@@ -296,49 +291,44 @@ class _EagerReplay:
 class CapturedAttempt:
     """The no-grad batched dopri5 attempt of :func:`flow_forward_batched` as
     one CUDA graph: `odeint_dopri5`'s `attempt`, replayed once per attempt
-    under its unchanged host controller.
+    under its unchanged host controller, that commits an accepted step on
+    the device.
 
     With `fused` (a dimwise GP at a shape `dopri5_attempt_draws` takes,
     decided before the capture) the attempt is that kernel: the graph holds
     its launch and its reduction. Else it is `ops/ode.dopri5_attempt` on the
     batched field (`gp.eval_draws`: ~300 small kernels at the validation
-    request's 32 draws x 2 rows).
-
-    With `points` > 0 (float32 states, `SolverConfig.kernels` not False)
-    the graph also commits an accepted attempt: its last node is the
+    request's 32 draws x 2 rows). The graph's last node is the
     `draws_commit` kernel, which on a ratio <= 1 writes the cubic Hermite
     dense output at the solve's output times in (tau, tau_end] into the
-    static `dense` (points, *x.shape) and hands the step over (x <- x_new,
-    k1 <- k7), as `odeint_dopri5` does on the host otherwise.
+    static `dense` (times, *x.shape) and hands the step over (x <- x_new,
+    k1 <- k7), as `odeint_dopri5` does on the host for an eager attempt.
 
     Static inputs: the state `x`, its FSAL `k1`, `scalars` = [dt, tau,
     tau_end] (float32; `dt` is its first element, a 0-d view; the
-    time-invariant field reads no time), with `points` the solve's output
-    times `taus`, and copies of the draws' leaves (with `fused`, in the
-    kernel's memory order, and the kernel's constrained lengthscales and
-    variance), which `load` refreshes for each solve. Static outputs: `out`,
-    the attempt's `(x_new, ratio, k7)`, and `dense`. `capture` runs
-    `WARMUP_ATTEMPTS` eager attempts (and commits) on the capture stream,
-    then captures one in a private pool. `dense_output` starts a solve: its
-    `taus` in, x0 into the points at or before its start. A call copies in
-    a state or FSAL value that is not already in the static buffers (a
-    solve's start), copies in the scalars from pinned host memory and
-    replays (the span `gpode.solve.replay`). Without the commit
-    `hand_over` copies an accepted step into `x` and `k1` after the host's
-    dense output read it, so that neither a later replay nor a rejected one
-    changes the state the solve holds; with it the graph has done so. The
+    time-invariant field reads no time), the solve's `times` output times
+    `taus`, and copies of the draws' leaves (with `fused`, in the kernel's
+    memory order, and the kernel's constrained lengthscales and variance),
+    which `load` refreshes for each solve. Static outputs: `out`, the
+    attempt's `(x_new, ratio, k7)`, and `dense`. `capture` runs
+    `capture.WARMUP` eager attempts and commits on the card's capture
+    stream (`ops/capture.py`), then captures one in a private pool.
+    `dense_output` starts a solve: its `taus` in, x0 into the points at or
+    before its start. A call copies in a state or FSAL value that is not
+    already in the static buffers (a solve's start), copies in the scalars
+    from pinned host memory, replays (the span `gpode.solve.replay`) and
+    returns `(x, ratio, k1)`: after an accept, the step handed over. The
     graph reads Z (and without `fused` every GP parameter) where it lives,
     so an in-place update (Adam's) is seen at the next solve; the draws are
     copies.
 
-    `cuda_kernels.LAUNCHES` counts wrapper calls, and a replay makes none:
-    the capture's launches are taken back out and added on every replay.
-    On the CPU there are no graphs: a replay runs the same attempt eagerly
-    (`_EagerReplay`), which the CPU tests use."""
+    A replay counts the capture's launches (`capture.replay_launches`). On
+    the CPU there are no graphs: a replay runs the same attempt and commit
+    eagerly (`_EagerReplay`), which the CPU tests use."""
 
     def __init__(self, gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
                  x0: torch.Tensor, direction: float, rtol: float, atol: float,
-                 use_kernel: bool, fused: bool, points: int = 0):
+                 use_kernel: bool, fused: bool, times: int):
         self.gp_params, self.use_kernel = gp_params, use_kernel
         self.direction, self.rtol, self.atol = direction, rtol, atol
         self.fused = fused
@@ -348,18 +338,17 @@ class CapturedAttempt:
                           gp_params.kernel.variance.detach().clone())
         else:
             self.draws = gp.PosteriorDraw(*(leaf.clone() for leaf in draws))
+        self.cuda = x0.is_cuda
         self.x = x0.clone(memory_format=torch.contiguous_format)
         self.k1 = torch.zeros_like(self.x)
         f32 = dict(dtype=torch.float32, device=x0.device)
         self.scalars = torch.zeros(3, **f32)
         self.dt = self.scalars[0]
         self.host_scalars = torch.zeros(3, dtype=torch.float32,
-                                        pin_memory=x0.is_cuda)
+                                        pin_memory=self.cuda)
         self._host = self.host_scalars.numpy()
-        self.points = points
-        self.taus = torch.zeros(points, **f32)
-        self.dense = torch.zeros((points, *self.x.shape), dtype=x0.dtype,
-                                 device=x0.device)
+        self.taus = torch.zeros(times, **f32)
+        self.dense = self.x.new_zeros((times, *self.x.shape))
         self._step = dopri5_attempt(self._field, rtol=rtol, atol=atol,
                                     norm=max_rms_over_axis0)
         self.graph = self.out = None
@@ -380,10 +369,9 @@ class CapturedAttempt:
         return self._step(None, self.x, self.k1, self.dt)
 
     def _commit(self, out):
-        if self.points:
-            x_new, ratio, k7 = out
-            draws_commit(ratio, self.scalars, self.taus, self.dense, self.x,
-                         self.k1, x_new.contiguous(), k7.contiguous())
+        x_new, ratio, k7 = out
+        draws_commit(ratio, self.scalars, self.taus, self.dense, self.x,
+                     self.k1, x_new.contiguous(), k7.contiguous())
 
     def rehearse(self):
         """The graph's eager stand-in (`_EagerReplay`; the CPU's only
@@ -392,25 +380,18 @@ class CapturedAttempt:
         self.graph = _EagerReplay(self._attempt, self.out, self._commit)
 
     def capture(self):
-        if self.x.device.type != "cuda":
+        if not self.cuda:
             self.rehearse()
             return
-        graph = torch.cuda.CUDAGraph()
-        capture = torch.cuda.graph(graph)
-        current = torch.cuda.current_stream(self.x.device)
-        capture.capture_stream.wait_stream(current)
-        with torch.cuda.stream(capture.capture_stream):
-            for _ in range(WARMUP_ATTEMPTS):
+        with capture.on_capture_stream(self.x.device) as stream:
+            for _ in range(capture.WARMUP):
                 self._commit(self._attempt())
-        current.wait_stream(capture.capture_stream)
-        before = dict(LAUNCHES)
-        with capture:
+        graph = torch.cuda.CUDAGraph()
+        take = capture.launch_counter()
+        with torch.cuda.graph(graph, stream=stream):
             self.out = self._attempt()
             self._commit(self.out)
-        self.launches = {k: n - before[k] for k, n in LAUNCHES.items()
-                         if n != before[k]}
-        for k, n in self.launches.items():  # a capture launches nothing
-            LAUNCHES[k] -= n
+        self.launches = take()
         self.graph = graph
 
     def load(self, draws: gp.PosteriorDraw):
@@ -425,18 +406,15 @@ class CapturedAttempt:
                 static.copy_(value)
 
     def dense_output(self, taus: np.ndarray, x0: torch.Tensor):
-        """A solve's start (`odeint_dopri5`): with the commit, its output
-        times `taus` (float32, one per point) into the static ones and x0
-        into the points at or before the start; returns `dense`, which the
-        replays fill. Without it None: the host forms the dense output."""
-        if not self.points:
-            return None
+        """A solve's start (`odeint_dopri5`): its output times `taus`
+        (float32, one per point) into the static ones and x0 into the points
+        at or before the start; returns `dense`, which the replays fill."""
         self.taus.copy_(torch.from_numpy(taus))
         for j in np.flatnonzero(taus <= 0.0):
             self.dense[j].copy_(x0)
         return self.dense
 
-    def __call__(self, tau, x, k1, dt_step, tau_end=0.0):
+    def __call__(self, tau, x, k1, dt_step, tau_end):
         if x is not self.x:
             self.x.copy_(x)
         if k1 is not self.k1:
@@ -446,15 +424,8 @@ class CapturedAttempt:
         self.scalars.copy_(self.host_scalars, non_blocking=True)
         with clocked("gpode.solve.replay"):
             self.graph.replay()
-        for k, n in self.launches.items():
-            LAUNCHES[k] += n
-        return self.out
-
-    def hand_over(self, x_new, k7):
-        if not self.points:
-            self.x.copy_(x_new)
-            self.k1.copy_(k7)
-        return self.x, self.k1
+        capture.replay_launches(self.launches)
+        return self.x, self.out[1], self.k1
 
 
 # the captured attempts, by everything a graph bakes in, least recently used
@@ -465,74 +436,61 @@ _MAX_ATTEMPTS = 4
 _REFUSALS_LOGGED: set = set()
 
 
-def _capture_gate(cfg: SolverConfig, x0: torch.Tensor) -> bool:
-    """Is the batched solve's attempt captured? Grad mode off, a state on
-    CUDA outside any capture, dopri5 without `remat`; everything else takes
-    the eager attempt."""
-    return (cfg.solver == "dopri5" and not cfg.remat
-            and not torch.is_grad_enabled() and x0.is_cuda
-            and not torch.cuda.is_current_stream_capturing())
-
-
-def _draws_kernel_taken(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
-                        x0: torch.Tensor) -> bool:
-    """Does the captured attempt take `dopri5_attempt_draws`? A dimwise GP,
-    float32 states and a shape the kernel takes (`kernel_refusal`), decided
-    from shapes alone before the capture; a refusal is logged once per
-    reason and leaves the plain attempt in the graph."""
-    if not (gp_params.dimwise and x0.dtype == torch.float32):
-        return False
+def _capture_route(cfg: SolverConfig, gp_params: gp.SVGPParams,
+                   draws: gp.PosteriorDraw, x0: torch.Tensor) -> Optional[str]:
+    """How the batched solve runs its attempt. None: eagerly, the host
+    forming the dense output (every solver but dopri5, `remat`, grad mode,
+    a state off the card or inside a capture, float64 states,
+    `cfg.kernels` False). Else a :class:`CapturedAttempt` that commits on
+    the device: "fused", the `dopri5_attempt_draws` kernel, for a dimwise
+    GP at a shape the kernel takes (`kernel_refusal`, decided from shapes
+    alone); "plain" otherwise, a refusal logged once per reason, or raised
+    as ValueError under `cfg.kernels` True."""
+    if not (cfg.solver == "dopri5" and not cfg.remat
+            and cfg.kernels is not False and not torch.is_grad_enabled()
+            and x0.is_cuda and x0.dtype == torch.float32
+            and not torch.cuda.is_current_stream_capturing()):
+        return None
+    if not gp_params.dimwise:
+        return "plain"
     s, n, _ = x0.shape
     reason = kernel_refusal("dopri5_attempt_draws", n, gp_params.z.shape[1],
                             gp_params.u_mean.shape[1], gp_params.num_inducing,
                             draws.weights.shape[-2], draws=s)
+    if reason is not None and cfg.kernels:
+        raise ValueError(f"dopri5_attempt_draws refuses this shape: {reason}")
     if reason is not None and reason not in _REFUSALS_LOGGED:
         _REFUSALS_LOGGED.add(reason)
         _logger.warning("the batched solve's attempt kernel refuses this "
                         "shape (%s): capturing the plain attempt", reason)
-    return reason is None
+    return "plain" if reason else "fused"
 
 
 def _captured_attempt(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
                       x0: torch.Tensor, ts: torch.Tensor, cfg: SolverConfig,
-                      use_kernel: bool) -> Optional[CapturedAttempt]:
-    """The cached captured attempt of this solve, its draws loaded, or None
-    where the capture failed (logged once per reason: the eager attempt)."""
+                      use_kernel: bool, fused: bool) -> CapturedAttempt:
+    """The cached captured attempt of this solve, its draws loaded."""
     t_host = ts.detach().cpu().numpy().astype(np.float32)
     direction = float(np.sign(t_host[-1] - t_host[0]))
-    fused = _draws_kernel_taken(gp_params, draws, x0)
-    # the dense output and hand-over on the device (`draws_commit`), unless
-    # the kernels are off; the graph bakes in the output buffer's size
-    points = (len(t_host) if cfg.kernels is not False
-              and x0.dtype == torch.float32 else 0)
     leaves = (gp_params.kernel.raw_lengthscales, gp_params.kernel.raw_variance,
               gp_params.z)
-    key = (x0.shape, x0.dtype, x0.device,
+    # the graph bakes in the dense output's size, len(t_host)
+    key = (x0.shape, x0.device,
            tuple((leaf.shape, leaf.dtype) for leaf in draws), cfg.rtol,
-           cfg.atol, use_kernel, fused, points, direction,
-           gp._RFF_SCALE_FACTOR,
-           torch.backends.cuda.matmul.allow_tf32,
+           cfg.atol, use_kernel, fused, len(t_host), direction,
+           gp._RFF_SCALE_FACTOR, torch.backends.cuda.matmul.allow_tf32,
            tuple((id(t), t.data_ptr()) for t in leaves))
     if key in _ATTEMPTS:
         _ATTEMPTS.move_to_end(key)
         captured = _ATTEMPTS[key]
     else:
         captured = CapturedAttempt(gp_params, draws, x0, direction, cfg.rtol,
-                                   cfg.atol, use_kernel, fused, points)
-        try:
-            captured.capture()
-        except RuntimeError as err:
-            reason = f"{tuple(x0.shape)}: {err}"
-            if reason not in _REFUSALS_LOGGED:
-                _REFUSALS_LOGGED.add(reason)
-                _logger.warning("the batched solve's attempt is not captured "
-                                "at %s: running it eagerly", reason)
-            captured = None
+                                   cfg.atol, use_kernel, fused, len(t_host))
+        captured.capture()
         _ATTEMPTS[key] = captured
         while len(_ATTEMPTS) > _MAX_ATTEMPTS:
             _ATTEMPTS.popitem(last=False)
-    if captured is not None:
-        captured.load(draws)
+    captured.load(draws)
     return captured
 
 
@@ -550,15 +508,16 @@ def flow_forward_batched(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
     continuous adjoint is a train-path option that this forward-only eval
     route does not implement (a warning says so, as in the JAX package).
 
-    With grad mode off on a card, dopri5's attempt is a
-    :class:`CapturedAttempt`, captured once per shape and replayed per
-    attempt under the same controller: for a dimwise GP at a shape it takes,
-    the fused `dopri5_attempt_draws` kernel (the same step as the eager
-    attempt up to the field's summation order), else the eager attempt's
-    kernels in the same order (the same states and `ODEStats`). Unless
-    `cfg.kernels` is False, float32 states also take the `draws_commit`
-    kernel in the graph: the dense output and hand-over of an accepted step
-    on the device, bit for bit the host's.
+    With grad mode off, float32 states on a card and `cfg.kernels` not
+    False, dopri5's attempt is a :class:`CapturedAttempt`, captured once
+    per shape and replayed per attempt under the same controller
+    (`_capture_route`): for a dimwise GP at a shape it takes, the fused
+    `dopri5_attempt_draws` kernel (the same step as the eager attempt up to
+    the field's summation order), else the eager attempt's kernels in the
+    same order (the same states and `ODEStats`), followed in the graph by
+    the `draws_commit` kernel: the dense output and hand-over of an
+    accepted step on the device, bit for bit the host's. Every other solve
+    runs the eager attempt and forms its dense output on the host.
     """
     if cfg.use_adjoint:
         warnings.warn(
@@ -574,8 +533,9 @@ def flow_forward_batched(gp_params: gp.SVGPParams, draws: gp.PosteriorDraw,
 
     if cfg.remat:
         rhs = _rematerialized(rhs)
-    attempt = (_captured_attempt(gp_params, draws, x0, ts, cfg, use_kernel)
-               if _capture_gate(cfg, x0) else None)
+    route = _capture_route(cfg, gp_params, draws, x0)
+    attempt = (None if route is None else _captured_attempt(
+        gp_params, draws, x0, ts, cfg, use_kernel, route == "fused"))
     xs, stats = odeint(rhs, x0, ts, solver=cfg.solver, rtol=cfg.rtol,
                        atol=cfg.atol, substeps=cfg.substeps,
                        max_steps=cfg.max_steps, first_step=cfg.first_step,

@@ -345,8 +345,9 @@ def dopri5_attempt(f: Callable, *, rtol: float, atol: float,
     a 0-d tensor that accepts the step at <= 1. `t` and `dt` are host
     floats; or `t` is None and `dt` a 0-d device tensor, for a
     time-invariant `f`, as a captured attempt runs it
-    (`models/flow.CapturedAttempt`)."""
-    def attempt(t, x, k1, dt):
+    (`models/flow.CapturedAttempt`). The step's end `t_end` is not read."""
+    def attempt(t, x, k1, dt, t_end=None):
+        del t_end
         x_new, err, k7 = _dopri5_step(f, t, x, dt, k1)
         with torch.no_grad():
             scale = atol + rtol * torch.maximum(torch.abs(x), torch.abs(x_new))
@@ -378,17 +379,14 @@ def odeint_dopri5(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
     `models/flow.py`). `ts` may be increasing or decreasing.
 
     `attempt`: None -> :func:`dopri5_attempt` on `f`; else a function with
-    its signature and results, called with host floats
-    (`models/flow.CapturedAttempt`, which replays a CUDA graph). Where it
-    has a
-    `hand_over(x_new, k7) -> (x, k1)` method, an accepted step passes its
-    state through it after the dense output, since the next call may
-    overwrite the `x_new` and `k7` it returned. Where it has a
-    `dense_output(taus, x0)` method that returns a (T, *x0.shape) buffer
-    (not None), the attempt commits its accepted steps itself: it is called
-    with the step's end as a fifth argument, writes the dense output at the
-    output times in (tau, tau_end] into that buffer and hands the state
-    over; the host forms no point and returns a copy of the buffer.
+    its signature and results, called with host floats, the step's end
+    among them. Where it has a `dense_output(taus, x0)` method, which
+    returns a (T, *x0.shape) buffer, the attempt commits its accepted
+    steps itself (`models/flow.CapturedAttempt`, which replays a CUDA
+    graph): it writes the dense output at the output times in (tau,
+    tau_end] into that buffer and hands the step over into the state and
+    FSAL value it returns; the host forms no point and returns a copy of
+    the buffer.
     """
     t_host = ts.detach().cpu().numpy().astype(_F32)
     direction = _F32(np.sign(t_host[-1] - t_host[0]))
@@ -413,7 +411,6 @@ def odeint_dopri5(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
 
     if attempt is None:
         attempt = dopri5_attempt(f_tau, rtol=rtol, atol=atol, norm=norm)
-    hand_over = getattr(attempt, "hand_over", None)
     dense_output = getattr(attempt, "dense_output", None)
     dense = None if dense_output is None else dense_output(taus, x0)
     out = [x0 if tau_j <= 0.0 else None for tau_j in taus]
@@ -427,11 +424,8 @@ def odeint_dopri5(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
             dt_step = _F32(min(dt, remaining))
             tau_end = (tau_final if dt_step >= remaining
                        else _F32(tau + dt_step))
-            if dense is None:
-                x_new, ratio, k7 = attempt(float(tau), x, k1, float(dt_step))
-            else:
-                x_new, ratio, k7 = attempt(float(tau), x, k1, float(dt_step),
-                                           float(tau_end))
+            x_new, ratio, k7 = attempt(float(tau), x, k1, float(dt_step),
+                                       float(tau_end))
             with clocked("gpode.solve.error_read"):
                 err_ratio = float(ratio)
             accept = err_ratio <= 1.0
@@ -442,8 +436,6 @@ def odeint_dopri5(f: Callable, x0: torch.Tensor, ts: torch.Tensor, *,
                             out[j] = _hermite(tau_j, tau, tau_end, x, k1,
                                               x_new, k7)
                             DENSE_POINTS["host"] += 1
-                if hand_over is not None:
-                    x_new, k7 = hand_over(x_new, k7)
                 tau, x, k1 = tau_end, x_new, k7
                 nacc += 1
             dt = _F32(dt_step * dopri5_controller(err_ratio, accept))

@@ -7,8 +7,9 @@ program with the whole-span attempt's accept a device-side `lax.cond`.
 `trainer.make_train_step`'s signature and terms, `step(noise, *batch) ->
 terms`:
 
-  * the first `warmup` calls are eager steps on the capture stream (one
-    per card; real steps: the trajectory is the eager one);
+  * the first `capture.WARMUP` calls are eager steps on the capture stream
+    (`ops/capture.py`: one per card, shared with the prediction solve's
+    captured attempt; real steps: the trajectory is the eager one);
   * the next call captures the step's body — zero_grad, the loss, its
     backward and the Adam update — from static copies of its inputs, and
     every call from then on copies its noise and batch into them and
@@ -33,7 +34,8 @@ terms`:
     on a reject;
   * `cuda_kernels.LAUNCHES` counts wrapper calls, and a replay makes none:
     the step records each graph's launches at capture (and takes them back
-    out, since a capture runs nothing) and adds them on every replay;
+    out, since a capture runs nothing) and adds them on every replay
+    (`ops/capture.py`);
   * under a profiler a call is the span `gpode.step`, holding
     `gpode.step.copy_in`, a `gpode.step.replay` per graph launched, the
     `gpode.step.accept_read` between A and B, and `gpode.step.eager`
@@ -59,7 +61,6 @@ is no other fallback.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import gc
 import logging
 from typing import Callable, Optional
@@ -70,14 +71,11 @@ from torch import nn
 from gpode_tpu_torch.models.flow import (AcceptSeam, accept_seam,
                                          segment_kernel_taken)
 from gpode_tpu_torch.models.shooting import ShootingParams
-from gpode_tpu_torch.ops.cuda_kernels import LAUNCHES
+from gpode_tpu_torch.ops import capture
 from gpode_tpu_torch.ops.ode import FIRST_STEP_SPAN
 from gpode_tpu_torch.train.trainer import Adam, make_train_step
 from gpode_tpu_torch.utils.profiling import clocked, span
 
-# eager steps before the capture (on the capture stream: they set up the
-# libraries' per-stream state and build the kernels)
-WARMUP_STEPS = 2
 _MULTISTEP = ("explicit_adams", "fixed_adams", "implicit_adams", "adams",
               "bdf")
 
@@ -160,11 +158,6 @@ class _Rejected(Exception):
     """A CPU rehearsal's accept read found a reject."""
 
 
-def _add_launches(delta: dict, sign: int = 1):
-    for name, n in delta.items():
-        LAUNCHES[name] += sign * n
-
-
 class CapturedStep:
     """`step(noise, *batch) -> terms` of `make_captured_train_step`.
 
@@ -173,16 +166,13 @@ class CapturedStep:
     launches. `replays` counts the steps that replayed to the end, `rejects`
     those that ran eagerly after a reject, `host_reads` the accept reads."""
 
-    def __init__(self, loss_fn: Callable, params: nn.Module, optimizer: Adam,
-                 warmup: int = WARMUP_STEPS):
+    def __init__(self, loss_fn: Callable, params: nn.Module, optimizer: Adam):
         self.loss_fn = loss_fn
         self.params = params
         self.optimizer = optimizer
-        self.warmup = warmup
         self.eager = make_train_step(loss_fn, params, optimizer)
         self.device = next(params.parameters()).device
         self.cuda = self.device.type == "cuda"
-        self.stream = _capture_stream(self.device) if self.cuda else None
         self.calls = self.replays = self.rejects = self.host_reads = 0
         self.graphs: list = []
         self.graph_launches: list = []
@@ -245,20 +235,22 @@ class CapturedStep:
     def _capture(self):
         pool = torch.cuda.graph_pool_handle()
         graphs = [torch.cuda.CUDAGraph()]
-        counts = [dict(LAUNCHES)]
+        launches = []
+        take = capture.launch_counter()
+
+        def end():
+            graphs[-1].capture_end()
+            launches.append(take())
 
         def split():
-            graphs[-1].capture_end()
-            counts.append(dict(LAUNCHES))
+            end()
             graphs.append(torch.cuda.CUDAGraph())
             graphs[-1].capture_begin(pool=pool)
 
         torch.cuda.synchronize(self.device)
         gc.collect()
         torch.cuda.empty_cache()
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
+        with capture.on_capture_stream(self.device):
             graphs[0].capture_begin(pool=pool)
             try:
                 with accept_seam(AcceptSeam(self._rms, split)):
@@ -266,22 +258,15 @@ class CapturedStep:
             except BaseException:
                 _end_capture_quietly(graphs[-1])
                 raise
-            graphs[-1].capture_end()
-        current.wait_stream(self.stream)
-        counts.append(dict(LAUNCHES))
-        self.graphs = graphs
-        self.graph_launches = [{k: b[k] - a[k] for k in a}
-                               for a, b in zip(counts, counts[1:])]
-        # a capture launches nothing: take its counted calls back out
-        for delta in self.graph_launches:
-            _add_launches(delta, -1)
+            end()
+        self.graphs, self.graph_launches = graphs, launches
 
     def _replay(self, noise, batch):
         last = len(self.graphs) - 1
         for i, graph in enumerate(self.graphs):
             with clocked("gpode.step.replay"):
                 graph.replay()
-            _add_launches(self.graph_launches[i])
+            capture.replay_launches(self.graph_launches[i])
             if i < last and not self._accepted():
                 return self._eager(noise, batch)
         self.replays += 1
@@ -321,15 +306,11 @@ class CapturedStep:
 
     def _step(self, noise, batch):
         self.calls += 1
-        if self.calls <= self.warmup:
+        if self.calls <= capture.WARMUP:
             if not self.cuda:
                 return self._eager(noise, batch)
-            current = torch.cuda.current_stream(self.device)
-            self.stream.wait_stream(current)
-            with torch.cuda.stream(self.stream):
-                terms = self._eager(noise, batch)
-            current.wait_stream(self.stream)
-            return terms
+            with capture.on_capture_stream(self.device):
+                return self._eager(noise, batch)
         with span("gpode.step.copy_in"):
             self._copy_in(noise, batch)
         if not self.cuda:
@@ -340,22 +321,11 @@ class CapturedStep:
 
 
 def make_captured_train_step(loss_fn: Callable, params: nn.Module,
-                             optimizer: Adam,
-                             warmup: int = WARMUP_STEPS) -> CapturedStep:
+                             optimizer: Adam) -> CapturedStep:
     """`trainer.make_train_step` as captured CUDA graphs (see the module's
     docstring): the same signature, the same terms, the same parameters
     after every step."""
-    return CapturedStep(loss_fn, params, optimizer, warmup)
-
-
-@functools.lru_cache(maxsize=None)
-def _capture_stream(device: torch.device) -> torch.cuda.Stream:
-    """The one side stream per card on which every captured step warms up
-    and captures (as `torch.cuda.graph`'s default capture stream): the
-    libraries keep per-stream state for the life of the process (cuBLAS a
-    workspace of tens of MiB per stream), so a stream per step would grow
-    with every step a process builds."""
-    return torch.cuda.Stream(device)
+    return CapturedStep(loss_fn, params, optimizer)
 
 
 def _copy_static(static, value, what):

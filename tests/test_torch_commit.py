@@ -21,6 +21,8 @@ from gpode_tpu_torch.models.flow import SolverConfig, flow_forward_batched
 from gpode_tpu_torch.ops import cuda_kernels as ck
 from gpode_tpu_torch.ops import ode
 
+from _torch_capture import rehearse_captures
+
 torch.set_num_threads(1)
 
 F32 = np.float32
@@ -200,7 +202,7 @@ SOLVE_CASES = {  # ts, SolverConfig keywords
 
 
 def _solve(monkeypatch, captured, params, draws, x0, ts, **cfg):
-    monkeypatch.setattr(tflow, "_capture_gate", lambda *a: captured)
+    rehearse_captures(monkeypatch, captured)
     kw = dict(solver="dopri5", max_steps=64, rtol=1e-5, atol=1e-5)
     kw.update(cfg)
     points = dict(ode.DENSE_POINTS)
@@ -220,8 +222,8 @@ def test_the_committing_captured_solve_equals_the_eager_one(monkeypatch,
     (rejects), out of `max_steps` (the uncovered tail holds the last
     state), with output times at the start and repeated. The counter
     reads every point as the device's on the captured path and the host's
-    on the eager one; with the kernels off the captured attempt leaves the
-    dense output to the host."""
+    on the eager one; with the kernels off no attempt is captured and the
+    host forms the points on both sides."""
     monkeypatch.setattr(tflow, "_ATTEMPTS", type(tflow._ATTEMPTS)())
     ts, cfg = SOLVE_CASES[case]
     params, draws, x0 = _problem(seed=len(case))
@@ -229,16 +231,9 @@ def test_the_committing_captured_solve_equals_the_eager_one(monkeypatch,
                                 **cfg)
     got, st, points = _solve(monkeypatch, True, params, draws, x0, ts, **cfg)
     assert torch.equal(got, want) and st == wst
-    (attempt,) = tflow._ATTEMPTS.values()
     start = int((ts == ts[0]).sum())
     formed = wst.num_covered - start
     assert wpoints == {"host": formed, "device": 0}
-    if case == "kernels_off":
-        assert attempt.points == 0
-        assert points == {"host": formed, "device": 0}
-    else:
-        assert attempt.points == len(ts)
-        assert points == {"host": 0, "device": formed}
     assert formed > 0
     if case == "max_steps":
         assert wst.num_covered < len(ts)
@@ -247,6 +242,13 @@ def test_the_committing_captured_solve_equals_the_eager_one(monkeypatch,
         assert wst.num_covered == len(ts)
     if case == "rejects":
         assert wst.num_attempted > wst.num_accepted
+    if case == "kernels_off":
+        assert not tflow._ATTEMPTS
+        assert points == {"host": formed, "device": 0}
+        return
+    (attempt,) = tflow._ATTEMPTS.values()
+    assert len(attempt.taus) == len(ts)
+    assert points == {"host": 0, "device": formed}
     statics = [attempt.x, attempt.k1, attempt.scalars, attempt.dense,
                *attempt.out]
     assert all(got.untyped_storage().data_ptr()
@@ -267,6 +269,29 @@ def test_solves_of_two_lengths_take_two_cached_attempts(monkeypatch):
         got, st, _ = _solve(monkeypatch, True, params, draws, x0, ts)
         assert torch.equal(got, want) and st == wst
         outs.append((got, got.clone()))
-    assert sorted(a.points for a in tflow._ATTEMPTS.values()) == [12, 30]
+    assert sorted(len(a.taus) for a in tflow._ATTEMPTS.values()) == [12, 30]
     for got, copy in outs:
         assert torch.equal(got, copy)
+
+
+def test_a_capture_that_fails_raises_and_caches_nothing(monkeypatch):
+    """A capture that fails (a kernel that does not build or launch) fails
+    the solve: no eager fallback, no cached attempt; the next solve
+    captures again."""
+    monkeypatch.setattr(tflow, "_ATTEMPTS", type(tflow._ATTEMPTS)())
+    params, draws, x0 = _problem(seed=10)
+    ts = torch.linspace(0.0, 2.0, 30)
+
+    def fail(self):
+        raise RuntimeError("the kernel did not build")
+
+    monkeypatch.setattr(tflow.CapturedAttempt, "capture", fail)
+    with pytest.raises(RuntimeError, match="did not build"):
+        _solve(monkeypatch, True, params, draws, x0, ts)
+    assert not tflow._ATTEMPTS
+    monkeypatch.undo()
+    monkeypatch.setattr(tflow, "_ATTEMPTS", type(tflow._ATTEMPTS)())
+    want, wst, _ = _solve(monkeypatch, False, params, draws, x0, ts)
+    got, st, _ = _solve(monkeypatch, True, params, draws, x0, ts)
+    assert torch.equal(got, want) and st == wst
+    assert len(tflow._ATTEMPTS) == 1

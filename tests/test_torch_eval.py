@@ -54,6 +54,7 @@ from gpode_tpu_torch.train import metrics as tmetrics
 from gpode_tpu_torch.train.evaluation import make_projected_scorer
 from gpode_tpu_torch.utils.time_grids import insert_zero_t0
 
+from _torch_capture import OnCard, rehearse_captures
 from test_torch_native import same_branch
 
 torch.set_num_threads(1)
@@ -357,27 +358,37 @@ def test_dopri5_with_the_default_attempt_passed_equals_without(problem,
         assert wst.num_attempted > wst.num_accepted
 
 
-class _Cuda:
-    """A stand-in state that says it is on the card."""
-    is_cuda = True
-
-
 @pytest.mark.parametrize("case,captured", [
     ("card", True), ("cpu", False), ("grad", False), ("remat", False),
-    ("rk4", False), ("adams", False), ("capturing", False)])
+    ("rk4", False), ("adams", False), ("capturing", False),
+    ("float64", False), ("kernels_off", False), ("kernels_on", True),
+    ("kernels_on_refused", False)])
 def test_the_gate_captures_only_the_no_grad_dopri5_attempt_on_a_card(
         monkeypatch, case, captured):
-    """The attempt is captured with grad mode off, a state on CUDA outside
-    any capture, dopri5 and no `remat`; every other case is eager."""
+    """The attempt is captured with grad mode off, a float32 state on
+    CUDA outside any capture, dopri5, no `remat` and the kernels not off;
+    every other case is eager. Under `kernels=True` a shape the draws
+    kernel refuses (Din = D = 17) raises ValueError."""
     from gpode_tpu_torch.models import flow as tflow
 
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: case == "capturing")
+    din = 17 if case == "kernels_on_refused" else 5
+    gp_params, draws, x0 = _random_draws(2, 2, din, 8, 16, 0)
     cfg = SolverConfig(solver=case if case in ("rk4", "adams") else "dopri5",
-                       remat=case == "remat")
-    x0 = torch.zeros(2, 3) if case == "cpu" else _Cuda()
+                       remat=case == "remat",
+                       kernels={"kernels_off": False, "kernels_on": True,
+                                "kernels_on_refused": True}.get(case))
+    if case == "float64":
+        x0 = x0.double()
+    state = x0 if case == "cpu" else OnCard(x0)
     with torch.set_grad_enabled(case == "grad"):
-        assert tflow._capture_gate(cfg, x0) is captured
+        if case == "kernels_on_refused":
+            with pytest.raises(ValueError, match="Din <= 16"):
+                tflow._capture_route(cfg, gp_params, draws, state)
+            return
+        route = tflow._capture_route(cfg, gp_params, draws, state)
+    assert route == ("fused" if captured else None)
 
 
 @pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
@@ -424,8 +435,7 @@ def test_captured_attempt_rehearsal_equals_the_eager_solve(problem,
     kw = dict(solver="dopri5", max_steps=64, rtol=1e-5, atol=1e-5)
 
     def solve(seed, captured, **cfg):
-        monkeypatch.setattr(tflow, "_capture_gate",
-                            lambda *a: captured)
+        rehearse_captures(monkeypatch, captured)
         _, draws, x0, ts = _batched_solve(problem, seed)
         with torch.no_grad():
             return flow_forward_batched(gp_params, draws, x0, ts,
@@ -570,7 +580,7 @@ def test_kernel_route_captured_solve_equals_the_plain_attempt(problem,
     cfg = SolverConfig(solver="dopri5", max_steps=64, rtol=1e-5, atol=1e-5)
     outs = {}
     for captured in (False, True):
-        monkeypatch.setattr(tflow, "_capture_gate", lambda *a: captured)
+        rehearse_captures(monkeypatch, captured)
         before = tuple(profiling.UNTRACED["gpode.solve.replay"])
         launches = dict(ck.LAUNCHES)
         with torch.no_grad():
@@ -588,21 +598,27 @@ def test_kernel_route_captured_solve_equals_the_plain_attempt(problem,
 
 def test_the_kernel_route_is_decided_from_shapes_before_the_capture(
         problem, monkeypatch, caplog):
-    """A dimwise GP in float32 at a shape the kernel takes captures the
-    kernel; float64 states, a GP that is not dimwise and a width the kernel
-    refuses (Din = D = 17) keep the plain attempt, a refusal logged once."""
+    """A captured attempt of a dimwise GP at a shape the kernel takes is
+    the kernel; a GP that is not dimwise and a width the kernel refuses
+    (Din = D = 17) capture the plain attempt, a refusal logged once."""
     from gpode_tpu_torch.models import flow as tflow
 
     monkeypatch.setattr(tflow, "_REFUSALS_LOGGED", set())
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+
+    def route(g, d, x):
+        with torch.no_grad():
+            return tflow._capture_route(SolverConfig(), g, d, OnCard(x))
+
     gp_params, draws, x0, _ = _batched_solve(problem, 16)
-    assert tflow._draws_kernel_taken(gp_params, draws, x0)
-    assert not tflow._draws_kernel_taken(gp_params, draws, x0.double())
+    assert route(gp_params, draws, x0) == "fused"
     flat = tgp.init_svgp(torch.Generator().manual_seed(0), 5, 5, 8,
                          dimwise=False)
-    assert not tflow._draws_kernel_taken(flat, draws, x0)
+    assert route(flat, draws, x0) == "plain"
     wide, wide_draws, wide_x0 = _random_draws(2, 2, 17, 8, 16, 2)
     with caplog.at_level("WARNING", logger=tflow.__name__):
         for _ in range(2):
-            assert not tflow._draws_kernel_taken(wide, wide_draws, wide_x0)
+            assert route(wide, wide_draws, wide_x0) == "plain"
     refusals = [r for r in caplog.records if "refuses" in r.getMessage()]
     assert len(refusals) == 1 and "Din <= 16" in refusals[0].getMessage()

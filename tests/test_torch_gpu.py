@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from gpode_tpu_torch.ops import capture
 from gpode_tpu_torch.ops import cuda_kernels as ck
 from gpode_tpu_torch.ops import wide_rhs as wr
 
@@ -713,7 +714,7 @@ def test_captured_step_equals_the_eager_step(cuda, preset):
         runs.append((losses, p, step))
     (le, pe, _), (lc, pc, step) = runs
     assert len(step.graphs) == (1 if preset == "fast" else 2)
-    assert step.replays == 10 - step.warmup and step.rejects == 0
+    assert step.replays == 10 - capture.WARMUP and step.rejects == 0
     torch.testing.assert_close(lc, le, rtol=1e-6, atol=0.0)
     for a, b in zip(pc.parameters(), pe.parameters()):
         torch.testing.assert_close(a.detach(), b.detach(), rtol=0.0,
@@ -753,7 +754,7 @@ def test_captured_step_clocks_its_untraced_launches(cuda):
 
     before = {n: clock(n) for n in ("gpode.step", "gpode.step.replay")}
     run(6)
-    assert step.rejects == 0 and step.replays == 6 - step.warmup
+    assert step.rejects == 0 and step.replays == 6 - capture.WARMUP
     calls, seconds = (a - b for a, b in zip(clock("gpode.step"),
                                             before["gpode.step"]))
     launches, launch_s = (a - b for a, b in zip(clock("gpode.step.replay"),
@@ -810,23 +811,23 @@ def _predict_solver(monkeypatch, gp_params, x0, grid, first_step=None):
     the eager plain attempt ("plain"; "float64": the same on float64 copies
     of the GP, the draws and the states), with the program's attempt
     launched eagerly at every attempt ("eager": `CapturedAttempt.rehearse`,
-    a cache of its own), or through the gate as the program takes it
+    a cache of its own), or through the route the program takes
     ("captured")."""
     from gpode_tpu_torch.models import flow
 
     attempts = {"eager": type(flow._ATTEMPTS)(),
                 "captured": type(flow._ATTEMPTS)()}
-    gate, capture = flow._capture_gate, flow.CapturedAttempt.capture
+    route, capture_ = flow._capture_route, flow.CapturedAttempt.capture
     cfg = flow.SolverConfig(solver="dopri5", max_steps=512,
                             first_step=first_step)
 
     def solve(draws, mode):
         eager = mode in ("plain", "float64")
-        monkeypatch.setattr(flow, "_capture_gate",
-                            (lambda *a: False) if eager else gate)
+        monkeypatch.setattr(flow, "_capture_route",
+                            (lambda *a: None) if eager else route)
         monkeypatch.setattr(flow.CapturedAttempt, "capture",
                             flow.CapturedAttempt.rehearse if mode == "eager"
-                            else capture)
+                            else capture_)
         if not eager:
             monkeypatch.setattr(flow, "_ATTEMPTS", attempts[mode])
         params, start, config = gp_params, x0, cfg
@@ -1105,14 +1106,16 @@ def test_draws_commit_compiles_without_spills(cuda):
 def test_the_device_commit_equals_the_host_dense_output(cuda, monkeypatch,
                                                         case):
     """At the validation request's shape (32 draws x 2 rows, 120 output
-    times) the captured solve that commits on the device returns the
-    captured solve under `kernels=False`, whose host forms the dense output
-    with `_hermite` and copies the hand-over, bit for bit, states and
-    `ODEStats`: with Hairer's start, from the whole span (rejects) and out
-    of `max_steps` (the uncovered tail). One commit launch a replayed
-    attempt, none with the kernels off; the counter reads the device's
-    points on one side and the host's on the other."""
-    from gpode_tpu_torch.models import flow
+    times) the captured solve that commits on the device returns the solve
+    whose host launches the same `dopri5_attempt_draws` eagerly, forms the
+    dense output with `_hermite` and takes the hand-over, bit for bit,
+    states and `ODEStats`: with Hairer's start, from the whole span
+    (rejects) and out of `max_steps` (the uncovered tail). One commit
+    launch a replayed attempt; the counter reads the device's points on one
+    side and the host's on the other. Under `kernels=False` the solve is
+    eager: no draws kernel and no commit launched, one attempt cached (the
+    committing one), and the eager plain solve's result bit for bit."""
+    from gpode_tpu_torch.models import flow, gp
     from gpode_tpu_torch.ops import ode
 
     gp_params, draws, x0, grid = _predict_problem(cuda, 32, 2)
@@ -1122,24 +1125,55 @@ def test_the_device_commit_equals_the_host_dense_output(cuda, monkeypatch,
     cfg = flow.SolverConfig(solver="dopri5", max_steps=max_steps,
                             first_step=first_step)
     d = draws(41)
-    outs = {}
-    for kernels in (None, False, None, False):  # capture, then replay
+    kern = gp_params.kernel
+    operands = (gp_params.z, kern.lengthscales, kern.variance, d.omega,
+                d.phase, gp.kernel_rff_weights(d.weights), d.nu)
+
+    def field(t, x):
+        del t  # time-invariant ODE
+        return gp.eval_draws(gp_params, d, x, False)
+
+    def host_attempt(tau, x, k1, dt, tau_end):
+        del tau, tau_end
+        return ck.dopri5_attempt_draws(
+            x.contiguous(), k1.contiguous(),
+            torch.tensor(dt, dtype=torch.float32, device=cuda), 1.0,
+            *operands, cfg.rtol, cfg.atol)
+
+    def run(mode):
         before, points = dict(ck.LAUNCHES), dict(ode.DENSE_POINTS)
         with torch.no_grad():
-            xs, st = flow.flow_forward_batched(
-                gp_params, d, x0, grid,
-                dataclasses.replace(cfg, kernels=kernels))
+            if mode == "host":
+                xs, st = ode.odeint_dopri5(
+                    field, x0, grid, rtol=cfg.rtol, atol=cfg.atol,
+                    max_steps=max_steps, first_step=first_step,
+                    norm=ode.max_rms_over_axis0, attempt=host_attempt)
+                xs = torch.movedim(xs, 0, 2)
+            else:
+                xs, st = flow.flow_forward_batched(
+                    gp_params, d, x0, grid, dataclasses.replace(
+                        cfg, kernels=False if mode == "off" else None))
         torch.cuda.synchronize()
-        outs[kernels] = (xs, st, ck.LAUNCHES["draws_commit"]
-                         - before["draws_commit"],
-                         {k: ode.DENSE_POINTS[k] - points[k] for k in points})
-    (got, st, commits, dev), (want, wst, host_commits, host) = outs.values()
+        return xs, st, {k: ck.LAUNCHES[k] - before[k] for k in before}, {
+            k: ode.DENSE_POINTS[k] - points[k] for k in points}
+
+    for _ in range(2):  # capture, then replay
+        got, st, launches, dev = run("captured")
+    want, wst, _, host = run("host")
     assert torch.equal(got, want) and st == wst
     formed = wst.num_covered - 1
-    assert commits == st.num_attempted and host_commits == 0
+    assert launches["draws_commit"] == st.num_attempted
     assert dev == {"host": 0, "device": formed}
     assert host == {"host": formed, "device": 0}
-    assert sorted(a.points for a in flow._ATTEMPTS.values()) == [0, 120]
+    for _ in range(2):
+        off, off_st, off_launches, off_points = run("off")
+    monkeypatch.setattr(flow, "_capture_route", lambda *a: None)
+    plain, plain_st, _, _ = run("eager")
+    assert torch.equal(off, plain) and off_st == plain_st
+    assert off_launches["dopri5_attempt_draws"] == 0
+    assert off_launches["draws_commit"] == 0
+    assert off_points == {"host": off_st.num_covered - 1, "device": 0}
+    assert len(flow._ATTEMPTS) == 1
     if case == "rejects":
         assert st.num_attempted > st.num_accepted
     if case == "max_steps":

@@ -13,7 +13,8 @@ step, on the CPU at small sizes.
   flow, with the accept seam reading the error RMS on the host) bit-equal
   to `make_train_step` on a small official (dopri5 whole-span attempt) and
   `fast` (rk4 segment) problem, a forced reject included; the capture's
-  launch bookkeeping on stand-in graphs;
+  launch bookkeeping on stand-in graphs, and its one capture stream, shared
+  with the prediction solve's captured attempt;
 * `capture_refusal` over the configurations it refuses and those it takes,
   and the `Trainer` with model args on the CPU equal to the one without.
 """
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import jax
@@ -34,8 +36,10 @@ from gpode_tpu.models import states as jstates
 from gpode_tpu.ops import math as jom
 
 from gpode_tpu_torch.models import flow as tflow
+from gpode_tpu_torch.models import gp as tgp
 from gpode_tpu_torch.models import states as tstates
 from gpode_tpu_torch.models.shooting import sample_step_noise
+from gpode_tpu_torch.ops import capture
 from gpode_tpu_torch.ops import cuda_kernels as ck
 from gpode_tpu_torch.ops import math as tom
 from gpode_tpu_torch.train import graph_step
@@ -235,7 +239,7 @@ def test_split_step_on_the_cpu_equals_the_eager_step(preset, stretch):
     for a, b in zip(c_params.parameters(), params.parameters()):
         assert torch.equal(a, b)
     rejected = [i for i, n in enumerate(natts) if n > 1]
-    after_warmup = N_STEPS - step.warmup
+    after_warmup = N_STEPS - capture.WARMUP
     if preset == "official":
         assert rejected == list(stretch)
         assert step.host_reads == after_warmup
@@ -272,6 +276,8 @@ class _FakeStream:
 
 def _fake_cuda(monkeypatch):
     _FakeGraph.log = []
+    monkeypatch.setattr(capture, "capture_stream", functools.lru_cache(
+        maxsize=None)(capture.capture_stream.__wrapped__))
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
     monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
@@ -308,9 +314,9 @@ def test_capture_bookkeeping_on_stand_in_graphs(monkeypatch, seam):
     class Noise:
         scale: torch.Tensor
 
-    step = graph_step.CapturedStep(loss_fn, params, tt.Adam(params, 1e-3),
-                                   warmup=1)
-    step.cuda, step.stream = True, _FakeStream()   # the capture path
+    monkeypatch.setattr(capture, "WARMUP", 1)
+    step = graph_step.CapturedStep(loss_fn, params, tt.Adam(params, 1e-3))
+    step.cuda = True   # the capture path
     x = torch.ones(3, 2)
     ck.reset_launch_counts()
     step(Noise(torch.tensor(1.0)), x)                    # warm-up, eager
@@ -323,11 +329,9 @@ def test_capture_bookkeeping_on_stand_in_graphs(monkeypatch, seam):
         ) + ["replay"] * graphs
     assert {pool for e, pool in _FakeGraph.log if e == "begin"} == {"pool"}
     assert step.graph_launches == (
-        [{**dict.fromkeys(ck.LAUNCHES, 0), "fused_dopri5_attempt_fwd": 1},
-         {**dict.fromkeys(ck.LAUNCHES, 0), "fused_dopri5_attempt_bwd": 1}]
+        [{"fused_dopri5_attempt_fwd": 1}, {"fused_dopri5_attempt_bwd": 1}]
         if seam else
-        [{**dict.fromkeys(ck.LAUNCHES, 0), "fused_dopri5_attempt_fwd": 1,
-          "fused_dopri5_attempt_bwd": 1}])
+        [{"fused_dopri5_attempt_fwd": 1, "fused_dopri5_attempt_bwd": 1}])
     assert ck.LAUNCHES["fused_dopri5_attempt_fwd"] == 2
     assert ck.LAUNCHES["fused_dopri5_attempt_bwd"] == 2
     assert torch.equal(step._noise.scale, torch.tensor(2.0))
@@ -342,6 +346,68 @@ def test_capture_bookkeeping_on_stand_in_graphs(monkeypatch, seam):
         assert ck.LAUNCHES["fused_dopri5_attempt_fwd"] == 3
     with pytest.raises(ValueError, match="shape"):
         step(Noise(torch.ones(2)), x)
+
+
+def test_the_step_and_the_attempt_capture_on_one_stream(monkeypatch):
+    """The captured train step and the prediction solve's captured attempt
+    warm up and capture on one stream object, the card's capture stream
+    (`ops/capture.py`): the step enters it for each warm-up step and its
+    capture, the attempt for its warm-up and its capture."""
+    _fake_cuda(monkeypatch)
+    entered = []
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: (
+        entered.append(stream), contextlib.nullcontext())[1])
+
+    class _FakeCapture:
+        def __init__(self, graph, pool=None, stream=None):
+            del pool
+            self.graph = graph
+            entered.append(stream)
+
+        def __enter__(self):
+            self.graph.capture_begin()
+
+        def __exit__(self, *exc):
+            self.graph.capture_end()
+
+    monkeypatch.setattr(torch.cuda, "graph", _FakeCapture)
+
+    class Terms(NamedTuple):
+        loss: torch.Tensor
+
+    @dataclasses.dataclass
+    class Noise:
+        scale: torch.Tensor
+
+    def loss_fn(p, noise, x):
+        loss = torch.sum(p(x) ** 2) * noise.scale
+        return loss, Terms(loss)
+
+    params = torch.nn.Linear(2, 1)
+    step = graph_step.CapturedStep(loss_fn, params, tt.Adam(params, 1e-3))
+    step.cuda = True   # the capture path
+    for _ in range(capture.WARMUP + 1):
+        step(Noise(torch.tensor(1.0)), torch.ones(3, 2))
+    assert len(step.graphs) == 1 and len(entered) == capture.WARMUP + 1
+
+    gen = torch.Generator().manual_seed(0)
+    gp_params = tgp.init_svgp(gen, 2, 2, 4)
+    with torch.no_grad():
+        draws = tgp.draw_posterior(
+            gp_params, torch.randn(3, 8, 2, generator=gen),
+            torch.randn(3, 2, 8, 2, generator=gen),
+            torch.rand(3, 1, 8, 2, generator=gen),
+            torch.randn(3, 4, 2, generator=gen))
+        attempt = tflow.CapturedAttempt(
+            gp_params, draws, torch.randn(3, 2, 2, generator=gen), 1.0, 1e-6,
+            1e-6, False, True, 5)
+        attempt.cuda = True   # the capture path
+        attempt.capture()
+    assert isinstance(attempt.graph, _FakeGraph)
+    assert len(entered) == capture.WARMUP + 3
+    stream = capture.capture_stream(torch.device("cpu"))
+    assert isinstance(stream, _FakeStream)
+    assert all(s is stream for s in entered)
 
 
 # ---------------------------------------------------------------------------

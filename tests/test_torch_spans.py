@@ -19,7 +19,7 @@ from gpode_tpu_torch.models import flow as tflow
 from gpode_tpu_torch.models import gpode
 from gpode_tpu_torch.models.flow import SolverConfig
 from gpode_tpu_torch.models.shooting import SOLVE_RANGE, sample_step_noise
-from gpode_tpu_torch.ops import ode
+from gpode_tpu_torch.ops import capture, ode
 from gpode_tpu_torch.parallel import collective_audit
 from gpode_tpu_torch.train import trainer as tt
 from gpode_tpu_torch.train.builders import shooting_loss_fn
@@ -128,10 +128,10 @@ def test_captured_rehearsal_records_its_reads_and_eager_steps(stretch):
     steps = [s for s in spans if s[0] == "gpode.step"]
     assert len(steps) == N_STEPS
     assert _count(spans, "gpode.step.accept_read") == step.host_reads
-    assert step.host_reads == N_STEPS - step.warmup
-    assert _count(spans, "gpode.step.eager") == step.warmup + step.rejects
+    assert step.host_reads == N_STEPS - capture.WARMUP
+    assert _count(spans, "gpode.step.eager") == capture.WARMUP + step.rejects
     assert step.rejects == len(stretch)
-    assert _count(spans, "gpode.step.copy_in") == N_STEPS - step.warmup
+    assert _count(spans, "gpode.step.copy_in") == N_STEPS - capture.WARMUP
     assert _count(spans, "gpode.step.replay") == 0
     for name in ("gpode.step.accept_read", "gpode.step.eager",
                  "gpode.step.copy_in"):
@@ -148,7 +148,7 @@ def test_fast_rehearsal_has_no_accept_read():
         lambda: _train(SMALL_ARGS["fast"], True))
     assert step.host_reads == 0
     assert _count(spans, "gpode.step.accept_read") == 0
-    assert _count(spans, "gpode.step.eager") == step.warmup
+    assert _count(spans, "gpode.step.eager") == capture.WARMUP
     assert _count(spans, "gpode.step") == N_STEPS
 
 
