@@ -84,7 +84,13 @@ exit code and no result line:
      copies) bit for bit, over a step of two output times and over the whole
      span, its time at the two-point step beside its bound and the plain
      version's device ms, its registers free of spills, and the captured
-     attempt's replay with the commit;
+     attempt's replay with the commit; then the posterior draw's
+     `draw_solve` kernels (the train step's 5 factors of M=100 at 1 and 32
+     columns, and M=128) against the float64 library chain (nu and its
+     cotangents within 2e-3 of the largest entry), reruns bit-identical,
+     each kernel's device ms beside its bound, its plain version's and the
+     library chain's (`library_ms`), and both kernels free of spills; the
+     official train phase's launches count them on the main path;
   7b. time to test LL: the time-to-LL driver
      (`gpode_tpu_torch.scripts.bench_time_to_nll.main`) in-process, `fast`
      preset, DRIVER_ITERS iterations, tracking evals every 250, 128-draw
@@ -270,7 +276,9 @@ SOURCES = {"fused_rhs_fwd": "gpode_tpu_torch/csrc/fused_rhs.cu",
            "fused_rhs_wide2_fwd": "gpode_tpu_torch/csrc/fused_rhs_wide.cu",
            "fused_rhs_wide_bwd": "gpode_tpu_torch/csrc/fused_rhs_wide.cu",
            "dopri5_attempt_draws": "gpode_tpu_torch/csrc/dopri5_draws.cu",
-           "draws_commit": "gpode_tpu_torch/csrc/dopri5_draws.cu"}
+           "draws_commit": "gpode_tpu_torch/csrc/dopri5_draws.cu",
+           "draw_solve_fwd": "gpode_tpu_torch/csrc/draw_solve.cu",
+           "draw_solve_bwd": "gpode_tpu_torch/csrc/draw_solve.cu"}
 REPLACES = {
     "fused_rhs_fwd": "gpode_tpu/ops/pallas_kernels.py:252",
     "fused_rhs_bwd": "gpode_tpu/ops/pallas_kernels.py:467",
@@ -284,6 +292,8 @@ REPLACES = {
     "fused_rhs_wide_bwd": "scripts/proto_wide_rhs.py:305",
     "dopri5_attempt_draws": "none: the batched prediction solve's attempt",
     "draws_commit": "none: the dense output is XLA's in the JAX package",
+    "draw_solve_fwd": "none: XLA's Cholesky and triangular solves",
+    "draw_solve_bwd": "none: XLA's Cholesky and triangular solves",
 }
 # The ten redesigned kernels (six on the row tile, three wide-layout ones and
 # `rbf_gram`): device ms per launch before their redesign (`ms`; PERF.md,
@@ -323,6 +333,7 @@ MAIN_PATH_KERNELS = {
     "wide_ab": ("fused_rhs_fwd", "fused_rhs_bwd", "fused_rhs_wide_fwd",
                 "fused_rhs_wide2_fwd", "fused_rhs_wide_bwd"),
     "predict": ("dopri5_attempt_draws", "draws_commit"),
+    "draw": ("draw_solve_fwd", "draw_solve_bwd"),
 }
 OFF_PATH_KERNELS = {
     "official": (),
@@ -1110,8 +1121,12 @@ def vdp_phase(dev, config, profile_steps=0):
         gp.set_rff_reference_scale(False)
     check(all(math.isfinite(v) for v in losses), "non-finite VDP training loss")
     check(losses[-1] < losses[0], "the VDP loss did not fall")
-    # one row, far below the 256-row gate: the rhs is the plain path
-    check(sum(launches.values()) == 0, "a kernel launched on the 1-row VDP path")
+    # one row, far below the 256-row gate: the rhs is the plain path; the
+    # draw factors K(Z, Z) itself, through the draw_solve kernels
+    rhs = {k: v for k, v in launches.items() if not k.startswith("draw_solve")}
+    check(sum(rhs.values()) == 0, "a kernel launched on the 1-row VDP path")
+    check(launches["draw_solve_fwd"] > 0 and launches["draw_solve_bwd"] > 0,
+          "the VDP draw did not take the draw_solve kernels")
     return dict(step0_card=ld, step0_cpu=lc, loss_first=losses[0],
                 loss_last=losses[-1], steps_per_sec=sps, nfe=nfe, natt=natt,
                 ncov=terms.ncov, peak_bytes=peak), params, data
@@ -3224,6 +3239,161 @@ def draws_commit_phase(dev):
     return row, details
 
 
+# `draw_solve` shapes: (factors, M, right-hand columns a factor); the first
+# is the train step's (5 latents, 100 inducing points, one draw)
+DRAW_SOLVE_CASES = {"train": (5, 100, 1), "draws32": (5, 100, 32),
+                    "m128": (5, 128, 1)}
+
+
+def draw_solve_ops(b, m, r):
+    """(operations, bytes) of one `draw_solve` forward and backward launch:
+    forward the factorisation (M^3 / 3) and two vector solves (M^2 each a
+    column), K and u, v read once, L, a and nu written; backward two vector
+    solves a column, the rank-2R P (4 R M^2), the two M-column solves of
+    the Cholesky's VJP (M^3 each) and the symmetrisation, L, a, v and g_nu
+    read, g_K, g_u and g_v written."""
+    fwd = (b * (m ** 3 / 3.0 + 2 * r * m * m),
+           4 * b * (2 * m * m + 4 * r * m))
+    bwd = (b * (2 * r * m * m + 4 * r * m * m + 2 * m ** 3 + m * m),
+           4 * b * (2 * m * m + 6 * r * m))
+    return fwd, bwd
+
+
+def draw_solve_phase(dev):
+    """The posterior draw's `draw_solve` kernels at DRAW_SOLVE_CASES against
+    the float64 library chain (nu and its cotangents in K, u and v within
+    2e-3 of the largest entry, as the float32 chain), reruns bit-identical;
+    each kernel's device ms beside its bound, its plain version's (the
+    forward's library factor and solves in the kernels' layout,
+    `draw_solve_bwd_plain`) and the library chain's as the draw ran it
+    before (`library_ms`: its forward; for the backward, its forward and
+    backward less the forward); resources free of spills. Returns (the
+    kernel rows at the train shape, details by kernel)."""
+    phase("draw solve")
+    import ctypes
+
+    import torch
+    from gpode_tpu_torch.models import gp
+    from gpode_tpu_torch.ops import cuda_build
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.ops import math as om
+    from gpode_tpu_torch.ops.kernels import rbf_K
+
+    def chain(k3, u, v):
+        return gp.draw_solve_plain(k3, u.permute(1, 2, 0),
+                                   v.permute(1, 2, 0)).transpose(0, 1)
+
+    details = {"draw_solve_fwd": {"shapes": {}},
+               "draw_solve_bwd": {"shapes": {}}}
+    rows = {}
+    for label, (b, m, r) in DRAW_SOLVE_CASES.items():
+        gen = torch.Generator().manual_seed(11)
+        params = gp.init_svgp(gen, 5, b, m).to(dev)
+        k3 = rbf_K(params.kernel, params.z).detach().contiguous()
+        u, v, g = (torch.randn(b, r, m, generator=gen).to(dev)
+                   for _ in range(3))
+
+        def run(fn, dtype):
+            args = [t.to(dtype).requires_grad_() for t in (k3, u, v)]
+            nu = fn(*args)
+            return (nu.detach(),) + torch.autograd.grad(nu, args, g.to(dtype))
+
+        def kernels(k, uu, vv):
+            return ck._DrawSolveFn.apply(k, uu, vv, om.DEFAULT_JITTER)
+
+        got = run(kernels, torch.float32)
+        check(all(torch.equal(a, c) for a, c in zip(got, run(kernels,
+                                                             torch.float32))),
+              f"draw_solve reruns differ ({label})")
+        plain = run(chain, torch.float32)
+        exact = run(chain, torch.float64)
+        errs = {}
+        for name, kern, lib, ref in zip(("nu", "g_K", "g_u", "g_v"), got,
+                                        plain, exact):
+            scale = float(ref.abs().max())
+            errs[name] = (float((kern.double() - ref).abs().max()) / scale,
+                          float((lib.double() - ref).abs().max()) / scale)
+            check(errs[name][0] <= 2e-3,
+                  f"draw_solve {name} off the float64 chain by {errs[name][0]:.3e} "
+                  f"({label})")
+        L, a, nu = ck._draw_solve_fwd(k3, u, v, om.DEFAULT_JITTER)
+        gk, gu, gv = (torch.empty_like(t) for t in (L, a, a))
+        lib = ck._lib("draw_solve")
+        stream = ck._stream(dev)
+        ptrs_f = [ck._ptr(t) for t in (k3, u, v)]
+        outs_f = [ck._ptr(t) for t in (L, a, nu)]
+        ptrs_b = [ck._ptr(t) for t in (L, a, v, g, gk, gu, gv)]
+        jitter = ctypes.c_float(om.DEFAULT_JITTER)
+        fwd_ms = cuda_ms(lambda: lib.gpode_draw_solve_fwd(
+            *ptrs_f, jitter, *outs_f, b, m, r, stream))
+        bwd_ms = cuda_ms(lambda: lib.gpode_draw_solve_bwd(*ptrs_b, b, m, r,
+                                                          stream))
+
+        def plain_fwd():
+            lf = om.cholesky_jittered(k3)
+            af = om.solve_lower(lf, u.mT)
+            om.solve_upper_from_lower(lf, v.mT - af)
+
+        plain_fwd_ms = cuda_ms(plain_fwd)
+        plain_bwd_ms = cuda_ms(lambda: ck.draw_solve_bwd_plain(L, a, v, g))
+        # the library chain as `draw_posterior` ran it: u_prior and v
+        # (M, D) columns of one draw's noise, nu (D, M)
+        u_draw = u.permute(1, 2, 0).contiguous().requires_grad_()
+        v_draw = v.permute(1, 2, 0).contiguous().requires_grad_()
+        k_leaf = k3.clone().requires_grad_()
+        g_draw = g.transpose(0, 1).contiguous()
+
+        def library_fwd():
+            with torch.no_grad():
+                gp.draw_solve_plain(k_leaf, u_draw, v_draw)
+
+        def library_both():
+            out = gp.draw_solve_plain(k_leaf, u_draw, v_draw)
+            torch.autograd.grad(out, (k_leaf, u_draw, v_draw), g_draw)
+
+        lib_fwd_ms = cuda_ms(library_fwd)
+        lib_both_ms = cuda_ms(library_both)
+        (fo, fb), (bo, bb) = draw_solve_ops(b, m, r)
+        f_bms, f_by = bound(fo, fb)
+        b_bms, b_by = bound(bo, bb)
+        print(f"draw_solve ({label}: {b} factors, M={m}, R={r}): forward "
+              f"{fwd_ms:.4f} ms (plain {plain_fwd_ms:.4f}, library "
+              f"{lib_fwd_ms:.4f}, bound {f_bms:.6f} ({f_by})), backward "
+              f"{bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}, library "
+              f"{lib_both_ms - lib_fwd_ms:.4f} of {lib_both_ms:.4f} with its "
+              f"forward, bound {b_bms:.6f} ({b_by})); errors against float64 "
+              + ", ".join(f"{k} {e[0]:.2e} (chain {e[1]:.2e})"
+                          for k, e in errs.items()), flush=True)
+        for name, ms, pms, lms, bms, by in (
+                ("draw_solve_fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms, f_bms, f_by),
+                ("draw_solve_bwd", bwd_ms, plain_bwd_ms,
+                 lib_both_ms - lib_fwd_ms, b_bms, b_by)):
+            err = errs["nu"][0] if name.endswith("fwd") else max(
+                errs[k][0] for k in ("g_K", "g_u", "g_v"))
+            details[name]["shapes"][label] = dict(
+                factors=b, num_inducing=m, columns=r, ms=ms, plain_ms=pms,
+                library_ms=lms, bound_ms=bms, bound_by=by, max_rel_err=err)
+            if label == "train":
+                rows[name] = (err, ms, pms, bms, by)
+                details[name]["library_ms"] = lms
+    for direction in ("fwd", "bwd"):
+        for m, r in ((100, 1), (128, 32)):
+            rep = ck.draw_solve_occupancy(direction, m, r)
+            print(f"  draw_solve {direction} resources at M={m}, R={r}: "
+                  f"{rep['registers']} registers, {rep['threads']} threads, "
+                  f"{rep['smem_bytes']} B shared, {rep['blocks_per_sm']} "
+                  f"block(s) per SM, local {rep['local_bytes']} B, spill "
+                  f"{rep['spill_stores']} / {rep['spill_loads']} B")
+            check(rep["local_bytes"] == 0 and rep["spill_stores"] == 0
+                  and rep["spill_loads"] == 0,
+                  f"draw_solve {direction} spills at M={m}, R={r}")
+    built = cuda_build.kernel_resources("draw_solve")
+    check(len(built) == 2 and all(
+        rec["spill_stores"] == 0 and rec["spill_loads"] == 0
+        for rec in built.values()), "a draw_solve kernel spills")
+    return rows, details
+
+
 def eval_phase(dev, args, params):
     """The projected scorer of `scripts/bench_time_to_nll.py` on the port:
     EVAL_DRAWS posterior draws from the MoCap-09 test split's start states,
@@ -3328,6 +3498,8 @@ def main(argv=None) -> int:
     (kernels["dopri5_attempt_draws"], draws_details,
      predict_launches) = draws_attempt_phase(dev)
     kernels["draws_commit"], commit_details = draws_commit_phase(dev)
+    draw_rows, draw_details = draw_solve_phase(dev)
+    kernels.update(draw_rows)
     driver, driver_launches = driver_phase(evaluation["ll"])
     with tempfile.TemporaryDirectory() as tmp:
         experiments, exp_launches, exp_rk4_launches = experiments_phase(tmp)
@@ -3353,7 +3525,7 @@ def main(argv=None) -> int:
                      "experiments_rk4": exp_rk4_launches,
                      "scale": scale_launches, "adjoint": adjoint_launches,
                      "field": field_launches, "wide_ab": wide_ab_phase(),
-                     "predict": predict_launches}
+                     "predict": predict_launches, "draw": launches}
 
     phase("result")
     gemm_after = gemm_ms(dev)
@@ -3398,6 +3570,9 @@ def main(argv=None) -> int:
             row["shapes"] = draws_details
         if name == "draws_commit":
             row["shapes"] = commit_details
+        if name in draw_details:
+            row["library_ms"] = draw_details[name]["library_ms"]
+            row["shapes"] = draw_details[name]["shapes"]
         if name == "rbf_gram":
             row["launches_per_run"] = {"plots_grid_conditional":
                                        p7e["grid"][name], **{

@@ -55,9 +55,11 @@ class SolverConfig:
     where both directions of the kernel the solve would launch take the
     shape), False -> plain tensor path everywhere, True -> the kernels for
     any dimwise batch (the JAX `pallas` override; a shape the kernel refuses
-    raises ValueError). BDF always takes the plain rhs: its Newton Jacobian
-    is differentiated a second time in the backward, and the kernels'
-    autograd rules are first order."""
+    raises ValueError); the posterior draw's own-factor solves follow it
+    too (`gp.draw_posterior`: False keeps the library's, else the
+    `draw_solve` kernels where dtype and shape allow). BDF always takes the
+    plain rhs: its Newton Jacobian is differentiated a second time in the
+    backward, and the kernels' autograd rules are first order."""
 
     solver: str = "dopri5"
     rtol: float = 1e-6
@@ -563,5 +565,6 @@ def flow_forward_sampled(gp_params: gp.SVGPParams,
     takes it: no leading draw axis), then integrate from x0 over ts with
     `flow_forward`. Returns ((N, T, D), stats)."""
     draw = gp.draw_posterior(gp_params, weight_normals, freq_normals,
-                             phase_uniforms, inducing_normals, chol_zz)
+                             phase_uniforms, inducing_normals, chol_zz,
+                             kernels=cfg.kernels)
     return flow_forward(gp_params, draw, x0, ts, cfg)

@@ -27,7 +27,9 @@ import torch
 from torch import nn
 
 from gpode_tpu_torch.ops import math as om
-from gpode_tpu_torch.ops.cuda_kernels import fused_rhs, kernel_refusal, rbf_gram
+from gpode_tpu_torch.ops.cuda_kernels import (DRAW_SOLVES, draw_solve,
+                                              draw_solve_refusal, fused_rhs,
+                                              kernel_refusal, rbf_gram)
 from gpode_tpu_torch.ops.kernels import (RBFParams, init_rbf, rbf_K, rbf_K_diag,
                                          rbf_sample_freq)
 from gpode_tpu_torch.utils.profiling import span
@@ -117,6 +119,25 @@ def precompute_chol(params: SVGPParams,
     return om.cholesky_jittered(rbf_K(params.kernel, params.z), jitter)
 
 
+def draw_solves_on_factor(chol, u_prior, v):
+    """A draw's update coefficients on a given factor L of K(Z, Z),
+    nu = L^{-T}(v - L^{-1} u_prior), by the library's two triangular solves:
+    chol (D, M, M) for a dimwise GP (dim d's columns on factor d) or (M, M)
+    shared; u_prior and v (..., M, D); returns nu (..., D, M)."""
+    if chol.ndim == 3:
+        a = om.solve_lower(chol, u_prior.mT[..., None])         # (..., D, M, 1)
+        return om.solve_upper_from_lower(chol, v.mT[..., None] - a)[..., 0]
+    a = om.solve_lower(chol, u_prior)
+    return om.solve_upper_from_lower(chol, v - a).mT
+
+
+def draw_solve_plain(kzz, u_prior, v, jitter=om.DEFAULT_JITTER):
+    """`cuda_kernels.draw_solve` as the library chain, differentiated by
+    autograd: `cholesky_jittered` of kzz (D, M, M) or (M, M), then
+    :func:`draw_solves_on_factor`. The CPU path."""
+    return draw_solves_on_factor(om.cholesky_jittered(kzz, jitter), u_prior, v)
+
+
 def sample_inducing(params: SVGPParams, normals: torch.Tensor) -> torch.Tensor:
     """Reparameterized v ~ q(v) in whitened space from normals (..., M, D)."""
     if params.q_diag:
@@ -156,30 +177,36 @@ def rff_eval(params: SVGPParams, omega, phase, weights, x) -> torch.Tensor:
 def draw_posterior(params: SVGPParams, weight_normals: torch.Tensor,
                    freq_normals: torch.Tensor, phase_uniforms: torch.Tensor,
                    inducing_normals: torch.Tensor,
-                   chol_zz: Optional[torch.Tensor] = None) -> PosteriorDraw:
+                   chol_zz: Optional[torch.Tensor] = None,
+                   kernels: Optional[bool] = None) -> PosteriorDraw:
     """Build posterior function draws from their noise:
     weight_normals (..., S, D), freq_normals (..., Din, S, D) [dimwise] or
     (..., Din, S), phase_uniforms in [0, 1) of shape (..., 1, S, D)
     [dimwise] or (..., 1, S), inducing_normals (..., M, D). A leading draw
     axis gives that many draws sharing one Cholesky of K(Z, Z). The draw is
-    the span `gpode.draw`."""
+    the span `gpode.draw`.
+
+    Without `chol_zz` the draw factors K(Z, Z) itself: on a card, where
+    :func:`draw_solve_on_device` says so (`kernels` the solver's kernel
+    rule, `SolverConfig.kernels`: False keeps the library), the factor and
+    both solves are the `draw_solve` kernels; else the library chain. A
+    given `chol_zz` keeps the library's two solves on it. Each draw is
+    counted in `cuda_kernels.DRAW_SOLVES`."""
     with span("gpode.draw"):
         weights = weight_normals
         omega = rbf_sample_freq(params.kernel, freq_normals)
         phase = 2.0 * math.pi * phase_uniforms
         v = sample_inducing(params, inducing_normals)           # (..., M, D)
-        if chol_zz is None:
-            chol_zz = precompute_chol(params)
         u_prior = rff_eval(params, omega, phase, weights,
                            params.z)                            # (..., M, D)
-        if params.dimwise:
-            # (..., D, M, 1)
-            a = om.solve_lower(chol_zz, u_prior.mT[..., None])
-            nu = om.solve_upper_from_lower(chol_zz,
-                                           v.mT[..., None] - a)[..., 0]
+        if chol_zz is None:
+            kzz = rbf_K(params.kernel, params.z)
+            on_device = draw_solve_on_device(kzz, u_prior, kernels)
+            DRAW_SOLVES["device" if on_device else "library"] += 1
+            nu = (draw_solve if on_device else draw_solve_plain)(kzz, u_prior, v)
         else:
-            a = om.solve_lower(chol_zz, u_prior)
-            nu = om.solve_upper_from_lower(chol_zz, v - a).mT
+            DRAW_SOLVES["library"] += 1
+            nu = draw_solves_on_factor(chol_zz, u_prior, v)
         return PosteriorDraw(omega=omega, phase=phase, weights=weights, nu=nu)
 
 
@@ -213,6 +240,27 @@ def kernel_rhs_active(params: SVGPParams, n_rows: int, num_features: int,
         _REFUSALS_LOGGED.add(reason)
         _logger.warning("the %s kernels refuse this shape (%s): taking the "
                         "plain path", kernel, reason)
+    return False
+
+
+def draw_solve_on_device(kzz: torch.Tensor, u_prior: torch.Tensor,
+                         kernels: Optional[bool] = None) -> bool:
+    """Does a draw on its own factor of kzz = K(Z, Z), with prior values
+    u_prior (..., M, D), take the `draw_solve` kernels? Under a kernel rule
+    `kernels` other than False, a card's tensors in a dtype and shape both
+    kernels take (`cuda_kernels.draw_solve_refusal`: float32, M <= 128, the
+    R columns in shared memory): decided before any launch.
+    A refusal is logged once per reason and sends the draw to the library's
+    factorisation and solves."""
+    if kernels is False or kzz.device.type != "cuda":
+        return False
+    reason = draw_solve_refusal(kzz, u_prior)
+    if reason is None:
+        return True
+    if reason not in _REFUSALS_LOGGED:
+        _REFUSALS_LOGGED.add(reason)
+        _logger.warning("the draw_solve kernels refuse this draw (%s): taking "
+                        "the library's factorisation and solves", reason)
     return False
 
 

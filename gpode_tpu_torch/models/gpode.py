@@ -110,7 +110,8 @@ def elbo_loss(params: GPODEParams, noise: GPODEStepNoise, ys: torch.Tensor,
     """
     x0 = sample_initial_state(params.x0, noise.x0[None])[0]      # (N, D)
     draw = gp.draw_posterior(params.gp, noise.rff_weights, noise.rff_freq,
-                             noise.rff_phase, noise.inducing)
+                             noise.rff_phase, noise.inducing,
+                             kernels=cfg.kernels)
     xs, stats = flow_forward(params.gp, draw, x0, insert_zero_t0(ts), cfg)
     xs = xs[:, 1:]                                               # drop t=0
 

@@ -196,7 +196,8 @@ def elbo_loss(params: ShootingParams, noise: StepNoise, ys: torch.Tensor,
             has_next = (idx < t - 1).to(ss.dtype)                 # (K,)
             ss_next = ss.index_select(2, torch.clamp(idx + 1, max=t - 1))
     draw = gp.draw_posterior(params.gp, noise.rff_weights, noise.rff_freq,
-                             noise.rff_phase, noise.inducing)
+                             noise.rff_phase, noise.inducing,
+                             kernels=cfg.kernels)
     with span(SOLVE_RANGE):
         pred, stats = integrate_segments(params.gp, draw, ss_batch, ts[:2],
                                          cfg)

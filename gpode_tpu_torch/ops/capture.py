@@ -1,9 +1,10 @@
 """What the port's two kinds of captured CUDA graph share, the train
 step's (`train/graph_step.CapturedStep`) and the prediction solve's attempt
 (`models/flow.CapturedAttempt`): `WARMUP` eager calls, then the capture, on
-one side stream per card; and the launch count under capture
-(`cuda_kernels.LAUNCHES` counts wrapper calls and a replay makes none, so a
-capture's counted calls are taken back out and each replay adds them).
+one side stream per card; and the counts under capture
+(`cuda_kernels.LAUNCHES` counts wrapper calls and `DRAW_SOLVES` posterior
+draws, and a replay makes none, so a capture's counted calls are taken back
+out and each replay adds them).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Callable
 
 import torch
 
-from gpode_tpu_torch.ops.cuda_kernels import LAUNCHES
+from gpode_tpu_torch.ops.cuda_kernels import DRAW_SOLVES, LAUNCHES
 
 # eager calls on the capture stream before a capture (they build the
 # kernels and set up the libraries' per-stream state)
@@ -42,18 +43,26 @@ def on_capture_stream(device: torch.device):
     current.wait_stream(stream)
 
 
+# The counters a capture's calls add to and a replay does not, with disjoint
+# keys: the kernel launches by wrapper, the draws by solve route.
+_COUNTERS = (LAUNCHES, DRAW_SOLVES)
+
+
 def launch_counter() -> Callable[[], dict]:
     """Start counting a capture's launches. Returns `take`: the launches
-    counted since the start, by wrapper, taken back out of `LAUNCHES` (a
-    capture launches nothing), so that each call counts from the same start
-    (one call per graph of a split capture)."""
-    before = dict(LAUNCHES)
+    counted since the start, by wrapper (and the draws, by route), taken
+    back out of their counters (a capture launches nothing), so that each
+    call counts from the same start (one call per graph of a split
+    capture)."""
+    before = [dict(counter) for counter in _COUNTERS]
 
     def take() -> dict:
-        delta = {k: LAUNCHES[k] - n for k, n in before.items()
-                 if LAUNCHES[k] != n}
-        for name, n in delta.items():
-            LAUNCHES[name] -= n
+        delta = {}
+        for counter, start in zip(_COUNTERS, before):
+            for k, n in start.items():
+                if counter[k] != n:
+                    delta[k] = counter[k] - n
+                    counter[k] = n
         return delta
 
     return take
@@ -61,5 +70,5 @@ def launch_counter() -> Callable[[], dict]:
 
 def replay_launches(delta: dict):
     """Count a replay's launches: a graph's `take`."""
-    for name, n in delta.items():
-        LAUNCHES[name] += n
+    for k, n in delta.items():
+        (LAUNCHES if k in LAUNCHES else DRAW_SOLVES)[k] += n

@@ -21,7 +21,11 @@ Counterpart of `gpode_tpu/ops/pallas_kernels.py`:
   * :func:`draws_commit` — an accepted attempt's commit on the device: the
     cubic Hermite dense output of `ops/ode.odeint_dopri5` at the step's
     output times and the hand-over of its state (`csrc/dopri5_draws.cu`;
-    the captured attempt's last node). It replaces no Pallas kernel either.
+    the captured attempt's last node). It replaces no Pallas kernel either;
+  * :func:`draw_solve` — a posterior draw's update coefficients on its own
+    factor, nu = L^{-T}(v - L^{-1} u) with L = chol(K(Z,Z) + jitter I), and
+    their VJP in K, u and v (`csrc/draw_solve.cu`; `gp.draw_posterior`). It
+    replaces no Pallas kernel: XLA's Cholesky and triangular solves.
 
 The wide-layout rhs kernels (`csrc/fused_rhs_wide.cu`) are bound in
 `ops/wide_rhs.py` and share this module's counters and helpers.
@@ -60,6 +64,7 @@ import math
 import torch
 
 from gpode_tpu_torch.ops import cuda_build
+from gpode_tpu_torch.ops import math as om
 from gpode_tpu_torch.ops.kernels import _sqdist
 from gpode_tpu_torch.ops.ode import (_DP_A, _DP_B4, _DP_B5, _hermite,
                                      dopri5_attempt, max_rms_over_axis0)
@@ -69,7 +74,14 @@ LAUNCHES = {"fused_rhs_fwd": 0, "fused_rhs_bwd": 0,
             "fused_rk4_segment_fwd": 0, "fused_rk4_segment_bwd": 0,
             "rbf_gram": 0, "fused_rhs_wide_fwd": 0, "fused_rhs_wide2_fwd": 0,
             "fused_rhs_wide_bwd": 0, "dopri5_attempt_draws": 0,
-            "draws_commit": 0}
+            "draws_commit": 0, "draw_solve_fwd": 0, "draw_solve_bwd": 0}
+# Posterior draws (`gp.draw_posterior`) by where their update coefficients
+# were solved: "device", the `draw_solve` kernels on the draw's own factor
+# of K(Z, Z); "library", the library's factorisation and triangular solves
+# (a draw handed a factor, `kernels=False`, a shape or dtype the kernels
+# refuse, the CPU). One count a draw; its keys are none of `LAUNCHES`', and
+# a captured graph's replay counts its capture's (`ops/capture.py`).
+DRAW_SOLVES = {"device": 0, "library": 0}
 # (draws, N, Din, D, M, S) of every `dopri5_attempt_draws` launch (a captured
 # graph's replays repeat its capture's shape)
 DRAWS_ATTEMPT_SHAPES: set = set()
@@ -294,6 +306,9 @@ _SIGNATURES = {
         "gpode_dp_draws_attempt": [_P] * 4 + [_F] * 3 + [_P] * 11 + [_I] * 10 + [_P],
         "gpode_dp_draws_attempt_occupancy": [_I] * 8 + [_P],
         "gpode_dp_draws_commit": [_P] * 8 + [_I] * 2 + [_P]},
+    "draw_solve": {"gpode_draw_solve_fwd": [_P] * 3 + [_F] + [_P] * 3 + [_I] * 3 + [_P],
+                   "gpode_draw_solve_bwd": [_P] * 7 + [_I] * 3 + [_P],
+                   "gpode_draw_solve_occupancy": [_I] * 3 + [_P]},
 }
 _TYPED: set = set()
 
@@ -1124,6 +1139,184 @@ def draws_commit(ratio, scalars, taus, out, x, k1, x_new, k7):
 
 
 # ---------------------------------------------------------------------------
+# draw_solve
+# ---------------------------------------------------------------------------
+
+def draw_solve_bwd_plain(L, a, v, g_nu):
+    """The VJP that `draw_solve_bwd_kernel` computes, as tensor ops, in the
+    kernels' layout: L (B, M, M) the factor, a = L^{-1} u, v and the
+    cotangent g_nu (B, R, M). Returns (g_K (B, M, M), g_u, g_v (B, R, M)):
+
+        g_c = L^{-1} g_nu,  g_v = g_c,  g_u = -L^{-T} g_c,
+        P = tril(g_c a^T - c g_c^T),  c = v - a,
+        g_K = sym(L^{-T} (P + tril(P, -1)^T) / 2 L^{-1}).
+
+    P is tril(L^T g_L) for the two solves' cotangent of L, g_L =
+    tril(-nu g_c^T + L^{-T} g_c a^T), since L^T nu = c; g_K is then the
+    Cholesky's VJP as `torch.linalg.cholesky`'s backward forms it."""
+    gc = om.solve_lower(L, g_nu.mT)                              # (B, M, R)
+    gu = -om.solve_upper_from_lower(L, gc)
+    c = (v - a).mT
+    p = torch.tril(gc @ a - c @ gc.mT)
+    phi = 0.5 * (p + torch.tril(p, -1).mT)
+    w = om.solve_upper_from_lower(L, phi)
+    y = torch.linalg.solve_triangular(L, w, upper=False, left=False)
+    return 0.5 * (y + y.mT), gu.mT, gc.mT
+
+
+# Kernel limits (csrc/draw_solve.cu): a substitution's lane holds the rows
+# lane + 32 s of its columns, s < _DRAW_SOLVE_MAX_ROWS; each factor, its
+# columns and the backward's work tile lie in one block's shared memory.
+_DRAW_SOLVE_MAX_ROWS = 4
+DRAW_SOLVE_MAX_M = 32 * _DRAW_SOLVE_MAX_ROWS
+
+
+@dataclasses.dataclass(frozen=True)
+class DrawSolveGeometry:
+    fwd_smem_bytes: int
+    bwd_smem_bytes: int
+
+
+def draw_solve_geometry(b, m, r):
+    """The `draw_solve` kernels' shared memory for B factors of M x M with R
+    right-hand columns each; ValueError on a shape they do not take. Pure
+    arithmetic (the C launchers lay it out so)."""
+    if b < 1 or m < 1 or r < 1:
+        raise ValueError(f"draw_solve takes B, M, R >= 1, got B={b}, M={m}, "
+                         f"R={r}")
+    if m > DRAW_SOLVE_MAX_M:
+        raise ValueError(f"draw_solve takes M <= {DRAW_SOLVE_MAX_M} (a lane's "
+                         f"{_DRAW_SOLVE_MAX_ROWS} row slots of 32), got M={m}")
+    ld = m | 1
+    fwd = 4 * ((m + r) * ld + m)
+    bwd = 4 * (2 * m * ld + 3 * r * m + m)
+    _check_smem(max(fwd, bwd), f"draw_solve at M={m}, R={r}")
+    return DrawSolveGeometry(fwd, bwd)
+
+
+def _draw_solve_dims(kzz, u_prior):
+    """(B factors, M, R columns a factor) of a draw on kzz: (D, M, M), dim
+    d's column of each draw on factor d, or (M, M), every draw's D columns
+    on one factor."""
+    m, d = u_prior.shape[-2:]
+    draws = math.prod(u_prior.shape[:-2])
+    if kzz.ndim == 3:
+        return kzz.shape[0], m, draws
+    return 1, m, draws * d
+
+
+def draw_solve_refusal(kzz, u_prior):
+    """Why the `draw_solve` kernels would not take a draw on kzz with prior
+    values u_prior (..., M, D) — a dtype other than float32, or the
+    ValueError of :func:`draw_solve_geometry` — or None when they take it."""
+    for t in (kzz, u_prior):
+        if t.dtype != torch.float32:
+            return f"{t.dtype}: the kernels take float32"
+    try:
+        draw_solve_geometry(*_draw_solve_dims(kzz, u_prior))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _to_columns(kzz, t):
+    """(..., M, D) -> the kernels' (B, R, M), contiguous."""
+    m, d = t.shape[-2:]
+    cols = t.reshape(-1, m, d).mT                                 # (S, D, M)
+    if kzz.ndim == 3:
+        return cols.transpose(0, 1).contiguous()                  # (D, S, M)
+    return cols.reshape(1, -1, m).contiguous()                    # (1, S D, M)
+
+
+def _from_columns(kzz, nu, lead, d):
+    """The kernels' (B, R, M) -> (*lead, D, M)."""
+    if kzz.ndim == 3:
+        nu = nu.transpose(0, 1)
+    return nu.reshape(*lead, d, nu.shape[-1])
+
+
+def _check_draw_solve(kzz, u_prior, v):
+    """Operand checks of `draw_solve`: float32 on one card, u_prior and v
+    (..., M, D) of one shape, kzz (D, M, M) or (M, M), and a shape the
+    kernels take."""
+    if kzz.device.type != "cuda":
+        raise ValueError(f"draw_solve runs on a card, got kzz on {kzz.device}"
+                         f" (the CPU path is `gp.draw_solve_plain`)")
+    for name, t in dict(u_prior=u_prior, v=v).items():
+        if t.device != kzz.device:
+            raise ValueError(f"{name} is on {t.device}, kzz on {kzz.device}")
+        if t.dtype != torch.float32 or kzz.dtype != torch.float32:
+            raise TypeError(f"draw_solve takes float32, got kzz {kzz.dtype}, "
+                            f"{name} {t.dtype}")
+    if u_prior.ndim < 2 or v.shape != u_prior.shape:
+        raise ValueError(f"u_prior and v must be (..., M, D) of one shape, got "
+                         f"{tuple(u_prior.shape)} and {tuple(v.shape)}")
+    m, d = u_prior.shape[-2:]
+    if tuple(kzz.shape) not in ((d, m, m), (m, m)):
+        raise ValueError(f"kzz must be ({d}, {m}, {m}) or ({m}, {m}), got "
+                         f"{tuple(kzz.shape)}")
+    draw_solve_geometry(*_draw_solve_dims(kzz, u_prior))
+
+
+def _draw_solve_fwd(k3, u, v, jitter):
+    """(L, a, nu) of the forward kernel, in the kernels' layout."""
+    b, m, _ = k3.shape
+    L = torch.empty_like(k3)
+    a, nu = torch.empty_like(u), torch.empty_like(u)
+    LAUNCHES["draw_solve_fwd"] += 1
+    rc = _lib("draw_solve").gpode_draw_solve_fwd(
+        _ptr(k3), _ptr(u), _ptr(v), ctypes.c_float(jitter), _ptr(L), _ptr(a),
+        _ptr(nu), b, m, u.shape[1], _stream(k3.device))
+    _raise_on(rc, "draw_solve forward")
+    return L, a, nu
+
+
+class _DrawSolveFn(torch.autograd.Function):
+    """nu (B, R, M) of K (B, M, M), u and v (B, R, M) on the card,
+    differentiable in all three: both kernels."""
+
+    @staticmethod
+    def forward(ctx, k3, u, v, jitter):
+        L, a, nu = _draw_solve_fwd(k3, u, v, jitter)
+        ctx.save_for_backward(L, a, v)
+        return nu
+
+    @staticmethod
+    @first_order_only
+    def backward(ctx, g_nu):
+        L, a, v = ctx.saved_tensors
+        g_nu = g_nu.contiguous()
+        g_k = torch.empty_like(L)
+        g_u, g_v = torch.empty_like(a), torch.empty_like(a)
+        LAUNCHES["draw_solve_bwd"] += 1
+        rc = _lib("draw_solve").gpode_draw_solve_bwd(
+            *map(_ptr, (L, a, v, g_nu, g_k, g_u, g_v)), L.shape[0], L.shape[1],
+            a.shape[1], _stream(L.device))
+        _raise_on(rc, "draw_solve backward")
+        return g_k, g_u, g_v, None
+
+
+def draw_solve(kzz, u_prior, v, jitter=om.DEFAULT_JITTER):
+    """A draw's update coefficients on its own factor of kzz = K(Z, Z):
+    nu = L^{-T}(v - L^{-1} u_prior), L = chol(kzz + jitter I), for kzz
+    (D, M, M) (dimwise: factor d takes dim d's column of every draw) or
+    (M, M) (shared: one factor takes all of them) and u_prior, v
+    (..., M, D) with any leading draw axes; returns nu (..., D, M),
+    differentiable in kzz, u_prior and v.
+
+    It launches `draw_solve_fwd` and, for a gradient, `draw_solve_bwd`
+    (one launch each on the current stream, counted in `LAUNCHES`), or
+    raises on operands the kernels do not take (`draw_solve_refusal`; CPU
+    tensors: the library chain, `gp.draw_solve_plain`, is their path). A
+    non-positive pivot gives non-finite entries, as `cholesky_ex` does."""
+    _check_draw_solve(kzz, u_prior, v)
+    k3 = (kzz if kzz.ndim == 3 else kzz[None]).contiguous()
+    nu = _DrawSolveFn.apply(k3, _to_columns(kzz, u_prior), _to_columns(kzz, v),
+                            float(jitter))
+    return _from_columns(kzz, nu, u_prior.shape[:-2], u_prior.shape[-1])
+
+
+# ---------------------------------------------------------------------------
 # What a kernel holds on the card
 # ---------------------------------------------------------------------------
 
@@ -1169,6 +1362,8 @@ SEGMENT_KERNELS = {
 # (dp, rt, maxt)'s mangled name holds `variant_key(kernel, dp, rt, maxt)`
 DRAWS_KERNEL = ("dopri5_draws", "draws_attempt_kernel",
                 "gpode_dp_draws_attempt_occupancy")
+# (library, occupancy query) of the `draw_solve` kernels
+DRAW_SOLVE_KERNEL = ("draw_solve", "gpode_draw_solve_occupancy")
 # the (dp, rt, maxt) variants each kernel instantiates
 RHS_VARIANTS = {"fwd": _RHS_FWD_VARIANTS, "bwd": _RHS_BWD_VARIANTS}
 SEGMENT_VARIANTS = {("fwd", st): _SEG_FWD_VARIANTS[st] for st in (6, 4)}
@@ -1201,6 +1396,20 @@ def draws_attempt_occupancy(din, d, m, s, geo):
     """`kernel_occupancy` of the `dopri5_attempt_draws` kernel at geometry
     `geo`."""
     return _tile_occupancy(*DRAWS_KERNEL, din, d, m, s, geo)
+
+
+def draw_solve_occupancy(direction, m, r):
+    """`kernel_occupancy` of the `draw_solve` forward (`direction="fwd"`) or
+    backward ("bwd") kernel at M and R columns a factor."""
+    geo = draw_solve_geometry(1, m, r)
+    report = kernel_occupancy(*DRAW_SOLVE_KERNEL, f"draw_solve_{direction}_kernel",
+                              int(direction == "bwd"), m, r)
+    want = geo.bwd_smem_bytes if direction == "bwd" else geo.fwd_smem_bytes
+    if report["smem_bytes"] != want:
+        raise RuntimeError(f"draw_solve {direction} takes "
+                           f"{report['smem_bytes']} bytes of shared memory, "
+                           f"the geometry says {want}")
+    return report
 
 
 def segment_occupancy(direction, stages, din, d, m, s, geo):

@@ -496,10 +496,13 @@ def test_fused_rhs_refuses_before_any_launch(cuda, din, d, m, s, match):
 @pytest.mark.parametrize("preset", ["official", "fast"])
 def test_wide_shooting_step_takes_the_plain_path(cuda, preset, dim):
     """A shooting step at D = 12 (the segment backwards' shared memory) and
-    D = 17 (every kernel's width) over 4 x 32 x 5 = 640 segment rows: the
-    auto rule takes the plain path (no launch, no ValueError), so the step-0
-    loss equals kernels=False and a train step runs; forcing the kernels
-    raises ValueError before any launch."""
+    D = 17 (every kernel's width) over 4 x 32 x 5 = 640 segment rows:
+    kernels=False launches nothing; the auto rule takes the plain segment
+    path (no segment or rhs launch, no ValueError), so the step-0 loss
+    equals kernels=False and a train step runs, and only the draw's
+    `draw_solve` kernels launch (the draw factors K(Z, Z) itself at every
+    width); forcing the kernels raises ValueError before any segment
+    launch."""
     from gpode_tpu_torch.models.shooting import sample_step_noise
     from gpode_tpu_torch.train.bench_setup import preset_model_args
     from gpode_tpu_torch.train.builders import build_shooting, shooting_loss_fn
@@ -513,18 +516,26 @@ def test_wide_shooting_step_takes_the_plain_path(cuda, preset, dim):
     ts = 0.01 * torch.arange(33, dtype=torch.float32, device=cuda)
     noise = sample_step_noise(params, args.num_features, args.num_samples,
                               torch.Generator(cuda).manual_seed(41))
+
+    def launched(since):
+        return {k: n - since[k] for k, n in ck.LAUNCHES.items()
+                if n != since[k]}
+
     before = dict(ck.LAUNCHES)
     with torch.no_grad():
-        loss = float(shooting_loss_fn(args)(params, noise, ys_t, ts)[0])
         plain = float(shooting_loss_fn(args, kernels=False)(params, noise, ys_t, ts)[0])
+    assert ck.LAUNCHES == before
+    with torch.no_grad():
+        loss = float(shooting_loss_fn(args)(params, noise, ys_t, ts)[0])
     assert np.isfinite(loss) and abs(loss - plain) <= 1e-4 * abs(plain)
     step = make_train_step(shooting_loss_fn(args), params,
                            default_optimizer(params, 5e-3))
     assert np.isfinite(float(step(noise, ys_t, ts).loss))
-    assert ck.LAUNCHES == before
+    assert launched(before) == {"draw_solve_fwd": 2, "draw_solve_bwd": 1}
+    before = dict(ck.LAUNCHES)
     with pytest.raises(ValueError):
         shooting_loss_fn(args, kernels=True)(params, noise, ys_t, ts)
-    assert ck.LAUNCHES == before
+    assert set(launched(before)) <= {"draw_solve_fwd"}
 
 
 def _segment_forward(kind, args, dt, substeps):
@@ -1178,3 +1189,170 @@ def test_the_device_commit_equals_the_host_dense_output(cuda, monkeypatch,
         assert st.num_attempted > st.num_accepted
     if case == "max_steps":
         assert st.num_covered < grid.shape[0]
+
+
+# the posterior draw's own-factor solves (`cuda_kernels.draw_solve`):
+# (factors, M, right-hand columns a factor): the train step's D=5 factors of
+# M=100 at one draw, at 32 and at the most columns M=100 takes (126), and
+# the largest M the kernels take
+DRAW_SOLVE_SHAPES = {"main_R1": (DIM, M, 1), "main_R32": (DIM, M, 32),
+                     "main_R126": (2, M, 126), "m128_R1": (DIM, 128, 1),
+                     "m128_R32": (2, 128, 32)}
+
+
+def _draw_solve_operands(cuda, b, m, r, seed=0):
+    """K(Z, Z) of an initialised dimwise GP with b output dims and Z in
+    5-D, u, v and a cotangent (b, r, m)."""
+    from gpode_tpu_torch.models import gp
+    from gpode_tpu_torch.ops.kernels import rbf_K
+
+    gen = torch.Generator().manual_seed(seed)
+    params = gp.init_svgp(gen, DIM, b, m).to(cuda)
+    k3 = rbf_K(params.kernel, params.z).detach()
+    u, v, g = (torch.randn(b, r, m, generator=gen).to(cuda) for _ in range(3))
+    return k3, u, v, g
+
+
+def _draw_solve_chain(k3, u, v):
+    """`draw_solve_plain` (the library chain) on the kernels' layout: factor
+    b's columns (B, R, M) are dim b of R draws."""
+    from gpode_tpu_torch.models import gp
+
+    return gp.draw_solve_plain(k3, u.permute(1, 2, 0),
+                               v.permute(1, 2, 0)).transpose(0, 1)
+
+
+@pytest.mark.parametrize("shape", list(DRAW_SOLVE_SHAPES))
+def test_draw_solve_kernels_match_plain(cuda, shape):
+    """`draw_solve_fwd` and `draw_solve_bwd` (one launch each) against the
+    plain versions: nu and its cotangents in K, u and v within 2e-3 of the
+    float64 library chain's largest entry, as the float32 chain is (up to
+    7.6e-4 at M=128); the kernels' backward against `draw_solve_bwd_plain`
+    on the kernels' own factor; a rerun bit-identical."""
+    b, m, r = DRAW_SOLVE_SHAPES[shape]
+    k3, u, v, g = _draw_solve_operands(cuda, b, m, r)
+
+    def run(fn, dtype):
+        args = [t.to(dtype).requires_grad_() for t in (k3, u, v)]
+        nu = fn(*args)
+        return (nu.detach(),) + torch.autograd.grad(nu, args, g.to(dtype))
+
+    def kernels(k, uu, vv):
+        return ck._DrawSolveFn.apply(k, uu, vv, 1e-5)
+
+    before = dict(ck.LAUNCHES)
+    got = run(kernels, torch.float32)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["draw_solve_fwd"] - before["draw_solve_fwd"] == 1
+    assert ck.LAUNCHES["draw_solve_bwd"] - before["draw_solve_bwd"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, run(kernels,
+                                                          torch.float32)))
+    plain = run(_draw_solve_chain, torch.float32)
+    exact = run(_draw_solve_chain, torch.float64)
+    for name, kern, chain, ref in zip(("nu", "g_K", "g_u", "g_v"), got, plain,
+                                      exact):
+        scale = float(ref.abs().max())
+        err = float((kern.double() - ref).abs().max()) / scale
+        chain_err = float((chain.double() - ref).abs().max()) / scale
+        assert err <= 2e-3 and chain_err <= 2e-3, (name, err, chain_err)
+    L, a, _ = ck._draw_solve_fwd(k3, u, v, 1e-5)
+    want = ck.draw_solve_bwd_plain(L, a, v, g)
+    for name, kern, ref in zip(("g_K", "g_u", "g_v"), got[1:], want):
+        _assert_close(kern, ref, f"draw_solve_bwd {name}", fwd=False)
+
+
+def test_draw_solve_compiles_without_spills(cuda):
+    """Both kernels free of spills and of local memory at M=100 (R=1) and
+    M=128 (R=32)."""
+    from gpode_tpu_torch.ops import cuda_build
+
+    found = cuda_build.kernel_resources("draw_solve")
+    assert len(found) == 2   # forward and backward
+    for rec in found.values():
+        assert rec["spill_stores"] == 0 and rec["spill_loads"] == 0
+    for direction in ("fwd", "bwd"):
+        for m, r in ((M, 1), (128, 32)):
+            report = ck.draw_solve_occupancy(direction, m, r)
+            assert report["local_bytes"] == 0 and report["blocks_per_sm"] >= 1
+
+
+def test_draw_solve_raises_instead_of_falling_back(cuda):
+    """On the card the wrapper launches or raises: M=256, float64 and a
+    wrong K shape raise before any launch."""
+    before = dict(ck.LAUNCHES)
+    u = torch.zeros(3, 256, DIM, device=cuda)
+    with pytest.raises(ValueError, match="M <= 128"):
+        ck.draw_solve(torch.eye(256, device=cuda).expand(DIM, -1, -1), u, u)
+    u = torch.zeros(M, DIM, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        ck.draw_solve(torch.eye(M, device=cuda, dtype=torch.float64), u, u)
+    u = torch.zeros(M, DIM, device=cuda)
+    with pytest.raises(ValueError, match="kzz must be"):
+        ck.draw_solve(torch.eye(M + 1, device=cuda), u, u)
+    assert ck.LAUNCHES == before
+
+
+def test_captured_step_draws_through_the_kernels_bit_equal_to_eager(cuda):
+    """The official captured step against the eager step, 10 steps from one
+    start and noise: one `draw_solve_fwd` and one `draw_solve_bwd` a step
+    in both runs, every draw counted "device", and losses and parameters
+    bit for bit."""
+    from gpode_tpu_torch.models.shooting import sample_step_noise
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
+    from gpode_tpu_torch.train.builders import shooting_loss_fn
+    from gpode_tpu_torch.train.graph_step import make_captured_train_step
+    from gpode_tpu_torch.train.trainer import default_optimizer, make_train_step
+
+    args, params, ys, ts = build_bench_problem(preset_model_args("official"),
+                                               device=cuda)
+    runs = []
+    for make in (make_train_step, make_captured_train_step):
+        p = copy.deepcopy(params)
+        step = make(shooting_loss_fn(args), p, default_optimizer(p, 5e-3))
+        gen = torch.Generator(cuda).manual_seed(5)
+        launches, draws = dict(ck.LAUNCHES), dict(ck.DRAW_SOLVES)
+        losses = torch.stack([step(sample_step_noise(
+            p, args.num_features, args.num_samples, gen), ys, ts).loss.detach()
+            for _ in range(10)])
+        torch.cuda.synchronize()
+        for k in ("draw_solve_fwd", "draw_solve_bwd"):
+            assert ck.LAUNCHES[k] - launches[k] == 10, k
+        assert ck.DRAW_SOLVES == {"device": draws["device"] + 10,
+                                  "library": draws["library"]}
+        runs.append((losses, p))
+    (le, pe), (lc, pc) = runs
+    assert torch.equal(lc, le)
+    for a, b in zip(pc.parameters(), pe.parameters()):
+        assert torch.equal(a.detach(), b.detach())
+
+
+def test_prediction_and_refused_draws_keep_the_library_solves(cuda):
+    """`gpode.predict` hands the draw its factor: no `draw_solve` launch, the
+    draw counted "library"; a draw at M=256 (refused) and one at the main
+    path's shape under kernels=False the same."""
+    from gpode_tpu_torch.models import flow, gp, gpode
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
+
+    _, params, _, ts = build_bench_problem(preset_model_args("official"),
+                                           device=cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+    noise = gpode.sample_draw_noise(params.gp, 256, 4, gen)
+    x0 = params.states.mean.detach().reshape(-1, DIM)[:2]
+    launches, draws = dict(ck.LAUNCHES), dict(ck.DRAW_SOLVES)
+    with torch.no_grad():
+        gpode.predict(params, noise, ts[:5], flow.SolverConfig(solver="dopri5"),
+                      x0=x0)
+        big = gp.init_svgp(torch.Generator().manual_seed(0), DIM, DIM,
+                           256).to(cuda)
+        big_noise = gpode.sample_draw_noise(big, 16, 2, gen)
+        gp.draw_posterior(big, big_noise.rff_weights, big_noise.rff_freq,
+                          big_noise.rff_phase, big_noise.inducing)
+        gp.draw_posterior(params.gp, noise.rff_weights[0], noise.rff_freq[0],
+                          noise.rff_phase[0], noise.inducing[0], kernels=False)
+    torch.cuda.synchronize()
+    for k in ("draw_solve_fwd", "draw_solve_bwd"):
+        assert ck.LAUNCHES[k] == launches[k], k
+    assert ck.DRAW_SOLVES == {"device": draws["device"],
+                              "library": draws["library"] + 3}
