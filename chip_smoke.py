@@ -254,6 +254,7 @@ import time
 # (one operation per flop or transcendental)
 from benchmark.opcounts import (bound_s, gram_ops, param_floats, rhs_ops,
                                 vjp_ops)
+from benchmark.opcounts_draw import draw_solve_bwd, draw_solve_fwd
 from benchmark.opcounts_eval import dp_attempt_draws
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3240,35 +3241,32 @@ def draws_commit_phase(dev):
 
 
 # `draw_solve` shapes: (factors, M, right-hand columns a factor); the first
-# is the train step's (5 latents, 100 inducing points, one draw)
+# is the train step's (5 latents, 100 inducing points, one draw), "m256" the
+# `scale` step's (256 inducing points: the packed layout)
 DRAW_SOLVE_CASES = {"train": (5, 100, 1), "draws32": (5, 100, 32),
-                    "m128": (5, 128, 1)}
-
-
-def draw_solve_ops(b, m, r):
-    """(operations, bytes) of one `draw_solve` forward and backward launch:
-    forward the factorisation (M^3 / 3) and two vector solves (M^2 each a
-    column), K and u, v read once, L, a and nu written; backward two vector
-    solves a column, the rank-2R P (4 R M^2), the two M-column solves of
-    the Cholesky's VJP (M^3 each) and the symmetrisation, L, a, v and g_nu
-    read, g_K, g_u and g_v written."""
-    fwd = (b * (m ** 3 / 3.0 + 2 * r * m * m),
-           4 * b * (2 * m * m + 4 * r * m))
-    bwd = (b * (2 * r * m * m + 4 * r * m * m + 2 * m ** 3 + m * m),
-           4 * b * (2 * m * m + 6 * r * m))
-    return fwd, bwd
+                    "m128": (5, 128, 1), "m256": (5, 256, 1)}
+# forward + backward ms at "m256" that the packed kernels aim under
+DRAW_SOLVE_M256_TARGET_MS = 0.30
+# (direction, M, R) whose resources the phase reads: every kernel of both
+# layouts, at one column and at the most columns its layout takes at M
+DRAW_SOLVE_RESOURCES = [(d, 100, 1) for d in ("fwd", "bwd")] + [
+    (d, 128, 32) for d in ("fwd", "bwd")] + [
+    (d, 256, r) for d in ("fwd", "bwd_cols", "bwd_rows", "bwd_sym")
+    for r in (1, 32)]
 
 
 def draw_solve_phase(dev):
     """The posterior draw's `draw_solve` kernels at DRAW_SOLVE_CASES against
     the float64 library chain (nu and its cotangents in K, u and v within
     2e-3 of the largest entry, as the float32 chain), reruns bit-identical;
-    each kernel's device ms beside its bound, its plain version's (the
-    forward's library factor and solves in the kernels' layout,
-    `draw_solve_bwd_plain`) and the library chain's as the draw ran it
-    before (`library_ms`: its forward; for the backward, its forward and
-    backward less the forward); resources free of spills. Returns (the
-    kernel rows at the train shape, details by kernel)."""
+    each kernel's device ms beside its bound (`benchmark/opcounts_draw.py`),
+    its plain version's (the forward's library factor and solves in the
+    kernels' layout, `draw_solve_bwd_plain`) and the library chain's as the
+    draw ran it before (`library_ms`: its forward; for the backward, its
+    forward and backward less the forward), at "m256" (the packed layout,
+    its backward three launches) beside DRAW_SOLVE_M256_TARGET_MS;
+    resources free of spills. Returns (the kernel rows at the train shape,
+    details by kernel)."""
     phase("draw solve")
     import ctypes
 
@@ -3317,17 +3315,23 @@ def draw_solve_phase(dev):
                   f"draw_solve {name} off the float64 chain by {errs[name][0]:.3e} "
                   f"({label})")
         L, a, nu = ck._draw_solve_fwd(k3, u, v, om.DEFAULT_JITTER)
-        gk, gu, gv = (torch.empty_like(t) for t in (L, a, a))
+        gk, gu, gv, work = (torch.empty_like(t) for t in (L, a, a, L))
         lib = ck._lib("draw_solve")
         stream = ck._stream(dev)
         ptrs_f = [ck._ptr(t) for t in (k3, u, v)]
         outs_f = [ck._ptr(t) for t in (L, a, nu)]
-        ptrs_b = [ck._ptr(t) for t in (L, a, v, g, gk, gu, gv)]
         jitter = ctypes.c_float(om.DEFAULT_JITTER)
         fwd_ms = cuda_ms(lambda: lib.gpode_draw_solve_fwd(
             *ptrs_f, jitter, *outs_f, b, m, r, stream))
-        bwd_ms = cuda_ms(lambda: lib.gpode_draw_solve_bwd(*ptrs_b, b, m, r,
-                                                          stream))
+        packed = ck.draw_solve_geometry(b, m, r).layout == "packed"
+        if packed:
+            ptrs_b = [ck._ptr(t) for t in (L, a, v, g, work, gk, gu, gv)]
+            bwd_ms = cuda_ms(lambda: lib.gpode_draw_solve_bwd_slabs(
+                *ptrs_b, b, m, r, stream))
+        else:
+            ptrs_b = [ck._ptr(t) for t in (L, a, v, g, gk, gu, gv)]
+            bwd_ms = cuda_ms(lambda: lib.gpode_draw_solve_bwd(*ptrs_b, b, m, r,
+                                                              stream))
 
         def plain_fwd():
             lf = om.cholesky_jittered(k3)
@@ -3335,7 +3339,9 @@ def draw_solve_phase(dev):
             om.solve_upper_from_lower(lf, v.mT - af)
 
         plain_fwd_ms = cuda_ms(plain_fwd)
-        plain_bwd_ms = cuda_ms(lambda: ck.draw_solve_bwd_plain(L, a, v, g))
+        slab = ck._DRAW_SOLVE_SLAB_COLS if packed else None
+        plain_bwd_ms = cuda_ms(lambda: ck.draw_solve_bwd_plain(L, a, v, g,
+                                                               slab=slab))
         # the library chain as `draw_posterior` ran it: u_prior and v
         # (M, D) columns of one draw's noise, nu (D, M)
         u_draw = u.permute(1, 2, 0).contiguous().requires_grad_()
@@ -3353,7 +3359,7 @@ def draw_solve_phase(dev):
 
         lib_fwd_ms = cuda_ms(library_fwd)
         lib_both_ms = cuda_ms(library_both)
-        (fo, fb), (bo, bb) = draw_solve_ops(b, m, r)
+        (fo, fb), (bo, bb) = draw_solve_fwd(b, m, r), draw_solve_bwd(b, m, r)
         f_bms, f_by = bound(fo, fb)
         b_bms, b_by = bound(bo, bb)
         print(f"draw_solve ({label}: {b} factors, M={m}, R={r}): forward "
@@ -3376,19 +3382,27 @@ def draw_solve_phase(dev):
             if label == "train":
                 rows[name] = (err, ms, pms, bms, by)
                 details[name]["library_ms"] = lms
-    for direction in ("fwd", "bwd"):
-        for m, r in ((100, 1), (128, 32)):
-            rep = ck.draw_solve_occupancy(direction, m, r)
-            print(f"  draw_solve {direction} resources at M={m}, R={r}: "
-                  f"{rep['registers']} registers, {rep['threads']} threads, "
-                  f"{rep['smem_bytes']} B shared, {rep['blocks_per_sm']} "
-                  f"block(s) per SM, local {rep['local_bytes']} B, spill "
-                  f"{rep['spill_stores']} / {rep['spill_loads']} B")
-            check(rep["local_bytes"] == 0 and rep["spill_stores"] == 0
-                  and rep["spill_loads"] == 0,
-                  f"draw_solve {direction} spills at M={m}, R={r}")
+        if label == "m256":
+            both = fwd_ms + bwd_ms
+            print(f"draw_solve m256: forward + backward {both:.4f} ms against "
+                  f"the library chain's {lib_both_ms:.4f} ms (target "
+                  f"{DRAW_SOLVE_M256_TARGET_MS} ms: "
+                  f"{'met' if both <= DRAW_SOLVE_M256_TARGET_MS else 'NOT met'})",
+                  flush=True)
+            details["m256_both_ms"] = both
+            details["m256_library_ms"] = lib_both_ms
+    for direction, m, r in DRAW_SOLVE_RESOURCES:
+        rep = ck.draw_solve_occupancy(direction, m, r)
+        print(f"  draw_solve {direction} resources at M={m}, R={r}: "
+              f"{rep['registers']} registers, {rep['threads']} threads, "
+              f"{rep['smem_bytes']} B shared, {rep['blocks_per_sm']} "
+              f"block(s) per SM, local {rep['local_bytes']} B, spill "
+              f"{rep['spill_stores']} / {rep['spill_loads']} B")
+        check(rep["local_bytes"] == 0 and rep["spill_stores"] == 0
+              and rep["spill_loads"] == 0,
+              f"draw_solve {direction} spills at M={m}, R={r}")
     built = cuda_build.kernel_resources("draw_solve")
-    check(len(built) == 2 and all(
+    check(len(built) == len(ck.DRAW_SOLVE_KERNELS) and all(
         rec["spill_stores"] == 0 and rec["spill_loads"] == 0
         for rec in built.values()), "a draw_solve kernel spills")
     return rows, details

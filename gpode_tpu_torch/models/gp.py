@@ -248,7 +248,7 @@ def draw_solve_on_device(kzz: torch.Tensor, u_prior: torch.Tensor,
     """Does a draw on its own factor of kzz = K(Z, Z), with prior values
     u_prior (..., M, D), take the `draw_solve` kernels? Under a kernel rule
     `kernels` other than False, a card's tensors in a dtype and shape both
-    kernels take (`cuda_kernels.draw_solve_refusal`: float32, M <= 128, the
+    kernels take (`cuda_kernels.draw_solve_refusal`: float32, M <= 256, the
     R columns in shared memory): decided before any launch.
     A refusal is logged once per reason and sends the draw to the library's
     factorisation and solves."""

@@ -24,8 +24,9 @@ Counterpart of `gpode_tpu/ops/pallas_kernels.py`:
     the captured attempt's last node). It replaces no Pallas kernel either;
   * :func:`draw_solve` — a posterior draw's update coefficients on its own
     factor, nu = L^{-T}(v - L^{-1} u) with L = chol(K(Z,Z) + jitter I), and
-    their VJP in K, u and v (`csrc/draw_solve.cu`; `gp.draw_posterior`). It
-    replaces no Pallas kernel: XLA's Cholesky and triangular solves.
+    their VJP in K, u and v (`csrc/draw_solve.cu`; `gp.draw_posterior`), at
+    M <= 256: a square factor a block up to M = 128, a packed triangle past
+    it. It replaces no Pallas kernel: XLA's Cholesky and triangular solves.
 
 The wide-layout rhs kernels (`csrc/fused_rhs_wide.cu`) are bound in
 `ops/wide_rhs.py` and share this module's counters and helpers.
@@ -74,7 +75,8 @@ LAUNCHES = {"fused_rhs_fwd": 0, "fused_rhs_bwd": 0,
             "fused_rk4_segment_fwd": 0, "fused_rk4_segment_bwd": 0,
             "rbf_gram": 0, "fused_rhs_wide_fwd": 0, "fused_rhs_wide2_fwd": 0,
             "fused_rhs_wide_bwd": 0, "dopri5_attempt_draws": 0,
-            "draws_commit": 0, "draw_solve_fwd": 0, "draw_solve_bwd": 0}
+            "draws_commit": 0, "draw_solve_fwd": 0, "draw_solve_bwd": 0,
+            "draw_solve_fwd_packed": 0, "draw_solve_bwd_slabs": 0}
 # Posterior draws (`gp.draw_posterior`) by where their update coefficients
 # were solved: "device", the `draw_solve` kernels on the draw's own factor
 # of K(Z, Z); "library", the library's factorisation and triangular solves
@@ -85,6 +87,9 @@ DRAW_SOLVES = {"device": 0, "library": 0}
 # (draws, N, Din, D, M, S) of every `dopri5_attempt_draws` launch (a captured
 # graph's replays repeat its capture's shape)
 DRAWS_ATTEMPT_SHAPES: set = set()
+# (B factors, M, R columns a factor) of every `draw_solve` forward launch
+# (and so of its backward; a captured graph's replays repeat its capture's)
+DRAW_SOLVE_SHAPES: set = set()
 
 # Kernel limits (csrc/rhs_tile.cuh): Din unrolled up to 16 in registers; a
 # block holds at least one warp per output dim, so D is bounded by the
@@ -99,6 +104,7 @@ def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     DRAWS_ATTEMPT_SHAPES.clear()
+    DRAW_SOLVE_SHAPES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +314,7 @@ _SIGNATURES = {
         "gpode_dp_draws_commit": [_P] * 8 + [_I] * 2 + [_P]},
     "draw_solve": {"gpode_draw_solve_fwd": [_P] * 3 + [_F] + [_P] * 3 + [_I] * 3 + [_P],
                    "gpode_draw_solve_bwd": [_P] * 7 + [_I] * 3 + [_P],
+                   "gpode_draw_solve_bwd_slabs": [_P] * 8 + [_I] * 3 + [_P],
                    "gpode_draw_solve_occupancy": [_I] * 3 + [_P]},
 }
 _TYPED: set = set()
@@ -1142,8 +1149,31 @@ def draws_commit(ratio, scalars, taus, out, x, k1, x_new, k7):
 # draw_solve
 # ---------------------------------------------------------------------------
 
-def draw_solve_bwd_plain(L, a, v, g_nu):
-    """The VJP that `draw_solve_bwd_kernel` computes, as tensor ops, in the
+def draw_solve_fwd_plain(k3, u, v, jitter=om.DEFAULT_JITTER):
+    """(L, a, nu) of the forward kernels as tensor ops, in their tile order
+    (both layouts): the factor augmented with the rows u^T, factored
+    right-looking by panels of 32 columns (the diagonal block's Cholesky,
+    the rows below it against it, then the trailing lower part less the
+    panel's product), so that the augmented rows end as a = L^{-1} u; then
+    nu = L^{-T}(v - a). K (B, M, M) (its lower triangle is read), u and v
+    (B, R, M)."""
+    m = k3.shape[-1]
+    eye = torch.eye(m, dtype=k3.dtype, device=k3.device)
+    A = torch.cat([torch.tril(k3) + jitter * eye, u], dim=1)    # (B, M + R, M)
+    for c0 in range(0, m, _DRAW_SOLVE_PANEL):
+        c1 = min(c0 + _DRAW_SOLVE_PANEL, m)
+        d = torch.linalg.cholesky(A[:, c0:c1, c0:c1])
+        A[:, c0:c1, c0:c1] = d
+        A[:, c1:, c0:c1] = torch.linalg.solve_triangular(
+            d.mT, A[:, c1:, c0:c1], upper=True, left=False)
+        A[:, c1:, c1:] -= A[:, c1:, c0:c1] @ A[:, c1:m, c0:c1].mT
+    L, a = torch.tril(A[:, :m]), A[:, m:]
+    nu = om.solve_upper_from_lower(L, (v - a).mT).mT
+    return L, a, nu
+
+
+def draw_solve_bwd_plain(L, a, v, g_nu, slab=None):
+    """The VJP that the backward kernels compute, as tensor ops, in the
     kernels' layout: L (B, M, M) the factor, a = L^{-1} u, v and the
     cotangent g_nu (B, R, M). Returns (g_K (B, M, M), g_u, g_v (B, R, M)):
 
@@ -1153,45 +1183,84 @@ def draw_solve_bwd_plain(L, a, v, g_nu):
 
     P is tril(L^T g_L) for the two solves' cotangent of L, g_L =
     tril(-nu g_c^T + L^{-T} g_c a^T), since L^T nu = c; g_K is then the
-    Cholesky's VJP as `torch.linalg.cholesky`'s backward forms it."""
+    Cholesky's VJP as `torch.linalg.cholesky`'s backward forms it.
+
+    `slab` (the packed backward's): [W | h] = L^{-T} [Phi | g_c] by slabs
+    of `slab` columns into a work matrix W, then Y = W L^{-1} by slabs of
+    `slab` rows, as its launches take them."""
     gc = om.solve_lower(L, g_nu.mT)                              # (B, M, R)
-    gu = -om.solve_upper_from_lower(L, gc)
     c = (v - a).mT
     p = torch.tril(gc @ a - c @ gc.mT)
     phi = 0.5 * (p + torch.tril(p, -1).mT)
-    w = om.solve_upper_from_lower(L, phi)
-    y = torch.linalg.solve_triangular(L, w, upper=False, left=False)
+    if slab is None:
+        gu = -om.solve_upper_from_lower(L, gc)
+        w = om.solve_upper_from_lower(L, phi)
+        y = torch.linalg.solve_triangular(L, w, upper=False, left=False)
+        return 0.5 * (y + y.mT), gu.mT, gc.mT
+    m = L.shape[-1]
+    rhs = torch.cat([phi, gc], dim=-1)                           # (B, M, M + R)
+    wh = torch.cat([om.solve_upper_from_lower(L, rhs[..., q:q + slab])
+                    for q in range(0, rhs.shape[-1], slab)], dim=-1)
+    w, gu = wh[..., :m], -wh[..., m:]
+    y = torch.cat([torch.linalg.solve_triangular(L, w[:, q:q + slab],
+                                                 upper=False, left=False)
+                   for q in range(0, m, slab)], dim=1)
     return 0.5 * (y + y.mT), gu.mT, gc.mT
 
 
 # Kernel limits (csrc/draw_solve.cu): a substitution's lane holds the rows
-# lane + 32 s of its columns, s < _DRAW_SOLVE_MAX_ROWS; each factor, its
-# columns and the backward's work tile lie in one block's shared memory.
+# lane + 32 s of its columns. Up to M = DRAW_SOLVE_SQUARE_MAX_M the factor
+# is a square in one block's shared memory both ways (s < _DRAW_SOLVE_MAX_ROWS);
+# past it, up to DRAW_SOLVE_MAX_M, the packed lower triangle (s <
+# _DRAW_SOLVE_PACKED_ROWS): the forward in one block, the backward in three
+# launches, slabs of _DRAW_SOLVE_SLAB_COLS columns, its work matrix W in
+# global memory. Each block's factor, its columns and work tile lie in its
+# shared memory. The forward factors by panels of _DRAW_SOLVE_PANEL columns,
+# on the packed layout with a copy of each panel, rows
+# _DRAW_SOLVE_PANEL_STRIDE floats apart.
 _DRAW_SOLVE_MAX_ROWS = 4
-DRAW_SOLVE_MAX_M = 32 * _DRAW_SOLVE_MAX_ROWS
+_DRAW_SOLVE_PACKED_ROWS = 8
+_DRAW_SOLVE_SLAB_COLS = 32
+_DRAW_SOLVE_PANEL = 32
+_DRAW_SOLVE_PANEL_STRIDE = 36
+DRAW_SOLVE_SQUARE_MAX_M = 32 * _DRAW_SOLVE_MAX_ROWS
+DRAW_SOLVE_MAX_M = 32 * _DRAW_SOLVE_PACKED_ROWS
 
 
 @dataclasses.dataclass(frozen=True)
 class DrawSolveGeometry:
+    layout: str               # "square" (M <= 128) or "packed"
     fwd_smem_bytes: int
-    bwd_smem_bytes: int
+    bwd_smem_bytes: int       # the one-block backward's; packed: its largest
 
 
 def draw_solve_geometry(b, m, r):
-    """The `draw_solve` kernels' shared memory for B factors of M x M with R
-    right-hand columns each; ValueError on a shape they do not take. Pure
-    arithmetic (the C launchers lay it out so)."""
+    """The `draw_solve` kernels' layout and shared memory for B factors of
+    M x M with R right-hand columns each; ValueError on a shape they do not
+    take. M <= 128: the square
+    layout, 4 ((M + R)(M | 1) + M) bytes forward and 4 (2 M (M | 1) + 3 R M
+    + M) backward, one block a factor. 128 < M <= 256: the packed triangle,
+    forward 4 (M (M + 1) / 2 + R (M | 1) + M, rounded up to 4, + 36 (M + R))
+    (the panel's copy last) and 4 (M (M + 1) / 2 + 3 R M + M) in the
+    backward's column slabs: R <= 32 at M=256 (the columns kernel's a, c
+    and g_c). Pure arithmetic (the C launchers lay it out so)."""
     if b < 1 or m < 1 or r < 1:
         raise ValueError(f"draw_solve takes B, M, R >= 1, got B={b}, M={m}, "
                          f"R={r}")
     if m > DRAW_SOLVE_MAX_M:
         raise ValueError(f"draw_solve takes M <= {DRAW_SOLVE_MAX_M} (a lane's "
-                         f"{_DRAW_SOLVE_MAX_ROWS} row slots of 32), got M={m}")
+                         f"{_DRAW_SOLVE_PACKED_ROWS} row slots of 32), got M={m}")
     ld = m | 1
-    fwd = 4 * ((m + r) * ld + m)
-    bwd = 4 * (2 * m * ld + 3 * r * m + m)
-    _check_smem(max(fwd, bwd), f"draw_solve at M={m}, R={r}")
-    return DrawSolveGeometry(fwd, bwd)
+    if m <= DRAW_SOLVE_SQUARE_MAX_M:
+        fwd = 4 * ((m + r) * ld + m)
+        bwd = 4 * (2 * m * ld + 3 * r * m + m)
+        _check_smem(max(fwd, bwd), f"draw_solve at M={m}, R={r}")
+        return DrawSolveGeometry("square", fwd, bwd)
+    tri = m * (m + 1) // 2
+    fwd = 4 * (-(-(tri + r * ld + m) // 4) * 4 + (m + r) * _DRAW_SOLVE_PANEL_STRIDE)
+    bwd = 4 * (tri + 3 * r * m + m)
+    _check_smem(max(fwd, bwd), f"draw_solve (packed) at M={m}, R={r}")
+    return DrawSolveGeometry("packed", fwd, bwd)
 
 
 def _draw_solve_dims(kzz, u_prior):
@@ -1263,12 +1332,36 @@ def _draw_solve_fwd(k3, u, v, jitter):
     b, m, _ = k3.shape
     L = torch.empty_like(k3)
     a, nu = torch.empty_like(u), torch.empty_like(u)
-    LAUNCHES["draw_solve_fwd"] += 1
+    LAUNCHES["draw_solve_fwd" if m <= DRAW_SOLVE_SQUARE_MAX_M
+             else "draw_solve_fwd_packed"] += 1
+    DRAW_SOLVE_SHAPES.add((b, m, u.shape[1]))
     rc = _lib("draw_solve").gpode_draw_solve_fwd(
         _ptr(k3), _ptr(u), _ptr(v), ctypes.c_float(jitter), _ptr(L), _ptr(a),
         _ptr(nu), b, m, u.shape[1], _stream(k3.device))
     _raise_on(rc, "draw_solve forward")
     return L, a, nu
+
+
+def _draw_solve_bwd(L, a, v, g_nu):
+    """(g_K, g_u, g_v) of the backward kernel(s), in the kernels' layout:
+    one launch on the square layout, three on the packed one."""
+    b, m, _ = L.shape
+    g_nu = g_nu.contiguous()
+    g_k = torch.empty_like(L)
+    g_u, g_v = torch.empty_like(a), torch.empty_like(a)
+    lib, stream = _lib("draw_solve"), _stream(L.device)
+    if m <= DRAW_SOLVE_SQUARE_MAX_M:
+        LAUNCHES["draw_solve_bwd"] += 1
+        rc = lib.gpode_draw_solve_bwd(*map(_ptr, (L, a, v, g_nu, g_k, g_u, g_v)),
+                                      b, m, a.shape[1], stream)
+    else:
+        LAUNCHES["draw_solve_bwd_slabs"] += 1
+        work = torch.empty_like(L)
+        rc = lib.gpode_draw_solve_bwd_slabs(
+            *map(_ptr, (L, a, v, g_nu, work, g_k, g_u, g_v)), b, m, a.shape[1],
+            stream)
+    _raise_on(rc, "draw_solve backward")
+    return g_k, g_u, g_v
 
 
 class _DrawSolveFn(torch.autograd.Function):
@@ -1284,16 +1377,7 @@ class _DrawSolveFn(torch.autograd.Function):
     @staticmethod
     @first_order_only
     def backward(ctx, g_nu):
-        L, a, v = ctx.saved_tensors
-        g_nu = g_nu.contiguous()
-        g_k = torch.empty_like(L)
-        g_u, g_v = torch.empty_like(a), torch.empty_like(a)
-        LAUNCHES["draw_solve_bwd"] += 1
-        rc = _lib("draw_solve").gpode_draw_solve_bwd(
-            *map(_ptr, (L, a, v, g_nu, g_k, g_u, g_v)), L.shape[0], L.shape[1],
-            a.shape[1], _stream(L.device))
-        _raise_on(rc, "draw_solve backward")
-        return g_k, g_u, g_v, None
+        return _draw_solve_bwd(*ctx.saved_tensors, g_nu) + (None,)
 
 
 def draw_solve(kzz, u_prior, v, jitter=om.DEFAULT_JITTER):
@@ -1304,8 +1388,11 @@ def draw_solve(kzz, u_prior, v, jitter=om.DEFAULT_JITTER):
     (..., M, D) with any leading draw axes; returns nu (..., D, M),
     differentiable in kzz, u_prior and v.
 
-    It launches `draw_solve_fwd` and, for a gradient, `draw_solve_bwd`
-    (one launch each on the current stream, counted in `LAUNCHES`), or
+    It launches the forward kernel and, for a gradient, the backward (on
+    the current stream, counted in `LAUNCHES`: `draw_solve_fwd` and
+    `draw_solve_bwd` at M <= 128, `draw_solve_fwd_packed` and the three
+    launches of `draw_solve_bwd_slabs` past it; the shape recorded in
+    `DRAW_SOLVE_SHAPES`), or
     raises on operands the kernels do not take (`draw_solve_refusal`; CPU
     tensors: the library chain, `gp.draw_solve_plain`, is their path). A
     non-positive pivot gives non-finite entries, as `cholesky_ex` does."""
@@ -1362,8 +1449,17 @@ SEGMENT_KERNELS = {
 # (dp, rt, maxt)'s mangled name holds `variant_key(kernel, dp, rt, maxt)`
 DRAWS_KERNEL = ("dopri5_draws", "draws_attempt_kernel",
                 "gpode_dp_draws_attempt_occupancy")
-# (library, occupancy query) of the `draw_solve` kernels
+# (library, occupancy query) of the `draw_solve` kernels, and each kernel's
+# (name, index in the query) by layout and direction
 DRAW_SOLVE_KERNEL = ("draw_solve", "gpode_draw_solve_occupancy")
+DRAW_SOLVE_KERNELS = {
+    ("square", "fwd"): ("draw_solve_fwd_kernel", 0),
+    ("square", "bwd"): ("draw_solve_bwd_kernel", 1),
+    ("packed", "fwd"): ("draw_solve_fwd_packed_kernel", 0),
+    ("packed", "bwd_cols"): ("draw_solve_bwd_cols_kernel", 2),
+    ("packed", "bwd_rows"): ("draw_solve_bwd_rows_kernel", 3),
+    ("packed", "bwd_sym"): ("draw_solve_bwd_sym_kernel", 4),
+}
 # the (dp, rt, maxt) variants each kernel instantiates
 RHS_VARIANTS = {"fwd": _RHS_FWD_VARIANTS, "bwd": _RHS_BWD_VARIANTS}
 SEGMENT_VARIANTS = {("fwd", st): _SEG_FWD_VARIANTS[st] for st in (6, 4)}
@@ -1399,16 +1495,23 @@ def draws_attempt_occupancy(din, d, m, s, geo):
 
 
 def draw_solve_occupancy(direction, m, r):
-    """`kernel_occupancy` of the `draw_solve` forward (`direction="fwd"`) or
-    backward ("bwd") kernel at M and R columns a factor."""
+    """`kernel_occupancy` of a `draw_solve` kernel at M and R columns a
+    factor: `direction` "fwd" (the square or packed forward, by M), "bwd"
+    (the one-block backward, M <= 128), or past M = 128 "bwd_cols",
+    "bwd_rows", "bwd_sym" (the packed backward's three kernels)."""
     geo = draw_solve_geometry(1, m, r)
-    report = kernel_occupancy(*DRAW_SOLVE_KERNEL, f"draw_solve_{direction}_kernel",
-                              int(direction == "bwd"), m, r)
-    want = geo.bwd_smem_bytes if direction == "bwd" else geo.fwd_smem_bytes
+    key = (geo.layout, direction)
+    if key not in DRAW_SOLVE_KERNELS:
+        raise ValueError(f"draw_solve has no {direction!r} kernel on the "
+                         f"{geo.layout} layout (M={m})")
+    name, index = DRAW_SOLVE_KERNELS[key]
+    report = kernel_occupancy(*DRAW_SOLVE_KERNEL, name, index, m, r)
+    want = {"fwd": geo.fwd_smem_bytes, "bwd": geo.bwd_smem_bytes,
+            "bwd_cols": geo.bwd_smem_bytes,
+            "bwd_rows": 4 * (m * (m + 1) // 2 + m), "bwd_sym": 0}[direction]
     if report["smem_bytes"] != want:
-        raise RuntimeError(f"draw_solve {direction} takes "
-                           f"{report['smem_bytes']} bytes of shared memory, "
-                           f"the geometry says {want}")
+        raise RuntimeError(f"{name} takes {report['smem_bytes']} bytes of "
+                           f"shared memory, the geometry says {want}")
     return report
 
 

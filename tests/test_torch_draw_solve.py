@@ -5,12 +5,15 @@ The CPU path (`gp.draw_solve_plain`) is the library chain bit for bit,
 through `draw_posterior` too; the kernels' VJP written as tensor ops
 (`draw_solve_bwd_plain`) against autograd through the chain, by float64
 gradcheck and in float32 at the main path's shape, and the kernels' rule
-first order only; the route (`gp.draw_solve_on_device`): a given factor
-and `kernels=False` keep the library's solves, the solver's rule reaches
-the draw, a refused draw is logged once and takes the library path, each
-draw counted in `cuda_kernels.DRAW_SOLVES`; the kernels' geometry and
-refusals, their ctypes signatures against the C entry points, and the
-benchmark's reader of the counter (`device_draw_solves_pct`).
+first order only; the packed layout's plain versions (past M = 128: the
+forward by panels, `draw_solve_fwd_plain`, and the backward by slabs)
+against the float64 chain at the `scale` preset's M=256; the route
+(`gp.draw_solve_on_device`): a given factor and `kernels=False` keep the
+library's solves, the solver's rule reaches the draw, a refused draw is
+logged once and takes the library path, each draw counted in
+`cuda_kernels.DRAW_SOLVES`; the kernels' geometry and refusals, their
+ctypes signatures against the C entry points, and the benchmark's reader
+of the counter (`device_draw_solves_pct`).
 """
 
 import importlib.util
@@ -104,6 +107,24 @@ class _PlainVJP(torch.autograd.Function):
         return ck.draw_solve_bwd_plain(*ctx.saved_tensors, g_nu) + (None,)
 
 
+class _PackedPlainVJP(torch.autograd.Function):
+    """The packed layout's autograd rule with its plain versions: the
+    forward by panels of 32 columns (`draw_solve_fwd_plain`), the backward
+    by slabs of `slab` columns and rows (`draw_solve_bwd_plain`)."""
+
+    @staticmethod
+    def forward(ctx, k3, u, v, jitter, slab):
+        L, a, nu = ck.draw_solve_fwd_plain(k3, u, v, jitter)
+        ctx.save_for_backward(L, a, v)
+        ctx.slab = slab
+        return nu
+
+    @staticmethod
+    def backward(ctx, g_nu):
+        return ck.draw_solve_bwd_plain(*ctx.saved_tensors, g_nu,
+                                       slab=ctx.slab) + (None, None)
+
+
 def _chain_columns(k3, u, v):
     """`draw_solve_plain` on operands in the kernels' layout: factor b's
     columns (B, R, M) are dim b of R draws (R, M, B); nu back to (B, R, M)."""
@@ -181,6 +202,61 @@ def test_hand_written_vjp_against_autograd_in_float32(r):
         assert err_hand <= 1.5 * err_auto + 1e-6
 
 
+@pytest.mark.parametrize("m,b,r,slab", [(9, 2, 1, 4), (13, 1, 3, 5),
+                                         (40, 2, 2, 32)])
+def test_packed_plain_vjp_passes_gradcheck(m, b, r, slab):
+    """The packed layout's plain versions (the forward by panels, the
+    backward by slabs of `slab`) are the derivative of the forward: float64
+    gradcheck in K, u and v, K symmetrised."""
+    k3, u, v = _operands(m, b, r, torch.float64)
+    args = [t.clone().requires_grad_() for t in (k3, u, v)]
+    assert torch.autograd.gradcheck(
+        lambda k, uu, vv: _PackedPlainVJP.apply(0.5 * (k + k.mT), uu, vv,
+                                                1e-5, slab), args)
+
+
+@pytest.mark.parametrize("r", [1, 5])
+@pytest.mark.parametrize("m", [129, 200, 256])
+def test_packed_plain_against_the_float64_chain(m, r):
+    """Past M = 128 (the packed layout, the `scale` preset's M=256): at D=5
+    factors in float32, nu and its cotangents by the packed kernels' plain
+    versions (forward by panels, backward by slabs of 32) lie within 2e-3
+    of the float64 chain's largest entry and no further from it than the
+    float32 chain (they read 5.5e-5 to 1.1e-3, the chain 1.3e-4 to 3.0e-3:
+    past 2e-3 at M=256)."""
+    k3, u, v = _operands(m, D, r, torch.float32)
+    g = torch.randn(D, r, m, generator=torch.Generator().manual_seed(3))
+
+    def run(fn, dtype):
+        args = [t.to(dtype).requires_grad_() for t in (k3, u, v)]
+        nu = fn(*args)
+        return (nu.detach(),) + torch.autograd.grad(nu, args, g.to(dtype))
+
+    slab = ck._DRAW_SOLVE_SLAB_COLS
+    packed = run(lambda k, uu, vv: _PackedPlainVJP.apply(k, uu, vv, 1e-5, slab),
+                 torch.float32)
+    chain = run(_chain_columns, torch.float32)
+    exact = run(_chain_columns, torch.float64)
+    for name, p, c, e in zip(("nu", "g_K", "g_u", "g_v"), packed, chain, exact):
+        scale = float(e.abs().max())
+        err = float((p.double() - e).abs().max()) / scale
+        chain_err = float((c.double() - e).abs().max()) / scale
+        assert err <= 2e-3 and err <= 1.5 * chain_err + 1e-5, (name, err,
+                                                              chain_err)
+
+
+def test_panel_forward_is_the_factor_and_solves():
+    """`draw_solve_fwd_plain` (the kernels' panel order, both layouts) in
+    float64 is the library factor and solves: L, a = L^{-1} u and nu, to
+    1e-12, at an M that leaves a partial last panel."""
+    k3, u, v = _operands(70, 2, 3, torch.float64)
+    L, a, nu = ck.draw_solve_fwd_plain(k3, u, v, 1e-5)
+    want_l = om.cholesky_jittered(k3, 1e-5)
+    want_a = om.solve_lower(want_l, u.mT).mT
+    for got, want in ((L, want_l), (a, want_a), (nu, _chain_columns(k3, u, v))):
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
 def test_hand_written_forward_layout_matches_the_chain():
     """The kernels' layout (B, R, M) is the chain on the columns: the same
     coefficients as `draw_solve_plain`."""
@@ -229,28 +305,44 @@ def _card_like(shape, dtype=torch.float32):
 
 def test_a_refused_draw_is_logged_once_and_takes_the_library(monkeypatch,
                                                              caplog):
-    """On a card, M=256 (the `scale` preset) and float64 are refused: each
-    reason logged once, the draw sent to the library; M=100 in float32 is
-    taken. Off the card nothing is asked or logged. A refused M=256 draw
-    is the library chain."""
+    """On a card, M=257 (past the packed layout) and float64 are refused:
+    each reason logged once, the draw sent to the library; M=100 and M=256
+    (the `scale` preset) in float32 are taken. Off the card nothing is
+    asked or logged. A refused M=257 draw is the library chain."""
     monkeypatch.setattr(gp, "_REFUSALS_LOGGED", set())
-    u256 = torch.zeros(256, D)
+    u257 = torch.zeros(257, D)
     with caplog.at_level(logging.WARNING, logger=gp.__name__):
         for _ in range(2):
-            assert not gp.draw_solve_on_device(_card_like((D, 256, 256)), u256)
+            assert not gp.draw_solve_on_device(_card_like((D, 257, 257)), u257)
             assert not gp.draw_solve_on_device(
                 _card_like((D, M, M), torch.float64),
                 torch.zeros(M, D, dtype=torch.float64))
         assert gp.draw_solve_on_device(_card_like((D, M, M)), torch.zeros(M, D))
+        assert gp.draw_solve_on_device(_card_like((D, 256, 256)),
+                                       torch.zeros(256, D))
         assert not gp.draw_solve_on_device(torch.zeros(D, M, M),
                                            torch.zeros(M, D))
     messages = [r.getMessage() for r in caplog.records]
     assert len(messages) == 2
-    assert "M <= 128" in messages[0] and "float64" in messages[1]
-    params = _gp(m=256)
+    assert "M <= 256" in messages[0] and "float64" in messages[1]
+    params = _gp(m=257)
     noise = _noise(params, ())
     assert torch.equal(gp.draw_posterior(params, *noise).nu,
                        _chain(params, noise))
+
+
+@pytest.mark.parametrize("case", ["float32", "kernels_off", "float64"])
+def test_the_route_at_the_scale_preset(case):
+    """At the `scale` preset's draw on a card (one draw on D factors of
+    M=256): float32 takes the kernels (the packed layout), `kernels=False`
+    and float64 the library."""
+    dtype = torch.float64 if case == "float64" else torch.float32
+    rule = False if case == "kernels_off" else None
+    taken = gp.draw_solve_on_device(_card_like((D, 256, 256), dtype),
+                                    torch.zeros(256, D, dtype=dtype), rule)
+    assert taken == (case == "float32")
+    if taken:
+        assert ck.draw_solve_geometry(D, 256, 1).layout == "packed"
 
 
 @pytest.mark.parametrize("kernels", [None, True, False],
@@ -285,13 +377,17 @@ def test_the_kernel_rule_reaches_the_draw(monkeypatch, kernels):
 @pytest.mark.parametrize("b,m,r,ok", [
     (5, 100, 1, True), (5, 100, 126, True), (5, 100, 127, False),
     (1, 128, 32, True), (1, 128, 65, True), (1, 128, 66, False),
-    (1, 129, 1, False), (1, 256, 1, False), (2, 1, 1, True), (1, 32, 400, True),
+    (1, 129, 1, True), (1, 129, 128, True), (1, 129, 129, False),
+    (5, 256, 1, True), (5, 256, 32, True), (5, 256, 33, False),
+    (1, 257, 1, False), (2, 1, 1, True), (1, 32, 400, True),
     (0, 10, 1, False), (1, 10, 0, False)])
 def test_geometry_takes_and_refuses(b, m, r, ok):
-    """M up to 128 (four row slots of 32), and R columns as far as both
-    kernels' shared memory, laid out as csrc/draw_solve.cu lays it, fits one
-    block's; `draw_solve_refusal` says the same of b factors of a draw's
-    r columns."""
+    """M up to 128 on the square layout (four row slots of 32, one block a
+    factor both ways), up to 256 on the packed one (eight), and R columns
+    as far as every kernel's shared memory, laid out as csrc/draw_solve.cu
+    lays it, fits one block's (R <= 32 at M=256: the backward's columns
+    kernel); `draw_solve_refusal` says the same of b factors of a draw's r
+    columns."""
     reason = ck.draw_solve_refusal(torch.zeros(b, m, m), torch.zeros(r, m, b))
     assert (reason is None) == ok
     if not ok:
@@ -299,10 +395,32 @@ def test_geometry_takes_and_refuses(b, m, r, ok):
             ck.draw_solve_geometry(b, m, r)
         return
     geo = ck.draw_solve_geometry(b, m, r)
-    ld = m | 1
-    assert geo.fwd_smem_bytes == 4 * ((m + r) * ld + m)
-    assert geo.bwd_smem_bytes == 4 * (2 * m * ld + 3 * r * m + m)
+    ld, tri = m | 1, m * (m + 1) // 2
+    if m <= 128:
+        assert geo.layout == "square"
+        assert geo.fwd_smem_bytes == 4 * ((m + r) * ld + m)
+        assert geo.bwd_smem_bytes == 4 * (2 * m * ld + 3 * r * m + m)
+    else:
+        assert geo.layout == "packed"
+        assert geo.fwd_smem_bytes == 4 * (-(-(tri + r * ld + m) // 4) * 4
+                                          + 36 * (m + r))
+        assert geo.bwd_smem_bytes == 4 * (tri + 3 * r * m + m)
     assert max(geo.fwd_smem_bytes, geo.bwd_smem_bytes) <= ck.MAX_SMEM_BYTES
+
+
+def test_geometry_at_the_scale_preset_and_past_it():
+    """B=5, M=256, R=1 (the `scale` step's draw) takes the packed layout:
+    170,656 bytes forward, 135,680 in the backward's columns kernel;
+    M=257 is refused with its reason; M <= 128 stays on the square layout,
+    one block a factor."""
+    geo = ck.draw_solve_geometry(5, 256, 1)
+    assert (geo.layout, geo.fwd_smem_bytes, geo.bwd_smem_bytes) == (
+        "packed", 170656, 135680)
+    with pytest.raises(ValueError, match=r"M <= 256 .*got M=257"):
+        ck.draw_solve_geometry(5, 257, 1)
+    for m in (1, 100, 128):
+        assert ck.draw_solve_geometry(5, m, 1).layout == "square"
+    assert ck.draw_solve_geometry(5, 129, 1).layout == "packed"
 
 
 def test_refusal_reads_the_draw_shape():
@@ -335,16 +453,22 @@ def test_ctypes_signatures_match_the_c_entry_points(fn):
 
 
 def test_the_source_states_its_limits_and_builds_with_the_others():
-    """The C limit is the wrapper's, the two kernels exist, and the library
-    builds with the others and counts launches."""
+    """The C limits are the wrapper's, every kernel the occupancy query
+    names exists, and the library builds with the others and counts
+    launches of both layouts."""
     text = _source()
-    assert re.search(r"#define MAX_ROWS (\d+)", text).group(1) == str(
-        ck._DRAW_SOLVE_MAX_ROWS)
-    for direction in ("fwd", "bwd"):
-        assert re.search(rf"\bdraw_solve_{direction}_kernel\(", text)
+    for macro, value in (("MAX_ROWS", ck._DRAW_SOLVE_MAX_ROWS),
+                         ("PACKED_ROWS", ck._DRAW_SOLVE_PACKED_ROWS),
+                         ("SLAB_WARPS", ck._DRAW_SOLVE_SLAB_COLS // 4),
+                         ("BWD_COLS", 4),
+                         ("PANEL_STRIDE", ck._DRAW_SOLVE_PANEL_STRIDE)):
+        assert re.search(rf"#define {macro} (\d+)", text).group(1) == str(value)
+    for name, _ in ck.DRAW_SOLVE_KERNELS.values():
+        assert re.search(rf"\b{name}\(", text), name
     assert "atomicAdd" not in text
     assert cuda_build.SOURCES["draw_solve"] == SOURCE.name
-    assert {"draw_solve_fwd", "draw_solve_bwd"} <= set(ck.LAUNCHES)
+    assert {"draw_solve_fwd", "draw_solve_bwd", "draw_solve_fwd_packed",
+            "draw_solve_bwd_slabs"} <= set(ck.LAUNCHES)
 
 
 def test_double_backward_raises(monkeypatch):

@@ -1193,11 +1193,15 @@ def test_the_device_commit_equals_the_host_dense_output(cuda, monkeypatch,
 
 # the posterior draw's own-factor solves (`cuda_kernels.draw_solve`):
 # (factors, M, right-hand columns a factor): the train step's D=5 factors of
-# M=100 at one draw, at 32 and at the most columns M=100 takes (126), and
-# the largest M the kernels take
+# M=100 at one draw, at 32 and at the most columns M=100 takes (126), the
+# largest M of the square layout; past it the packed layout: its smallest
+# M, one between, the `scale` step's M=256 at one draw and at the most
+# columns M=256 takes (32)
 DRAW_SOLVE_SHAPES = {"main_R1": (DIM, M, 1), "main_R32": (DIM, M, 32),
                      "main_R126": (2, M, 126), "m128_R1": (DIM, 128, 1),
-                     "m128_R32": (2, 128, 32)}
+                     "m128_R32": (2, 128, 32), "m129_R1": (DIM, 129, 1),
+                     "m200_R5": (DIM, 200, 5), "m256_R1": (DIM, 256, 1),
+                     "m256_R32": (2, 256, 32)}
 
 
 def _draw_solve_operands(cuda, b, m, r, seed=0):
@@ -1224,12 +1228,21 @@ def _draw_solve_chain(k3, u, v):
 
 @pytest.mark.parametrize("shape", list(DRAW_SOLVE_SHAPES))
 def test_draw_solve_kernels_match_plain(cuda, shape):
-    """`draw_solve_fwd` and `draw_solve_bwd` (one launch each) against the
-    plain versions: nu and its cotangents in K, u and v within 2e-3 of the
-    float64 library chain's largest entry, as the float32 chain is (up to
-    7.6e-4 at M=128); the kernels' backward against `draw_solve_bwd_plain`
-    on the kernels' own factor; a rerun bit-identical."""
+    """The forward and the backward (one launch each: `draw_solve_fwd` and
+    `draw_solve_bwd` up to M=128, `draw_solve_fwd_packed` and the three
+    launches of `draw_solve_bwd_slabs` past it) against the plain versions:
+    nu and its cotangents in K, u and v within 2e-3 of the float64 library
+    chain's largest entry, as the float32 chain is (up to 7.6e-4 at M=128;
+    past M=128 the float32 chain itself reads up to 3e-3 on some operands,
+    so only the kernels are held to 2e-3 there: 9.7e-4 against the chain's
+    6.1e-4 at M=256, R=1); the kernels' backward against
+    `draw_solve_bwd_plain` on the kernels' own factor (by slabs on the
+    packed layout); a rerun bit-identical; the shape recorded in
+    `DRAW_SOLVE_SHAPES`."""
     b, m, r = DRAW_SOLVE_SHAPES[shape]
+    packed = m > ck.DRAW_SOLVE_SQUARE_MAX_M
+    fwd_key, bwd_key = (("draw_solve_fwd_packed", "draw_solve_bwd_slabs")
+                        if packed else ("draw_solve_fwd", "draw_solve_bwd"))
     k3, u, v, g = _draw_solve_operands(cuda, b, m, r)
 
     def run(fn, dtype):
@@ -1241,10 +1254,12 @@ def test_draw_solve_kernels_match_plain(cuda, shape):
         return ck._DrawSolveFn.apply(k, uu, vv, 1e-5)
 
     before = dict(ck.LAUNCHES)
+    ck.DRAW_SOLVE_SHAPES.clear()
     got = run(kernels, torch.float32)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES["draw_solve_fwd"] - before["draw_solve_fwd"] == 1
-    assert ck.LAUNCHES["draw_solve_bwd"] - before["draw_solve_bwd"] == 1
+    assert ck.LAUNCHES[fwd_key] - before[fwd_key] == 1
+    assert ck.LAUNCHES[bwd_key] - before[bwd_key] == 1
+    assert ck.DRAW_SOLVE_SHAPES == {(b, m, r)}
     assert all(torch.equal(a, b) for a, b in zip(got, run(kernels,
                                                           torch.float32)))
     plain = run(_draw_solve_chain, torch.float32)
@@ -1254,35 +1269,42 @@ def test_draw_solve_kernels_match_plain(cuda, shape):
         scale = float(ref.abs().max())
         err = float((kern.double() - ref).abs().max()) / scale
         chain_err = float((chain.double() - ref).abs().max()) / scale
-        assert err <= 2e-3 and chain_err <= 2e-3, (name, err, chain_err)
+        if packed:
+            assert err <= 2e-3, (name, err, chain_err)
+        else:
+            assert err <= 2e-3 and chain_err <= 2e-3, (name, err, chain_err)
     L, a, _ = ck._draw_solve_fwd(k3, u, v, 1e-5)
-    want = ck.draw_solve_bwd_plain(L, a, v, g)
+    want = ck.draw_solve_bwd_plain(
+        L, a, v, g, slab=ck._DRAW_SOLVE_SLAB_COLS if packed else None)
     for name, kern, ref in zip(("g_K", "g_u", "g_v"), got[1:], want):
         _assert_close(kern, ref, f"draw_solve_bwd {name}", fwd=False)
 
 
 def test_draw_solve_compiles_without_spills(cuda):
-    """Both kernels free of spills and of local memory at M=100 (R=1) and
-    M=128 (R=32)."""
+    """Every kernel free of spills and of local memory: the square layout's
+    two at M=100 (R=1) and M=128 (R=32), the packed layout's four at M=256
+    (R=1 and R=32)."""
     from gpode_tpu_torch.ops import cuda_build
 
     found = cuda_build.kernel_resources("draw_solve")
-    assert len(found) == 2   # forward and backward
+    assert len(found) == len(ck.DRAW_SOLVE_KERNELS)
     for rec in found.values():
         assert rec["spill_stores"] == 0 and rec["spill_loads"] == 0
-    for direction in ("fwd", "bwd"):
-        for m, r in ((M, 1), (128, 32)):
-            report = ck.draw_solve_occupancy(direction, m, r)
-            assert report["local_bytes"] == 0 and report["blocks_per_sm"] >= 1
+    cases = [(d, m, r) for d in ("fwd", "bwd") for m, r in ((M, 1), (128, 32))]
+    cases += [(d, 256, r) for d in ("fwd", "bwd_cols", "bwd_rows", "bwd_sym")
+              for r in (1, 32)]
+    for direction, m, r in cases:
+        report = ck.draw_solve_occupancy(direction, m, r)
+        assert report["local_bytes"] == 0 and report["blocks_per_sm"] >= 1
 
 
 def test_draw_solve_raises_instead_of_falling_back(cuda):
-    """On the card the wrapper launches or raises: M=256, float64 and a
+    """On the card the wrapper launches or raises: M=257, float64 and a
     wrong K shape raise before any launch."""
     before = dict(ck.LAUNCHES)
-    u = torch.zeros(3, 256, DIM, device=cuda)
-    with pytest.raises(ValueError, match="M <= 128"):
-        ck.draw_solve(torch.eye(256, device=cuda).expand(DIM, -1, -1), u, u)
+    u = torch.zeros(3, 257, DIM, device=cuda)
+    with pytest.raises(ValueError, match="M <= 256"):
+        ck.draw_solve(torch.eye(257, device=cuda).expand(DIM, -1, -1), u, u)
     u = torch.zeros(M, DIM, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
         ck.draw_solve(torch.eye(M, device=cuda, dtype=torch.float64), u, u)
@@ -1329,7 +1351,7 @@ def test_captured_step_draws_through_the_kernels_bit_equal_to_eager(cuda):
 
 def test_prediction_and_refused_draws_keep_the_library_solves(cuda):
     """`gpode.predict` hands the draw its factor: no `draw_solve` launch, the
-    draw counted "library"; a draw at M=256 (refused) and one at the main
+    draw counted "library"; a draw at M=257 (refused) and one at the main
     path's shape under kernels=False the same."""
     from gpode_tpu_torch.models import flow, gp, gpode
     from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
@@ -1345,14 +1367,56 @@ def test_prediction_and_refused_draws_keep_the_library_solves(cuda):
         gpode.predict(params, noise, ts[:5], flow.SolverConfig(solver="dopri5"),
                       x0=x0)
         big = gp.init_svgp(torch.Generator().manual_seed(0), DIM, DIM,
-                           256).to(cuda)
+                           257).to(cuda)
         big_noise = gpode.sample_draw_noise(big, 16, 2, gen)
         gp.draw_posterior(big, big_noise.rff_weights, big_noise.rff_freq,
                           big_noise.rff_phase, big_noise.inducing)
         gp.draw_posterior(params.gp, noise.rff_weights[0], noise.rff_freq[0],
                           noise.rff_phase[0], noise.inducing[0], kernels=False)
     torch.cuda.synchronize()
-    for k in ("draw_solve_fwd", "draw_solve_bwd"):
+    for k in ("draw_solve_fwd", "draw_solve_bwd", "draw_solve_fwd_packed",
+              "draw_solve_bwd_slabs"):
         assert ck.LAUNCHES[k] == launches[k], k
     assert ck.DRAW_SOLVES == {"device": draws["device"],
                               "library": draws["library"] + 3}
+
+
+def test_captured_scale_step_draws_through_the_packed_kernels(cuda):
+    """The `scale` preset's step (M=256, 32 state draws, 19,200 segment
+    rows, remat) captured against its eager step, 5 steps from one start
+    and noise (2 eager, the capture, 2 replays): one `draw_solve_fwd_packed`
+    and one `draw_solve_bwd_slabs` a step in both runs, every draw counted
+    "device" at (5, 256, 1), and losses and parameters bit for bit."""
+    from gpode_tpu_torch.models.shooting import sample_step_noise
+    from gpode_tpu_torch.train.bench_setup import (build_bench_problem,
+                                                   preset_model_args)
+    from gpode_tpu_torch.train.builders import shooting_loss_fn
+    from gpode_tpu_torch.train.graph_step import make_captured_train_step
+    from gpode_tpu_torch.train.trainer import default_optimizer, make_train_step
+
+    args, params, ys, ts = build_bench_problem(preset_model_args("scale"),
+                                               device=cuda)
+    runs = []
+    for make in (make_train_step, make_captured_train_step):
+        p = copy.deepcopy(params)
+        step = make(shooting_loss_fn(args), p, default_optimizer(p, 5e-3))
+        gen = torch.Generator(cuda).manual_seed(7)
+        launches, draws = dict(ck.LAUNCHES), dict(ck.DRAW_SOLVES)
+        ck.DRAW_SOLVE_SHAPES.clear()
+        losses = torch.stack([step(sample_step_noise(
+            p, args.num_features, args.num_samples, gen), ys, ts).loss.detach()
+            for _ in range(5)])
+        torch.cuda.synchronize()
+        for k in ("draw_solve_fwd_packed", "draw_solve_bwd_slabs"):
+            assert ck.LAUNCHES[k] - launches[k] == 5, k
+        for k in ("draw_solve_fwd", "draw_solve_bwd"):
+            assert ck.LAUNCHES[k] == launches[k], k
+        assert ck.DRAW_SOLVES == {"device": draws["device"] + 5,
+                                  "library": draws["library"]}
+        assert ck.DRAW_SOLVE_SHAPES == {(DIM, 256, 1)}
+        runs.append((losses, p))
+    (le, pe), (lc, pc) = runs
+    assert torch.isfinite(le).all()
+    assert torch.equal(lc, le)
+    for a, b in zip(pc.parameters(), pe.parameters()):
+        assert torch.equal(a.detach(), b.detach())
