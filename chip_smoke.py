@@ -90,7 +90,14 @@ exit code and no result line:
      cotangents within 2e-3 of the largest entry), reruns bit-identical,
      each kernel's device ms beside its bound, its plain version's and the
      library chain's (`library_ms`), and both kernels free of spills; the
-     official train phase's launches count them on the main path;
+     official train phase's launches count them on the main path; then the
+     shooting states' `state_entropy` kernels at the train step's (6, 99)
+     factors of D=5 (and D=2, 8) against the unrolled chain in float32
+     (forward within 1e-6, the cotangent bit for bit) and float64 (forward
+     and cotangent within 1e-5), reruns bit-identical, each kernel's device ms beside its bound
+     and the chain's (`library_ms`: its forward; for the backward, its
+     forward and backward less the forward), both kernels' time beside the
+     chain's forward and backward, every instantiation free of spills;
   7b. time to test LL: the time-to-LL driver
      (`gpode_tpu_torch.scripts.bench_time_to_nll.main`) in-process, `fast`
      preset, DRIVER_ITERS iterations, tracking evals every 250, 128-draw
@@ -279,7 +286,9 @@ SOURCES = {"fused_rhs_fwd": "gpode_tpu_torch/csrc/fused_rhs.cu",
            "dopri5_attempt_draws": "gpode_tpu_torch/csrc/dopri5_draws.cu",
            "draws_commit": "gpode_tpu_torch/csrc/dopri5_draws.cu",
            "draw_solve_fwd": "gpode_tpu_torch/csrc/draw_solve.cu",
-           "draw_solve_bwd": "gpode_tpu_torch/csrc/draw_solve.cu"}
+           "draw_solve_bwd": "gpode_tpu_torch/csrc/draw_solve.cu",
+           "state_entropy_fwd": "gpode_tpu_torch/csrc/state_entropy.cu",
+           "state_entropy_bwd": "gpode_tpu_torch/csrc/state_entropy.cu"}
 REPLACES = {
     "fused_rhs_fwd": "gpode_tpu/ops/pallas_kernels.py:252",
     "fused_rhs_bwd": "gpode_tpu/ops/pallas_kernels.py:467",
@@ -295,6 +304,8 @@ REPLACES = {
     "draws_commit": "none: the dense output is XLA's in the JAX package",
     "draw_solve_fwd": "none: XLA's Cholesky and triangular solves",
     "draw_solve_bwd": "none: XLA's Cholesky and triangular solves",
+    "state_entropy_fwd": "none: XLA fuses the unrolled Cholesky chain",
+    "state_entropy_bwd": "none: XLA fuses the unrolled Cholesky chain",
 }
 # The ten redesigned kernels (six on the row tile, three wide-layout ones and
 # `rbf_gram`): device ms per launch before their redesign (`ms`; PERF.md,
@@ -335,6 +346,7 @@ MAIN_PATH_KERNELS = {
                 "fused_rhs_wide2_fwd", "fused_rhs_wide_bwd"),
     "predict": ("dopri5_attempt_draws", "draws_commit"),
     "draw": ("draw_solve_fwd", "draw_solve_bwd"),
+    "entropy": ("state_entropy_fwd", "state_entropy_bwd"),
 }
 OFF_PATH_KERNELS = {
     "official": (),
@@ -3408,6 +3420,156 @@ def draw_solve_phase(dev):
     return rows, details
 
 
+# `state_entropy` shapes: (sequences, shooting states, D); "train" is the
+# MoCap train step's
+STATE_ENTROPY_CASES = {"train": (6, 99, 5), "d2": (6, 99, 2), "d8": (6, 99, 8)}
+
+
+def state_entropy_counts(n, d):
+    """(forward, backward) of the `state_entropy` kernels over n factors of
+    dimension d, each (operations, bytes): L L^T + jitter I, the Cholesky
+    (a square root and a reciprocal a column), the logs and their sum; the
+    backward again the factor, then C^{-1} L and C^{-T} X on the lower
+    triangle and the scaling. Each input float read once, each output
+    written once."""
+    p = d * (d + 1) // 2
+    gram = sum(2 * j + 1 for i in range(d) for j in range(i + 1)) + d
+    chol = sum(2 * j + 2 + sum(2 * j + 1 for _ in range(j + 1, d))
+               for j in range(d))
+    fwd = gram + chol + 2 * d + 2
+    solves = sum(2 * (i - j) + 1 for j in range(d) for i in range(j, d))
+    solves += sum(2 * (d - 1 - i) + 1 for j in range(d) for i in range(j, d))
+    bwd = gram + chol + solves + p
+    return (n * fwd, 4 * n * (p + 1)), (n * bwd, 4 * n * (2 * p + 1))
+
+
+def state_entropy_phase(dev):
+    """The shooting states' `state_entropy` kernels at STATE_ENTROPY_CASES
+    against the unrolled chain (`states.shooting_entropy` under
+    kernels=False): the forward within 1e-6 of the chain in float32 and
+    1e-5 of it in float64, the cotangent bit for bit autograd's through the
+    chain and within 1e-5 of float64 (of the largest entry), reruns
+    bit-identical; each
+    kernel's device ms beside its bound (`state_entropy_counts`), its plain
+    version's (the chain's forward; `state_entropy_bwd_plain`) and the
+    chain's as the step ran it before (`library_ms`: its forward; for the
+    backward, its forward and backward less the forward); at "train" both
+    kernels against the chain's forward and backward; every instantiation
+    free of spills. Returns (the kernel rows at the train shape, details by
+    kernel)."""
+    phase("state entropy")
+    import ctypes
+
+    import torch
+    from gpode_tpu_torch.models import states
+    from gpode_tpu_torch.ops import cuda_build
+    from gpode_tpu_torch.ops import cuda_kernels as ck
+    from gpode_tpu_torch.ops import math as om
+
+    jitter = om.DEFAULT_JITTER
+    details = {"state_entropy_fwd": {"shapes": {}},
+               "state_entropy_bwd": {"shapes": {}}}
+    rows = {}
+    for label, (nseq, t1, d) in STATE_ENTROPY_CASES.items():
+        n, p = nseq * t1, d * (d + 1) // 2
+        gen = torch.Generator().manual_seed(13)
+        post = states.init_shooting_states(gen, nseq, t1, d, device=dev)
+        diag = torch.eye(d, dtype=torch.bool)[tuple(torch.tril_indices(d, d))]
+        z = torch.randn(2, nseq, t1, p, generator=gen)
+        with torch.no_grad():
+            post.tril_packed.copy_(torch.where(
+                diag, 0.1 * torch.exp(0.3 * z[0]), 0.02 * z[1]))
+        g = torch.randn(nseq, t1, generator=gen).to(dev)
+
+        def run(kernels, dtype=torch.float32):
+            q = post if dtype == torch.float32 else states.ShootingStatePosterior(
+                post.x0, post.mean, post.tril_packed.detach().double())
+            out = states.shooting_entropy(q, kernels=kernels)
+            return out.detach(), torch.autograd.grad(out, q.tril_packed,
+                                                     g.to(dtype))[0]
+
+        got = run(None)
+        check(all(torch.equal(a, b) for a, b in zip(got, run(None))),
+              f"state_entropy reruns differ ({label})")
+        chain, exact = run(False), run(False, torch.float64)
+
+        def rel(a, b):
+            return float((a.double() - b).abs().max() / b.abs().max())
+
+        bits = int((got[1] != chain[1]).sum())
+        check(bits == 0, f"state_entropy's gradient differs from the chain's "
+              f"in {bits} of {got[1].numel()} entries ({label})")
+        errs = {"fwd_chain": rel(got[0], chain[0].double()),
+                "fwd": rel(got[0], exact[0]), "bwd": rel(got[1], exact[1]),
+                "chain_fwd": rel(chain[0], exact[0]),
+                "chain_bwd": rel(chain[1], exact[1])}
+        check(errs["fwd_chain"] <= 1e-6 and errs["fwd"] <= 1e-5
+              and errs["bwd"] <= 1e-5, f"state_entropy off its references "
+              f"({label}): {errs}")
+        tril = post.tril_packed.detach()
+        ent, grad = torch.empty(nseq, t1, device=dev), torch.empty_like(tril)
+        lib, stream = ck._lib("state_entropy"), ck._stream(dev)
+        c_jitter = ctypes.c_float(jitter)
+        const = ctypes.c_float(d * (1.0 + math.log(2.0 * math.pi)))
+        fwd_ms = cuda_ms(lambda: lib.gpode_state_entropy_fwd(
+            ck._ptr(tril), c_jitter, const, ck._ptr(ent), n, d, stream))
+        bwd_ms = cuda_ms(lambda: lib.gpode_state_entropy_bwd(
+            ck._ptr(tril), ck._ptr(g), c_jitter, ck._ptr(grad), n, d, stream))
+        q = states.ShootingStatePosterior(post.x0, post.mean, tril.clone())
+
+        def chain_fwd():
+            with torch.no_grad():
+                states.shooting_entropy(q, kernels=False)
+
+        def chain_both():
+            out = states.shooting_entropy(q, kernels=False)
+            torch.autograd.grad(out, q.tril_packed, g)
+
+        chain_fwd_ms, chain_both_ms = cuda_ms(chain_fwd), cuda_ms(chain_both)
+        plain_bwd_ms = cuda_ms(lambda: ck.state_entropy_bwd_plain(tril, g, d))
+        (fo, fb), (bo, bb) = state_entropy_counts(n, d)
+        f_bms, f_by = bound(fo, fb)
+        b_bms, b_by = bound(bo, bb)
+        print(f"state_entropy ({label}: {nseq} x {t1} factors, D={d}): "
+              f"forward {fwd_ms:.4f} ms (chain {chain_fwd_ms:.4f}, bound "
+              f"{f_bms:.6f} ({f_by})), backward {bwd_ms:.4f} ms (plain "
+              f"{plain_bwd_ms:.4f}, chain {chain_both_ms - chain_fwd_ms:.4f} "
+              f"of {chain_both_ms:.4f} with its forward, bound {b_bms:.6f} "
+              f"({b_by})); forward + backward {fwd_ms + bwd_ms:.4f} ms against "
+              f"the chain's {chain_both_ms:.4f}; errors "
+              + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()), flush=True)
+        for name, ms, pms, lms, bms, by, err in (
+                ("state_entropy_fwd", fwd_ms, chain_fwd_ms, chain_fwd_ms,
+                 f_bms, f_by, errs["fwd"]),
+                ("state_entropy_bwd", bwd_ms, plain_bwd_ms,
+                 chain_both_ms - chain_fwd_ms, b_bms, b_by, errs["bwd"])):
+            details[name]["shapes"][label] = dict(
+                factors=n, dim=d, ms=ms, plain_ms=pms, library_ms=lms,
+                bound_ms=bms, bound_by=by, max_rel_err=err)
+            if label == "train":
+                rows[name] = (err, ms, pms, bms, by)
+                details[name]["library_ms"] = lms
+        if label == "train":
+            details["state_entropy_fwd"]["both_ms"] = fwd_ms + bwd_ms
+            details["state_entropy_fwd"]["chain_both_ms"] = chain_both_ms
+    for direction in ("fwd", "bwd"):
+        for d in range(1, om.SMALL_CHOL_MAX_DIM + 1):
+            rep = ck.state_entropy_occupancy(direction, d)
+            print(f"  state_entropy {direction} resources at D={d}: "
+                  f"{rep['registers']} registers, {rep['threads']} threads, "
+                  f"{rep['blocks_per_sm']} block(s) per SM, local "
+                  f"{rep['local_bytes']} B, spill {rep['spill_stores']} / "
+                  f"{rep['spill_loads']} B")
+            check(rep["local_bytes"] == 0 and rep["spill_stores"] == 0
+                  and rep["spill_loads"] == 0,
+                  f"state_entropy {direction} spills at D={d}")
+    built = cuda_build.kernel_resources("state_entropy")
+    check(len(built) == 2 * om.SMALL_CHOL_MAX_DIM and all(
+        rec["spill_stores"] == 0 and rec["spill_loads"] == 0
+        for rec in built.values()), "a state_entropy kernel spills")
+    return rows, details
+
+
 def eval_phase(dev, args, params):
     """The projected scorer of `scripts/bench_time_to_nll.py` on the port:
     EVAL_DRAWS posterior draws from the MoCap-09 test split's start states,
@@ -3514,6 +3676,9 @@ def main(argv=None) -> int:
     kernels["draws_commit"], commit_details = draws_commit_phase(dev)
     draw_rows, draw_details = draw_solve_phase(dev)
     kernels.update(draw_rows)
+    entropy_rows, entropy_details = state_entropy_phase(dev)
+    kernels.update(entropy_rows)
+    draw_details.update(entropy_details)
     driver, driver_launches = driver_phase(evaluation["ll"])
     with tempfile.TemporaryDirectory() as tmp:
         experiments, exp_launches, exp_rk4_launches = experiments_phase(tmp)
@@ -3539,7 +3704,8 @@ def main(argv=None) -> int:
                      "experiments_rk4": exp_rk4_launches,
                      "scale": scale_launches, "adjoint": adjoint_launches,
                      "field": field_launches, "wide_ab": wide_ab_phase(),
-                     "predict": predict_launches, "draw": launches}
+                     "predict": predict_launches, "draw": launches,
+                     "entropy": launches}
 
     phase("result")
     gemm_after = gemm_ms(dev)

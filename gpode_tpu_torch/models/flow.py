@@ -57,9 +57,12 @@ class SolverConfig:
     any dimwise batch (the JAX `pallas` override; a shape the kernel refuses
     raises ValueError); the posterior draw's own-factor solves follow it
     too (`gp.draw_posterior`: False keeps the library's, else the
-    `draw_solve` kernels where dtype and shape allow). BDF always takes the
-    plain rhs: its Newton Jacobian is differentiated a second time in the
-    backward, and the kernels' autograd rules are first order."""
+    `draw_solve` kernels where dtype and shape allow), and so does the
+    shooting states' entropy (`states.shooting_entropy`: False keeps the
+    unrolled chain, else the `state_entropy` kernels in float32 on a card
+    at D <= 8). BDF always takes the plain rhs: its Newton Jacobian is
+    differentiated a second time in the backward, and the kernels' autograd
+    rules are first order."""
 
     solver: str = "dopri5"
     rtol: float = 1e-6

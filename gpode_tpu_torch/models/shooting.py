@@ -238,7 +238,8 @@ def elbo_loss(params: ShootingParams, noise: StepNoise, ys: torch.Tensor,
             observ_loglik = observ_loglik / (dp * mc)
             scaled_constr = scaled_constr / (dp * mc)
         if mesh is None or mesh.rank == 0:
-            scaled_entropy = shooting_entropy(params.states).sum() / num_obs
+            scaled_entropy = shooting_entropy(
+                params.states, kernels=cfg.kernels).sum() / num_obs
             x0_kl = initial_state_kl(params.states.x0) / num_obs
             ind_kl = gp.kl(params.gp) / num_obs
         else:

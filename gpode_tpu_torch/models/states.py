@@ -7,11 +7,13 @@ standard-normal draws as tensors (random numbers are inputs).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
 from gpode_tpu_torch.ops import math as om
+from gpode_tpu_torch.ops.cuda_kernels import STATE_ENTROPIES, state_entropy
 
 # Initial scale of state Cholesky factors.
 INITIAL_STATE_SCALE = 1e-1
@@ -121,10 +123,29 @@ def _mvn_log_prob(x, mean, tril, jitter):
     return -0.5 * (d * math.log(2.0 * math.pi) + logdet + maha)
 
 
+def state_entropy_on_device(tril_packed: torch.Tensor, dim_d: int,
+                            kernels: Optional[bool] = None) -> bool:
+    """Do the entropies of the packed scales tril_packed take the
+    `state_entropy` kernels? Under a kernel rule `kernels` other than False
+    (`SolverConfig.kernels`), float32 on a card at D <= SMALL_CHOL_MAX_DIM;
+    else the unrolled chain (the CPU, float64, wider states, False)."""
+    return (kernels is not False and tril_packed.device.type == "cuda"
+            and tril_packed.dtype == torch.float32
+            and dim_d <= om.SMALL_CHOL_MAX_DIM)
+
+
 def shooting_entropy(p: ShootingStatePosterior,
-                     jitter: float = om.DEFAULT_JITTER) -> torch.Tensor:
-    """Entropy of the factorized shooting posterior: (N, T-1)."""
+                     jitter: float = om.DEFAULT_JITTER,
+                     kernels: Optional[bool] = None) -> torch.Tensor:
+    """Entropy of the factorized shooting posterior: (N, T-1). On a card
+    where :func:`state_entropy_on_device` says so (`kernels` the solver's
+    kernel rule), the `state_entropy` kernels; else the unrolled chain.
+    Each call is counted in `cuda_kernels.STATE_ENTROPIES`."""
     d = p.dim_d
+    if state_entropy_on_device(p.tril_packed, d, kernels):
+        STATE_ENTROPIES["state_device"] += 1
+        return state_entropy(p.tril_packed, d, jitter)
+    STATE_ENTROPIES["state_unrolled"] += 1
     logdet = om.tri_logdet_from_chol(_jittered_chol_from_scale(p.tril(), jitter))
     return 0.5 * (d * (1.0 + math.log(2.0 * math.pi)) + logdet)
 

@@ -2,9 +2,9 @@
 step's (`train/graph_step.CapturedStep`) and the prediction solve's attempt
 (`models/flow.CapturedAttempt`): `WARMUP` eager calls, then the capture, on
 one side stream per card; and the counts under capture
-(`cuda_kernels.LAUNCHES` counts wrapper calls and `DRAW_SOLVES` posterior
-draws, and a replay makes none, so a capture's counted calls are taken back
-out and each replay adds them).
+(`cuda_kernels.LAUNCHES` counts wrapper calls, `DRAW_SOLVES` posterior
+draws and `STATE_ENTROPIES` entropy calls, and a replay makes none, so a
+capture's counted calls are taken back out and each replay adds them).
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ from typing import Callable
 
 import torch
 
-from gpode_tpu_torch.ops.cuda_kernels import DRAW_SOLVES, LAUNCHES
+from gpode_tpu_torch.ops.cuda_kernels import (DRAW_SOLVES, LAUNCHES,
+                                             STATE_ENTROPIES)
 
 # eager calls on the capture stream before a capture (they build the
 # kernels and set up the libraries' per-stream state)
@@ -44,16 +45,17 @@ def on_capture_stream(device: torch.device):
 
 
 # The counters a capture's calls add to and a replay does not, with disjoint
-# keys: the kernel launches by wrapper, the draws by solve route.
-_COUNTERS = (LAUNCHES, DRAW_SOLVES)
+# keys: the kernel launches by wrapper, the draws by solve route, the state
+# entropies by route.
+_COUNTERS = (LAUNCHES, DRAW_SOLVES, STATE_ENTROPIES)
 
 
 def launch_counter() -> Callable[[], dict]:
     """Start counting a capture's launches. Returns `take`: the launches
-    counted since the start, by wrapper (and the draws, by route), taken
-    back out of their counters (a capture launches nothing), so that each
-    call counts from the same start (one call per graph of a split
-    capture)."""
+    counted since the start, by wrapper (and the draws and the state
+    entropies, by route), taken back out of their counters (a capture
+    launches nothing), so that each call counts from the same start (one
+    call per graph of a split capture)."""
     before = [dict(counter) for counter in _COUNTERS]
 
     def take() -> dict:
@@ -69,6 +71,10 @@ def launch_counter() -> Callable[[], dict]:
 
 
 def replay_launches(delta: dict):
-    """Count a replay's launches: a graph's `take`."""
+    """Count a replay's launches: a graph's `take`, each key in the counter
+    that holds it."""
     for k, n in delta.items():
-        (LAUNCHES if k in LAUNCHES else DRAW_SOLVES)[k] += n
+        for counter in _COUNTERS:
+            if k in counter:
+                counter[k] += n
+                break

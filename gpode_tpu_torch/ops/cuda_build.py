@@ -31,7 +31,8 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {"fused_rhs": "fused_rhs.cu", "fused_dopri5": "fused_dopri5.cu",
            "fused_rk4": "fused_rk4.cu", "rbf_gram": "rbf_gram.cu",
            "fused_rhs_wide": "fused_rhs_wide.cu",
-           "dopri5_draws": "dopri5_draws.cu", "draw_solve": "draw_solve.cu"}
+           "dopri5_draws": "dopri5_draws.cu", "draw_solve": "draw_solve.cu",
+           "state_entropy": "state_entropy.cu"}
 HEADERS = ("rhs_tile.cuh",)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -26,7 +26,13 @@ Counterpart of `gpode_tpu/ops/pallas_kernels.py`:
     factor, nu = L^{-T}(v - L^{-1} u) with L = chol(K(Z,Z) + jitter I), and
     their VJP in K, u and v (`csrc/draw_solve.cu`; `gp.draw_posterior`), at
     M <= 256: a square factor a block up to M = 128, a packed triangle past
-    it. It replaces no Pallas kernel: XLA's Cholesky and triangular solves.
+    it. It replaces no Pallas kernel: XLA's Cholesky and triangular solves;
+  * :func:`state_entropy` — the shooting states' entropies, 0.5 (D (1 +
+    log 2 pi) + log det(L L^T + jitter I)) of every packed scale L at
+    D <= 8, and their VJP, bit for bit autograd's through the unrolled
+    chain (`csrc/state_entropy.cu`; `states.shooting_entropy`). It replaces
+    no Pallas kernel: XLA fuses the unrolled Cholesky of
+    `ops/math.cholesky_small`.
 
 The wide-layout rhs kernels (`csrc/fused_rhs_wide.cu`) are bound in
 `ops/wide_rhs.py` and share this module's counters and helpers.
@@ -76,7 +82,8 @@ LAUNCHES = {"fused_rhs_fwd": 0, "fused_rhs_bwd": 0,
             "rbf_gram": 0, "fused_rhs_wide_fwd": 0, "fused_rhs_wide2_fwd": 0,
             "fused_rhs_wide_bwd": 0, "dopri5_attempt_draws": 0,
             "draws_commit": 0, "draw_solve_fwd": 0, "draw_solve_bwd": 0,
-            "draw_solve_fwd_packed": 0, "draw_solve_bwd_slabs": 0}
+            "draw_solve_fwd_packed": 0, "draw_solve_bwd_slabs": 0,
+            "state_entropy_fwd": 0, "state_entropy_bwd": 0}
 # Posterior draws (`gp.draw_posterior`) by where their update coefficients
 # were solved: "device", the `draw_solve` kernels on the draw's own factor
 # of K(Z, Z); "library", the library's factorisation and triangular solves
@@ -84,6 +91,12 @@ LAUNCHES = {"fused_rhs_fwd": 0, "fused_rhs_bwd": 0,
 # refuse, the CPU). One count a draw; its keys are none of `LAUNCHES`', and
 # a captured graph's replay counts its capture's (`ops/capture.py`).
 DRAW_SOLVES = {"device": 0, "library": 0}
+# Shooting-state entropies (`states.shooting_entropy`) by route:
+# "state_device", the `state_entropy` kernels; "state_unrolled", the
+# unrolled Cholesky chain (`kernels=False`, the CPU, float64, D > 8). One
+# count a call; keys none of `LAUNCHES`' or `DRAW_SOLVES`', and a replay
+# counts its capture's (`ops/capture.py`).
+STATE_ENTROPIES = {"state_device": 0, "state_unrolled": 0}
 # (draws, N, Din, D, M, S) of every `dopri5_attempt_draws` launch (a captured
 # graph's replays repeat its capture's shape)
 DRAWS_ATTEMPT_SHAPES: set = set()
@@ -316,6 +329,9 @@ _SIGNATURES = {
                    "gpode_draw_solve_bwd": [_P] * 7 + [_I] * 3 + [_P],
                    "gpode_draw_solve_bwd_slabs": [_P] * 8 + [_I] * 3 + [_P],
                    "gpode_draw_solve_occupancy": [_I] * 3 + [_P]},
+    "state_entropy": {"gpode_state_entropy_fwd": [_P] + [_F] * 2 + [_P] + [_I] * 2 + [_P],
+                      "gpode_state_entropy_bwd": [_P] * 2 + [_F] + [_P] + [_I] * 2 + [_P],
+                      "gpode_state_entropy_occupancy": [_I] * 2 + [_P]},
 }
 _TYPED: set = set()
 
@@ -1404,6 +1420,143 @@ def draw_solve(kzz, u_prior, v, jitter=om.DEFAULT_JITTER):
 
 
 # ---------------------------------------------------------------------------
+# state_entropy
+# ---------------------------------------------------------------------------
+
+def _cholesky_adjoint(a, g):
+    """The cotangent of a's lower triangle under H = 0.5 (const + 2 sum_j
+    log c_jj), c = `om.cholesky_small(a)`, for H's cotangent g, as autograd
+    forms it through that chain: its nodes in reverse order of creation,
+    each intermediate's cotangent summed in that order (a tensor's consumers
+    latest first, the stack's zero or g / c_jj first)."""
+    d = a.shape[-1]
+    c = [[None] * d for _ in range(d)]
+    t, r = [[None] * d for _ in range(d)], [None] * d
+    for j in range(d):
+        s = a[..., j, j]
+        for k in range(j):
+            s = s - c[j][k] * c[j][k]
+        c[j][j] = torch.sqrt(s)
+        r[j] = torch.reciprocal(c[j][j])
+        for i in range(j + 1, d):
+            u = a[..., i, j]
+            for k in range(j):
+                u = u - c[i][k] * c[j][k]
+            t[i][j], c[i][j] = u, u * r[j]
+    gc = [[g / c[i][i] if i == j else torch.zeros_like(g) for j in range(d)]
+          for i in range(d)]
+    ga = torch.zeros_like(a)
+    for j in reversed(range(d)):
+        g_inv = None
+        for i in reversed(range(j + 1, d)):
+            gt, gi = gc[i][j] * r[j], gc[i][j] * t[i][j]
+            g_inv = gi if g_inv is None else g_inv + gi
+            for k in reversed(range(j)):
+                gc[i][k] = gc[i][k] + (-gt) * c[j][k]
+                gc[j][k] = gc[j][k] + (-gt) * c[i][k]
+            ga[..., i, j] = gt
+        if g_inv is not None:
+            gc[j][j] = gc[j][j] + (-g_inv) * (r[j] * r[j])
+        gs = gc[j][j] / (2 * c[j][j])
+        for k in reversed(range(j)):
+            p = (-gs) * c[j][k]
+            gc[j][k] = gc[j][k] + p + p
+        ga[..., j, j] = gs
+    return ga
+
+
+def state_entropy_bwd_plain(tril_packed, g, d, jitter=om.DEFAULT_JITTER):
+    """The VJP that the backward kernel computes, as tensor ops: for packed
+    scales tril_packed (..., d(d+1)/2) and the entropies' cotangent g
+    (...), the cotangent of tril_packed through the unrolled chain (L L^T +
+    jitter I, `om.cholesky_small`, the sum of logs), operation for
+    operation as autograd forms it: G = the Cholesky's adjoint
+    (`_cholesky_adjoint`), then G L + (L^T G)^T. Mathematically g A^{-1} L,
+    A = L L^T + jitter I."""
+    L = om.fill_tril(tril_packed, d)
+    G = _cholesky_adjoint(om.add_jitter(torch.matmul(L, L.mT), jitter), g)
+    return om.pack_tril(torch.matmul(G, L) + torch.matmul(L.mT, G).mT)
+
+
+def _check_state_entropy(tril_packed, d):
+    if tril_packed.device.type != "cuda":
+        raise ValueError(f"state_entropy runs on a card, got {tril_packed.device}"
+                         f" (the CPU path is the unrolled chain, "
+                         f"`states.shooting_entropy`)")
+    if tril_packed.dtype != torch.float32:
+        raise TypeError(f"state_entropy takes float32, got {tril_packed.dtype}")
+    if not 1 <= d <= om.SMALL_CHOL_MAX_DIM:
+        raise ValueError(f"state_entropy takes 1 <= D <= {om.SMALL_CHOL_MAX_DIM}"
+                         f", got D={d}")
+    if tril_packed.ndim < 1 or tril_packed.shape[-1] != d * (d + 1) // 2:
+        raise ValueError(f"tril_packed must be (..., {d * (d + 1) // 2}) at "
+                         f"D={d}, got {tuple(tril_packed.shape)}")
+    if tril_packed.numel() > 2 ** 31 - 1:
+        raise ValueError(f"state_entropy takes at most 2**31 - 1 floats, got "
+                         f"{tril_packed.numel()}")
+
+
+def _state_entropy_fwd(tril, d, jitter):
+    out = tril.new_empty(tril.shape[:-1])
+    LAUNCHES["state_entropy_fwd"] += 1
+    rc = _lib("state_entropy").gpode_state_entropy_fwd(
+        _ptr(tril), ctypes.c_float(jitter),
+        ctypes.c_float(d * (1.0 + math.log(2.0 * math.pi))), _ptr(out),
+        out.numel(), d, _stream(tril.device))
+    _raise_on(rc, "state_entropy forward")
+    return out
+
+
+def _state_entropy_bwd(tril, g, d, jitter):
+    g = g.contiguous()
+    grad = torch.empty_like(tril)
+    LAUNCHES["state_entropy_bwd"] += 1
+    rc = _lib("state_entropy").gpode_state_entropy_bwd(
+        _ptr(tril), _ptr(g), ctypes.c_float(jitter), _ptr(grad), g.numel(), d,
+        _stream(tril.device))
+    _raise_on(rc, "state_entropy backward")
+    return grad
+
+
+class _StateEntropyFn(torch.autograd.Function):
+    """The entropies (...) of packed scales (..., d(d+1)/2) on the card,
+    differentiable in the scales: both kernels (the backward recomputes
+    the factor; only the scales are saved)."""
+
+    @staticmethod
+    def forward(ctx, tril, d, jitter):
+        ctx.save_for_backward(tril)
+        ctx.d, ctx.jitter = d, jitter
+        return _state_entropy_fwd(tril, d, jitter)
+
+    @staticmethod
+    @first_order_only
+    def backward(ctx, g):
+        (tril,) = ctx.saved_tensors
+        return _state_entropy_bwd(tril, g, ctx.d, ctx.jitter), None, None
+
+
+def state_entropy(tril_packed, d, jitter=om.DEFAULT_JITTER):
+    """Entropies of N(., L L^T + jitter I) for the packed lower-triangular
+    scales tril_packed (..., d(d+1)/2): 0.5 (d (1 + log 2 pi) + log det),
+    shape (...), differentiable in tril_packed. Both kernels repeat the
+    unrolled chain's operations (L L^T as the GEMM sums it,
+    `ops/math.cholesky_small`, the logs), each rounded on its own: the
+    gradient is autograd's through the chain bit for bit
+    (`state_entropy_bwd_plain`), the entropy within the order of the sum
+    of logs; a non-positive pivot gives a non-finite entropy, as there.
+
+    It launches the forward kernel and, for a gradient, the backward (on
+    the current stream, counted in `LAUNCHES` as `state_entropy_fwd` and
+    `state_entropy_bwd`), or raises on operands the kernels do not take
+    (float32 on a card, 1 <= d <= SMALL_CHOL_MAX_DIM, a template each in
+    `csrc/state_entropy.cu`; CPU tensors: the unrolled chain in
+    `states.shooting_entropy` is their path)."""
+    _check_state_entropy(tril_packed, d)
+    return _StateEntropyFn.apply(tril_packed.contiguous(), d, float(jitter))
+
+
+# ---------------------------------------------------------------------------
 # What a kernel holds on the card
 # ---------------------------------------------------------------------------
 
@@ -1513,6 +1666,15 @@ def draw_solve_occupancy(direction, m, r):
         raise RuntimeError(f"{name} takes {report['smem_bytes']} bytes of "
                            f"shared memory, the geometry says {want}")
     return report
+
+
+def state_entropy_occupancy(direction, d):
+    """`kernel_occupancy` of the `state_entropy` kernel of `direction`
+    ("fwd" or "bwd") at dimension d: a template per D, whose mangled name
+    holds `state_entropy_<direction>_kernelILi<D>E`."""
+    return kernel_occupancy("state_entropy", "gpode_state_entropy_occupancy",
+                            f"state_entropy_{direction}_kernelILi{d}E",
+                            ("fwd", "bwd").index(direction), d)
 
 
 def segment_occupancy(direction, stages, din, d, m, s, geo):
